@@ -12,9 +12,10 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    per source, in parallel) and prints the build seconds and ptxas's
    register and spill counts;
 3. holds each kernel against its plain PyTorch version on the card, over the
-   shape grids of ``tests/test_kernels.py`` and at the llama3_8b shapes
-   (tolerance 2e-4 in fp32, 2e-2 in bf16), and times kernel, plain version
-   and one library call at the llama3_8b shapes;
+   shape grids of ``tests/test_kernels.py`` and at the llama3_8b shapes (K1,
+   K2) or the mamba2_370m prefill shapes (K3) (tolerance 2e-4 in fp32, 5e-4
+   at the SSD property points, 2e-2 in bf16), and times kernel, plain
+   version and, where PyTorch has one, a library call at those shapes;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -23,7 +24,16 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    to 0 just before and read just after, and checks that every request got
    its 32 tokens and that both kernels ran;
 6. serves the same requests again under ``torch.profiler`` and prints the
-   device time by kernel and the device's busy and idle shares.
+   device time by kernel and the device's busy and idle shares;
+7. builds mamba2_370m at full width and depth in bf16 from a seeded
+   generator and compares its logits with K3 against the plain scan after a
+   256-token prefill, a ragged 379-token chunk from the carried state, and a
+   decode: in fp32 to 2e-3, and in bf16 by their distance from the fp32
+   model's logits;
+8. serves the same 8 requests through ``build_stack(mode="real")`` with
+   mamba2_370m, counts set to 0 just before and read just after, and checks
+   that every request got its 32 tokens and that K3 ran;
+9. profiles that serving run as in 6.
 
 It prints one JSON ``kernels`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -51,6 +61,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SERVING = dict(num=8, prompt_min=128, prompt_max=1024, new_tokens=32, seed=0)
 
 
 def log(msg: str) -> None:
@@ -90,8 +101,8 @@ def probe() -> str:
 # 3. kernels against their plain versions
 # -------------------------------------------------------------------------
 
-def assert_close(name, out, exp, dtype_name):
-    tol = TOL[dtype_name]
+def assert_close(name, out, exp, dtype_name, tol=None):
+    tol = tol or TOL[dtype_name]
     o, e = out.float(), exp.float()
     if not torch.isfinite(o).all():
         raise AssertionError(f"{name}: kernel output is not finite")
@@ -286,8 +297,95 @@ def measure_paged(ops):
             "bound_by": b_by, "library_ms": library_ms}
 
 
+def ssd_inputs(gen, B, T, H, P, N, dtype, carry=False):
+    """Inputs of K3 with realistic decays, dA = -softplus(normal)."""
+    dev = "cuda"
+    xdt = torch.randn((B, T, H, P), generator=gen, device=dev)
+    dA = -F.softplus(torch.randn((B, T, H), generator=gen, device=dev))
+    Bm = torch.randn((B, T, N), generator=gen, device=dev)
+    Cm = torch.randn((B, T, N), generator=gen, device=dev)
+    s0 = torch.randn((B, H, N, P), generator=gen, device=dev) if carry else None
+    return [t.to(dtype) for t in (xdt, dA, Bm, Cm)], s0
+
+
+def check_ssd_grid(ops):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [((1, 128, 2, 64, 32), 128, "float32", None, False),   # single chunk
+             ((2, 256, 2, 64, 32), 128, "float32", None, False),   # two chunks
+             ((1, 512, 1, 32, 64), 128, "float32", None, False),   # four chunks
+             ((2, 64, 4, 16, 16), 32, "float32", None, False),     # small chunks
+             ((1, 96, 2, 32, 32), 32, "float32", None, False),     # non-power-of-two T
+             ((1, 128, 2, 32, 32), 64, "bfloat16", None, False)]   # bf16 inputs
+    # the property sweep of tests/test_kernels.py, as fixed points, at 5e-4
+    for n, chunk, H, P, N in [(1, 16, 1, 16, 16), (4, 64, 3, 32, 32), (2, 32, 2, 16, 32),
+                              (3, 16, 3, 32, 16), (1, 64, 2, 16, 16), (4, 32, 1, 32, 16)]:
+        cases.append(((1, n * chunk, H, P, N), chunk, "float32", 5e-4, False))
+    # what the Pallas kernel does not take: ragged T, a carried state, bf16 with both
+    for shape, chunk, dt in [((2, 37, 2, 16, 16), 16, "float32"),
+                             ((1, 5, 2, 32, 32), 16, "float32"),
+                             ((2, 200, 2, 64, 32), 64, "float32"),
+                             ((1, 150, 2, 32, 32), 64, "bfloat16")]:
+        cases.append((shape, chunk, dt, None, True))
+    # the mamba2_370m prefill shapes: a full 512-token chunk and a ragged one
+    for T, carry in ((512, False), (512, True), (379, True)):
+        cases.append(((1, T, 32, 64, 128), 128, "float32", None, carry))
+    for shape, chunk, dt, tol, carry in cases:
+        (xdt, dA, Bm, Cm), s0 = ssd_inputs(gen, *shape, getattr(torch, dt), carry)
+        y, st = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=s0)
+        y_exp, st_exp = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=s0,
+                                     force="plain")
+        torch.cuda.synchronize()
+        what = f"K3 {shape} chunk {chunk} {dt}{' carried state' if carry else ''}"
+        assert_close(what + " y", y, y_exp, dt, tol)
+        assert_close(what + " state", st, st_exp, dt, tol)
+
+
+def ssd_flops(B, T, H, P, N, Q):
+    """Operations of the chunked SSD algorithm on these inputs, counting the
+    rows of a ragged last chunk only: C·Bᵀ over the causal triangle once per
+    (sequence, chunk), since it does not depend on the head; per (sequence,
+    head, chunk) the L weighting, (C·Bᵀ ∘ L)·xdt over the triangle,
+    exp(cum)·C·S and the state update.  The exponentials are not counted."""
+    total = 0
+    for c0 in range(0, T, Q):
+        q = min(Q, T - c0)
+        tri = q * (q + 1) // 2
+        total += B * 2 * N * tri
+        total += B * H * (tri + 2 * P * tri + (2 * q * N * P + q * P)
+                          + (2 * q * N * P + q * P + N * P))
+    return total
+
+
+def measure_ssd(ops):
+    """K3 at the mamba2_370m prefill shape: one 512-token chunk of one
+    sequence from a carried state, fp32, as the SSD layer calls it."""
+    B, T, H, P, N, Q = 1, 512, 32, 64, 128, 128
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    (xdt, dA, Bm, Cm), s0 = ssd_inputs(gen, B, T, H, P, N, torch.float32, carry=True)
+    y, st = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0)
+    y_exp, st_exp = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0, force="plain")
+    torch.cuda.synchronize()
+    err = max(assert_close(f"K3 mamba2_370m {(B, T, H, P, N)} y", y, y_exp, "float32"),
+              assert_close(f"K3 mamba2_370m {(B, T, H, P, N)} state", st, st_exp, "float32"))
+    ms = time_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
+    plain_ms = time_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0,
+                                            force="plain"))
+    flops = ssd_flops(B, T, H, P, N, Q)
+    nbytes = 4 * (xdt.numel() + dA.numel() + Bm.numel() + Cm.numel() + s0.numel()
+                  + y.numel() + st.numel())
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    log(f"K3 mamba2_370m: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
+        f"bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.4f} GFLOP at the fp32 rate, "
+        f"{nbytes / 1e6:.3f} MB)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:84",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 # -------------------------------------------------------------------------
-# 4. model check
+# 4. and 7. model checks
 # -------------------------------------------------------------------------
 
 def check_model(model, params, vocab):
@@ -312,18 +410,73 @@ def check_model(model, params, vocab):
             raise AssertionError(f"model {what}: kernels and plain differ by {rel}")
 
 
+def check_mamba(model, params, cfg):
+    """K3 inside the full model: logits after a 256-token prefill (two full
+    chunks), a ragged 379-token chunk from the carried state, and a decode.
+
+    In fp32 (the bf16 weights widened, so nothing else in the model rounds)
+    the logits with K3 must equal those with the plain scan to 2e-3, the
+    repo's logit tolerance (``tests/test_models_smoke.py``).  In bf16, the
+    served type, each layer rounds the scan's output to bf16, so fp32
+    differences of ~1e-6 between two orders of summation flip roundings that
+    48 layers carry on, and K3 and the plain scan differ by several percent
+    (measured on the H100).  So the bf16 logits are held against the fp32
+    model's: K3's distance from them must be at most twice the larger
+    distance of two plain versions, the plain scan in chunks of 128 (the
+    config's) and of 64."""
+    import dataclasses
+
+    from repro_torch.models.transformer import build_model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (1, 636), generator=gen, device="cuda")
+    what = ("prefill (256 tokens, K3)",
+            "ragged prefill (379 tokens from the carried state, K3)",
+            "decode (plain SSD step)")
+    reblocked = build_model(cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk_size=64)))
+
+    def run(m, p, dtype, force):
+        cache = m.init_cache(1, 2048, dtype, "cuda")
+        a, cache = m.prefill(p, {"tokens": toks[:, :256]}, cache, force=force)
+        b, cache = m.prefill(p, {"tokens": toks[:, 256:635]}, cache, force=force)
+        c, _ = m.decode_step(p, cache, toks[:, 635:], force=force)
+        return [t.float() for t in (a, b, c)]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    params32 = _widen(params)
+    k32, p32 = run(model, params32, torch.float32, None), run(model, params32, torch.float32,
+                                                              "plain")
+    del params32
+    k16, p16 = run(model, params, torch.bfloat16, None), run(model, params, torch.bfloat16,
+                                                             "plain")
+    r16 = run(reblocked, params, torch.bfloat16, "plain")
+    torch.cuda.synchronize()
+    for i, w in enumerate(what):
+        for a in (k32[i], k16[i]):
+            if tuple(a.shape) != (1, cfg.vocab_size) or not torch.isfinite(a).all():
+                raise AssertionError(f"mamba2 {w}: logits {tuple(a.shape)} not finite "
+                                     f"or of the wrong shape")
+        e32, e16 = rel(k32[i], p32[i]), rel(k16[i], p16[i])
+        ek, ep, er = rel(k16[i], p32[i]), rel(p16[i], p32[i]), rel(r16[i], p32[i])
+        log(f"mamba2 {w}: max relative error K3 vs plain {e32:.3e} in fp32 "
+            f"(argmax {int(k32[i].argmax())} vs {int(p32[i].argmax())}), {e16:.3e} in bf16 "
+            f"(argmax {int(k16[i].argmax())} vs {int(p16[i].argmax())}); bf16 against "
+            f"the fp32 model: K3 {ek:.3e}, plain {ep:.3e}, plain in chunks of 64 {er:.3e}")
+        if e32 > 2e-3:
+            raise AssertionError(f"mamba2 {w}: K3 and plain differ by {e32} in fp32")
+        if ek > 2 * max(ep, er):
+            raise AssertionError(f"mamba2 {w}: in bf16 K3 is {ek} from the fp32 model, "
+                                 f"the plain scan {max(ep, er)}")
+
+
 # -------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
-    from repro_torch.launch.serve import make_requests, run_requests
-    from repro_torch.models.transformer import build_model
-    from repro_torch.serving.scheduler import EngineConfig
-    from repro_torch.serving.stack import build_stack
 
     t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,10 +496,50 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     check_flash_grid(ops)
     check_paged_grid(ops)
-    kernels = [measure_flash(ops), measure_paged(ops)]
+    check_ssd_grid(ops)
+    kernels = [measure_flash(ops), measure_paged(ops), measure_ssd(ops)]
+    launches = {}
 
     log("== 4. llama3_8b, full width and depth, bf16, random weights (seed 0)")
-    cfg = get_config("llama3_8b")
+    cfg, model, params = build_full("llama3_8b")
+    check_model(model, params, cfg.vocab_size)
+    log("== 5. serving llama3_8b through build_stack(mode='real')")
+    launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention")))
+    log("== 6. where the device time goes: the same serving run under torch.profiler")
+    serve_path(ops, cfg, model, params, (), profile=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    log("== 7. mamba2_370m, full width and depth, bf16, random weights (seed 0)")
+    cfg, model, params = build_full("mamba2_370m")
+    check_mamba(model, params, cfg)
+    log("== 8. serving mamba2_370m through build_stack(mode='real')")
+    launches.update(serve_path(ops, cfg, model, params, ("ssd_scan",)))
+    log("== 9. where the device time goes: the same serving run under torch.profiler")
+    serve_path(ops, cfg, model, params, (), profile=True)
+
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        log(f"kernel {k['name']}: {k['ms']:.4f} ms a call, {k['launches']} launches on its "
+            f"serving path, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, plain "
+            f"{k['plain_ms']:.4f} ms, library {library}, max abs err {k['max_abs_err']:.3e}")
+    log(f"total {time.monotonic() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+def build_full(arch):
+    """``arch`` at full width and depth in bf16 on the card, random weights
+    from seed 0; its parameter count must equal the config's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
@@ -357,53 +550,48 @@ def main() -> int:
         "allocated")
     if n_params != cfg.param_count():
         raise AssertionError("parameter count disagrees with the config")
-    check_model(model, params, cfg.vocab_size)
+    return cfg, model, params
 
-    log("== 5. serving through build_stack(mode='real')")
+
+def serve_path(ops, cfg, model, params, path_kernels, profile=False):
+    """Serve the smoke traffic (8 requests at once, prompts uniform in
+    128-1024 from numpy seed 0, 32 new tokens each; vllm policy, 512-token
+    step budget, 8 slots, no prefix caching) through ``build_stack(mode=
+    "real")``.  The launch counts are set to 0 just before the run and read
+    just after; every kernel in ``path_kernels`` must have launched.  Returns
+    those kernels' counts.  With ``profile``, runs under torch.profiler."""
+    from repro_torch.launch.serve import make_requests, run_requests
+    from repro_torch.serving.scheduler import EngineConfig
+    from repro_torch.serving.stack import build_stack
     engine_cfg = EngineConfig(policy="vllm", max_num_seqs=8, max_batched_tokens=512,
                               block_size=16, num_blocks=1024, enable_prefix_caching=False,
                               chip="h100-sxm")
     stack = build_stack(cfg, engine_cfg, "real", model=model, params=params,
                         max_len=2048, device="cuda", dtype=torch.bfloat16)
-    reqs = make_requests(8, 128, 1024, 32, cfg.vocab_size, seed=0)
+    reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
+                         SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
+    if profile:
+        profile_serving(lambda: run_requests(stack, reqs, timeout=600))
+        return {}
     log(f"prompt lengths {[r.prompt_len for r in reqs]}")
     ops.reset_launch_counts()
     summary = run_requests(stack, reqs, timeout=600)
     counts = ops.launch_counts()
     steps = summary["steps"]
     log("serving: " + json.dumps(summary))
-    log(f"launches during serving: {counts} over {steps} steps "
-        f"({counts['flash_attention'] / steps:.2f} and "
-        f"{counts['paged_attention'] / steps:.2f} per step)")
+    log(f"launches during serving: {counts} over {steps} steps ("
+        + ", ".join(f"{name} {counts[name] / steps:.2f}" for name in path_kernels)
+        + " per step)")
     for r in reqs:
-        if r.num_generated != 32 or not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
+        if (r.num_generated != SERVING["new_tokens"]
+                or not all(0 <= t < cfg.vocab_size for t in r.output_tokens)):
             raise AssertionError(f"request {r.request_id} produced {r.num_generated} tokens")
     if summary["finished"] != len(reqs):
         raise AssertionError(f"{summary['finished']} of {len(reqs)} requests finished")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in path_kernels:
+        if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the serving path")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-        log(f"kernel {k['name']}: {k['ms']:.4f} ms a call, {k['launches']} launches "
-            f"({k['launches'] / steps:.2f} per serving step), bound {k['bound_ms']:.5f} ms "
-            f"by {k['bound_by']}, plain {k['plain_ms']:.4f} ms, library "
-            f"{k['library_ms']:.4f} ms, max abs err {k['max_abs_err']:.3e}")
-
-    log("== 6. where the device time goes: the same serving run under torch.profiler")
-    stack = build_stack(cfg, engine_cfg, "real", model=model, params=params,
-                        max_len=2048, device="cuda", dtype=torch.bfloat16)
-    reqs = make_requests(8, 128, 1024, 32, cfg.vocab_size, seed=0)
-    profile_serving(lambda: run_requests(stack, reqs, timeout=600))
-
-    log(f"total {time.monotonic() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}),
-          flush=True)
-    return 0
+    return {name: counts[name] for name in path_kernels}
 
 
 def profile_serving(serve) -> None:
@@ -428,13 +616,15 @@ def profile_serving(serve) -> None:
         log("profiler saw no device time")
         return
     groups = {"flash_attention (K1)": 0.0, "paged_attention (K2)": 0.0,
-              "matrix products": 0.0, "other": 0.0}
+              "ssd_scan (K3)": 0.0, "matrix products": 0.0, "other": 0.0}
     for ms, _, name in kernels:
         low = name.lower()
         if "flash_fwd" in name:
             groups["flash_attention (K1)"] += ms
         elif "paged_fwd" in name:
             groups["paged_attention (K2)"] += ms
+        elif "ssd_fwd" in name:
+            groups["ssd_scan (K3)"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
             groups["matrix products"] += ms
         else:
@@ -445,6 +635,13 @@ def profile_serving(serve) -> None:
         log(f"  {g:24s} {ms:9.2f} ms  {100 * ms / total:5.1f}% of device time")
     for ms, n, name in sorted(kernels, reverse=True)[:10]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
+
+
+def _widen(tree):
+    """The same tree with every tensor in fp32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def _leaves(tree):

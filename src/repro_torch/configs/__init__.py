@@ -6,8 +6,9 @@ and ``reduced()`` (a tiny same-family config for CPU smoke tests).  Select
 with ``--arch <id>`` in the launchers.
 
 The PyTorch port runs the dense decoders ``llama3_8b``, ``qwen2_5_3b`` and
-``granite_8b``; ``get_config`` of any other architecture raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``granite_8b`` and the SSM ``mamba2_370m``; ``get_config`` of any other
+architecture raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 
 Shape cells (assigned): each architecture is paired with all four shapes;
 ``decode_*``/``long_*`` lower ``serve_step`` (one token against a KV cache of
@@ -83,7 +84,6 @@ _NOT_PORTED = {
     "olmo_1b": "ROADMAP Queue A item 8 (sliding window and MoE)",
     "llava_next_mistral_7b": "ROADMAP Queue A item 8 (sliding window and MoE)",
     "llama3_70b": "ROADMAP Queue A item 16 (tensor parallelism over four cards)",
-    "mamba2_370m": "ROADMAP Queue A item 10 (Mamba2 / SSD)",
     "recurrentgemma_2b": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "whisper_base": "ROADMAP Queue A item 12 (Whisper encoder-decoder)",
 }

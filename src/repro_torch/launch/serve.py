@@ -1,8 +1,9 @@
 """Serving driver CLI: run a registry architecture through the port's engine
 in real mode, on the card.
 
-    # llama3_8b at full width and depth, bf16, one H100:
+    # llama3_8b or mamba2_370m at full width and depth, bf16, one H100:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m
 
     # a reduced model on the CPU (a rehearsal; its times are CPU times):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\

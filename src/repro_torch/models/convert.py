@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
+from .layers import FP32_LEAVES
+
 
 def _leaf(arr, device, dtype) -> torch.Tensor:
     a = np.asarray(arr)
@@ -29,10 +31,14 @@ def _leaf(arr, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _convert(tree: Any, device, dtype, name: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    return _leaf(tree, device, None if name in FP32_LEAVES else dtype)
+
+
 def from_numpy(tree: Any, *, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Same structure, numpy leaves -> tensors on ``device`` (``cuda`` unless
-    it says otherwise); ``dtype`` recasts floating leaves."""
-    device = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: from_numpy(v, device=device, dtype=dtype) for k, v in tree.items()}
-    return _leaf(tree, device, dtype)
+    it says otherwise); ``dtype`` recasts floating leaves, except those the
+    reference keeps in fp32 whatever the model's type (``FP32_LEAVES``)."""
+    return _convert(tree, resolve_device(device), dtype)

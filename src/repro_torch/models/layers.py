@@ -1,17 +1,21 @@
-"""Model building blocks in PyTorch: the dense subset of ``repro.models.layers``.
+"""Model building blocks in PyTorch: the dense and Mamba2 (SSD) subsets of
+``repro.models.layers``.
 
 Plain functions over explicit parameter dictionaries that keep the JAX
 package's names and layouts (attention weights (d, H, Dh) and (H, Dh, d)), so
 that :mod:`repro_torch.models.convert` copies parameters without renaming or
-transposing.  Compute runs in the input type with fp32 norms, RoPE and
-softmax, as in the reference.
+transposing.  Compute runs in the input type with fp32 norms, RoPE, softmax
+and SSD recurrence, as in the reference.
 
 Conventions: B batch, T query tokens, S KV length, H heads, Hkv KV heads,
-D head_dim, d = d_model, F = d_ff.
+D head_dim, d = d_model, F = d_ff; for SSD, H heads of P channels, state N.
 
 :func:`attention` and :func:`causal_mask` are the reference's dense,
 mask-based attention, kept for layer-level parity tests; the model attends
-over its cache through :mod:`repro_torch.kernels.ops`.
+over its cache through :mod:`repro_torch.kernels.ops`.  :func:`ssd_prefill`
+runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
+:func:`ssd_decode_step` has no kernel in the reference and stays plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -22,7 +26,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops, ref
+
 from .config import ModelConfig
+
+# Leaves the reference initialises in fp32 whatever the model's type
+# (``repro.models.layers.ssd_params``); conversions leave them in fp32.
+FP32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
 
 # --------------------------------------------------------------------------
 # initialisation helpers
@@ -222,3 +232,113 @@ def mlp(cfg: ModelConfig, p, x):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# Mamba2 / SSD (state-space duality)
+# --------------------------------------------------------------------------
+
+
+def _causal_conv1d(x, weights, state=None):
+    """Depthwise causal conv.  x: (B,T,W); weights: (K,W); state: (B,K-1,W)."""
+    K = weights.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, T+K-1, W)
+    T = x.shape[1]
+    out = sum(xp[:, i:i + T, :] * weights[i] for i in range(K))
+    new_state = xp[:, -(K - 1):, :] if K > 1 else None
+    return out, new_state
+
+
+def ssd_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=None, lead=()):
+    ssm = cfg.ssm
+    d_in = ssm.d_inner(cfg.d_model)
+    nheads = ssm.num_heads(cfg.d_model)
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    heads = tuple(lead) + (nheads,)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        # in_proj emits [z (gate), x, B, C, dt]
+        "w_in": dense_init((cfg.d_model, 2 * d_in + 2 * ssm.state_dim + nheads), generator,
+                           **kw),
+        "conv": dense_init((ssm.conv_width, d_in + 2 * ssm.state_dim), generator, **kw),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads, **f32)).expand(heads).clone(),
+        "D": torch.ones(heads, **f32),
+        "dt_bias": torch.zeros(heads, **f32),
+        "w_out": dense_init((d_in, cfg.d_model), generator, **kw),
+        "norm_scale": torch.ones(tuple(lead) + (d_in,), dtype=dtype, device=device),
+    }
+
+
+def _ssd_split(cfg: ModelConfig, p, x):
+    ssm = cfg.ssm
+    d_in = ssm.d_inner(cfg.d_model)
+    nheads = ssm.num_heads(cfg.d_model)
+    zxbcdt = x @ p["w_in"]
+    z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * ssm.state_dim, nheads], dim=-1)
+    return z, xbc, dt, d_in, nheads
+
+
+def ssd_prefill(cfg: ModelConfig, p, x, state=None, conv_state=None, *,
+                force: Optional[str] = None):
+    """Mamba2 block over a sequence (chunked SSD).  x: (B,T,d), any T >= 1.
+
+    Returns (y, final_state (B,H,N,P) fp32, conv_state (B,K-1,d_conv)).  The
+    scan goes through ``ops.ssd_scan`` with ``state`` as its initial state;
+    B and C are handed over as fp32 views of the projection (no copy in fp32).
+    """
+    ssm = cfg.ssm
+    B, T, _ = x.shape
+    z, xbc, dt, d_in, H = _ssd_split(cfg, p, x)
+    xbc, conv_state = _causal_conv1d(xbc, p["conv"], conv_state)
+    xbc = F.silu(xbc)
+    xs, Bmat, Cmat = torch.split(xbc, [d_in, ssm.state_dim, ssm.state_dim], dim=-1)
+    P = ssm.head_dim
+    xh = xs.reshape(B, T, H, P)
+    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B,T,H)
+    A = -torch.exp(p["A_log"])                                        # (H,)
+    y, state = ops.ssd_scan(xh.float() * dt[..., None], dt * A, Bmat.float(), Cmat.float(),
+                            chunk=ssm.chunk_size, initial_state=state, force=force)
+    y = y + xh.float() * p["D"][None, None, :, None]
+    y = y.reshape(B, T, d_in).to(x.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, p["norm_scale"])
+    return y @ p["w_out"], state, conv_state
+
+
+def ssd_chunked_ref(xh, dt, A, Bmat, Cmat, *, chunk: int, initial_state=None):
+    """Chunked SSD reference.  xh:(B,T,H,P) dt:(B,T,H) A:(H,) B/C:(B,T,N).
+
+    h_t = a_t h_{t-1} + dt_t B_t x_t, y_t = C_t·h_t, with a_t = exp(dt_t A).
+    Unlike the reference it takes any T: a ragged last chunk is padded with
+    zeros, which is exact (see ``kernels.ref.ssd_scan_chunked``)."""
+    return ref.ssd_scan_chunked(xh.float() * dt[..., None], dt * A, Bmat, Cmat, chunk=chunk,
+                                initial_state=initial_state)
+
+
+def ssd_decode_step(cfg: ModelConfig, p, x_t, state, conv_state):
+    """Single-token SSD update.  x_t: (B,1,d); state: (B,H,N,P)."""
+    ssm = cfg.ssm
+    B = x_t.shape[0]
+    z, xbc, dt, d_in, H = _ssd_split(cfg, p, x_t)
+    xbc, conv_state = _causal_conv1d(xbc, p["conv"], conv_state)
+    xbc = F.silu(xbc)
+    xs, Bmat, Cmat = torch.split(xbc, [d_in, ssm.state_dim, ssm.state_dim], dim=-1)
+    P = ssm.head_dim
+    xh = xs.reshape(B, H, P).float()
+    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])                  # (B,H)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt1 * A[None, :])                                    # (B,H)
+    Bv = Bmat[:, 0].float()                                            # (B,N)
+    Cv = Cmat[:, 0].float()
+    dx = xh * dt1[..., None]                                           # (B,H,P)
+    state = state * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", Bv, dx)
+    y = torch.einsum("bn,bhnp->bhp", Cv, state)
+    y = y + xh * p["D"][None, :, None]
+    y = y.reshape(B, 1, d_in).to(x_t.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, p["norm_scale"])
+    return y @ p["w_out"], state, conv_state

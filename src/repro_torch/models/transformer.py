@@ -1,5 +1,5 @@
-"""Dense decoder LM in PyTorch: the uniform-``attn`` path of
-``repro.models.transformer.TransformerLM``.
+"""Decoder LM in PyTorch: the uniform-``attn`` (dense) and uniform-``ssd``
+(Mamba2) paths of ``repro.models.transformer.TransformerLM``.
 
 Entry points, as in the reference:
 
@@ -13,10 +13,12 @@ Entry points, as in the reference:
 
 Parameters are nested dictionaries of tensors with the JAX names and layouts,
 blocks stacked on a leading layer axis.  The cache keeps the reference's
-layout: ``k``/``v`` (L, B, S, Hkv, D), ``kv_pos`` (L, B, S) filled with −1, and
+layout: for attention ``k``/``v`` (L, B, S, Hkv, D) and ``kv_pos`` (L, B, S)
+filled with −1; for SSD the fp32 recurrent ``state`` (L, B, H, N, P) and
+``conv`` state (L, B, K−1, d_inner + 2N), whatever the cache's type; and
 ``cache_len`` (B,).  **The cache is updated in place**: ``prefill`` and the
-decodes write the new K/V, positions and lengths into the tensors they were
-given and return that same cache.
+decodes write the new K/V or states, positions and lengths into the tensors
+they were given and return that same cache.
 
 Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
 
@@ -28,9 +30,15 @@ Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
   ``b * S / PAGE_SIZE + arange(S / PAGE_SIZE)`` and its context length is
   position + 1.  The pages are a view of the cache, not a copy.
 
-Anything else of the reference (sliding windows, ``local_attn``, MoE, SSD,
-RG-LRU, encoder-decoder, frontends, ``kv_append="defer"``, the training loss)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+An SSD block's prefill runs its chunked scan through ``ops.ssd_scan`` (K3 on
+the card) from the rows' carried states, at any T; its decode is plain
+PyTorch, as in the reference.  A recurrent state has no position mask, so a
+decode reads and writes the state rows of the listed slots and no others.
+
+Anything else of the reference (sliding windows, ``local_attn``, MoE, RG-LRU,
+mixed layer patterns, encoder-decoder, frontends, ``kv_append="defer"``, the
+training loss) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -53,8 +61,8 @@ _ROADMAP = {
     "local_attn": "ROADMAP Queue A item 8 (sliding window and MoE)",
     "moe": "ROADMAP Queue A item 8 (sliding window and MoE)",
     "defer": "ROADMAP Queue A item 9 (deferred KV append)",
-    "ssd": "ROADMAP Queue A item 10 (Mamba2 / SSD)",
     "rglru": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
+    "mixed": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "encoder": "ROADMAP Queue A item 12 (Whisper encoder-decoder)",
     "frontend": "ROADMAP Queue A item 8 (llava's frontend embeddings)",
     "train": "ROADMAP Queue A item 13 (training)",
@@ -69,8 +77,10 @@ def _unported(what: str) -> NotImplementedError:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any part of ``cfg`` the port does not run yet."""
     for kind in cfg.layer_pattern:
-        if kind != "attn":
+        if kind not in ("attn", "ssd"):
             raise _unported(kind)
+    if len(set(cfg.layer_pattern)) > 1:
+        raise _unported("mixed")
     if cfg.sliding_window is not None:
         raise _unported("sliding_window")
     if cfg.moe is not None:
@@ -89,7 +99,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
                  device=None, lead=()) -> Dict:
-    """One block's parameters; ``lead=(L,)`` stacks L blocks on axis 0."""
+    """One block's parameters; ``lead=(L,)`` stacks L blocks on axis 0.  An
+    SSD block has one pre-norm and no MLP."""
+    if kind == "ssd":
+        return {"norm1": L.norm_params(cfg, dtype, device, lead),
+                "ssd": L.ssd_params(cfg, generator, dtype, device, lead)}
     if kind != "attn":
         raise _unported(kind)
     if cfg.moe is not None:
@@ -104,7 +118,17 @@ def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                 device=None, lead=()) -> Dict:
-    """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0."""
+    """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0.
+    SSD states are fp32 whatever ``dtype`` is, and take no ``cache_size``."""
+    if kind == "ssd":
+        ssm = cfg.ssm
+        lead = tuple(lead) + (batch,)
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"state": torch.zeros(lead + (ssm.num_heads(cfg.d_model), ssm.state_dim,
+                                             ssm.head_dim), **f32),
+                "conv": torch.zeros(lead + (ssm.conv_width - 1,
+                                            ssm.d_inner(cfg.d_model) + 2 * ssm.state_dim),
+                                    **f32)}
     if kind != "attn":
         raise _unported(kind)
     if cfg.sliding_window is not None:
@@ -118,7 +142,8 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
 @dataclass
 class CacheStep:
     """Where one forward's tokens go in the cache, worked out once for all
-    layers.  Prefill (T > 1) sets ``start``; decode (T = 1) sets the rest."""
+    layers.  Attention prefill (T > 1) sets ``start``; decode (T = 1) sets
+    ``rows`` (and, for attention, the rest); SSD prefill sets nothing."""
 
     start: Optional[int] = None                  # first position of every row
     rows: Optional[torch.Tensor] = None          # (n,) cache rows decoded
@@ -131,12 +156,15 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     """One residual block over its layer's cache (updated in place).
 
     x: (n, T, d); positions: (n, T); cache: {"k", "v": (B, S, Hkv, D),
-    "kv_pos": (B, S)}.  Returns y (n, T, d)."""
-    if kind != "attn":
+    "kv_pos": (B, S)} or {"state": (B, H, N, P), "conv": (B, K-1, W)}.
+    Returns y (n, T, d)."""
+    if kind not in ("attn", "ssd"):
         raise _unported(kind)
     if cache is None:
         raise _unported("train")
     h = L.apply_norm(cfg, x, p["norm1"])
+    if kind == "ssd":
+        return x + _ssd_mixer(cfg, p["ssd"], h, cache, step, force)
     q, k_new, v_new = L.attn_qkv(cfg, p["attn"], h, positions)
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
@@ -162,6 +190,24 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     return x + L.mlp(cfg, p["mlp"], h2)
 
 
+def _ssd_mixer(cfg: ModelConfig, p: Dict, h, cache: Dict, step: CacheStep,
+               force: Optional[str]):
+    """The SSD mixer over its layer's states, which it updates in place:
+    every row for a prefill, only ``step.rows`` for a decode."""
+    if step.rows is None:
+        y, state, conv = L.ssd_prefill(cfg, p, h, cache["state"], cache["conv"],
+                                       force=force)
+        cache["state"].copy_(state)
+        cache["conv"].copy_(conv)
+    else:
+        rows = step.rows
+        y, state, conv = L.ssd_decode_step(cfg, p, h, cache["state"][rows],
+                                           cache["conv"][rows])
+        cache["state"][rows] = state
+        cache["conv"][rows] = conv.to(cache["conv"].dtype)
+    return y
+
+
 def _layer(tree, i: int):
     """The i-th layer's view of a tree of stacked (L, ...) tensors."""
     if isinstance(tree, dict):
@@ -174,12 +220,12 @@ def _layer(tree, i: int):
 # ==========================================================================
 
 class TransformerLM:
-    """Dense decoder LM over a uniform ``attn`` layer pattern."""
+    """Decoder LM over a uniform ``attn`` or ``ssd`` layer pattern."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
-        self.uniform = "attn"
+        self.uniform = cfg.layer_pattern[0]
 
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
@@ -229,8 +275,9 @@ class TransformerLM:
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
                    device=None) -> Dict[str, Any]:
         """An empty cache of ``batch`` rows of ``cache_size`` positions, a
-        multiple of PAGE_SIZE (``cuda`` unless ``device`` says otherwise)."""
-        if cache_size % PAGE_SIZE:
+        multiple of PAGE_SIZE for attention (``cuda`` unless ``device`` says
+        otherwise).  SSD rows hold a state of fixed size and no positions."""
+        if self.uniform == "attn" and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         device = resolve_device(device)
@@ -242,14 +289,19 @@ class TransformerLM:
     def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
         """Extend every row of ``cache`` (in place) with T new tokens at
         positions cache_len + arange(T); returns (last-position logits (B, V),
-        the same cache).  ``force="plain"`` runs the plain attention on the
-        card."""
+        the same cache).  ``force="plain"`` runs the plain attention or SSD
+        scan on the card."""
         tokens = inputs["tokens"]
         x = self._embed_inputs(params, inputs)
         B, T = tokens.shape
         if T == 1:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
+        if self.uniform == "ssd":
+            # each row goes on from its own state; positions play no part
+            logits = self._run(params, x, None, cache, CacheStep(), force)
+            cache["cache_len"] += T
+            return logits, cache
         starts = set(cache["cache_len"].tolist())
         if len(starts) != 1:
             raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
@@ -275,14 +327,17 @@ class TransformerLM:
         tokens: (n, 1); slots: (n,) row indices; each token goes at its row's
         ``cache_len``, which then grows by one (in place).  Returns logits
         (n, V)."""
-        kv = cache["layers"]["k"]
-        B, S = kv.shape[1], kv.shape[2]
         rows = torch.as_tensor(slots, device=tokens.device).long()
         positions = cache["cache_len"][rows].long()[:, None]
-        tables = torch.arange(B * S // PAGE_SIZE, dtype=torch.int32,
-                              device=tokens.device).view(B, S // PAGE_SIZE)
-        step = CacheStep(rows=rows, block_tables=tables[rows].contiguous(),
-                         context_lens=(positions[:, 0] + 1).int())
+        if self.uniform == "ssd":
+            step = CacheStep(rows=rows)
+        else:
+            kv = cache["layers"]["k"]
+            B, S = kv.shape[1], kv.shape[2]
+            tables = torch.arange(B * S // PAGE_SIZE, dtype=torch.int32,
+                                  device=tokens.device).view(B, S // PAGE_SIZE)
+            step = CacheStep(rows=rows, block_tables=tables[rows].contiguous(),
+                             context_lens=(positions[:, 0] + 1).int())
         x = params["embed"][tokens]
         logits = self._run(params, x, positions, cache, step, force)
         cache["cache_len"][rows] += 1

@@ -66,10 +66,12 @@ class RealModelRunner:
     """Executes the PyTorch model — ground truth for fidelity runs.
 
     A shared slot cache holds ``max_seqs`` rows of ``max_len`` positions (a
-    multiple of the model's page size) and is updated in place.  A step runs
-    each prefill chunk on its own slot (batch 1, exact length, flash
-    attention), then one decode over the slots that decode (paged attention),
-    then waits for the device; that wall time is the step's real duration.
+    multiple of the model's page size), or of recurrent state for an SSM, and
+    is updated in place.  A step runs each prefill chunk on its own slot
+    (batch 1, exact length: flash attention, or the SSD scan from the slot's
+    carried state), then one decode over the slots that decode (paged
+    attention, or the SSD step), then waits for the device; that wall time is
+    the step's real duration.
     """
 
     def __init__(self, model, params, *, max_seqs: int, max_len: int,
@@ -111,7 +113,15 @@ class RealModelRunner:
                 "cache_len": self.cache["cache_len"][slot:slot + 1]}
 
     def _reset_slot(self, slot: int) -> None:
-        self.cache["layers"]["kv_pos"][:, slot] = -1
+        """Empty a slot for a new request.  Attention KV is masked by its
+        position tags; an SSM slot's state and conv state are the context
+        itself, so they are zeroed, or the request would inherit them."""
+        layers = self.cache["layers"]
+        if "kv_pos" in layers:
+            layers["kv_pos"][:, slot] = -1
+        else:
+            layers["state"][:, slot] = 0
+            layers["conv"][:, slot] = 0
         self.cache["cache_len"][slot] = 0
         self._slot_len[slot] = 0
 

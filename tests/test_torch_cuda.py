@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card against their plain versions.
+"""The port's CUDA kernels on the card against their plain versions, and the
+reduced models with the kernels against the same models with the plain
+versions.
 
 Marked ``cuda``: they need an NVIDIA GPU with ``nvcc`` (they build the
 kernels) and skip without one.  On the card:
@@ -6,7 +8,8 @@ kernels) and skip without one.  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports nothing of JAX, so it also runs where JAX is not
-installed.  Tolerances: 2e-4 in fp32, 2e-2 in bf16 (``tests/test_kernels.py``).
+installed.  Tolerances: 2e-4 in fp32, 2e-2 in bf16 (``tests/test_kernels.py``;
+5e-4 at the SSD property points, as there).
 """
 
 import pytest
@@ -85,5 +88,63 @@ def test_model_with_kernels_matches_plain(gen):
         b, cache = model.prefill(params, {"tokens": toks[:, 24:40]}, cache, force=force)
         c, cache = model.decode_step(params, cache, toks[:, 40:], force=force)
         logits[force] = (a, b, c)
+    for got, exp in zip(logits[None], logits["plain"]):
+        torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)
+
+
+def _ssd_inputs(gen, B, T, H, P, N, dtype):
+    xdt = torch.randn((B, T, H, P), generator=gen, device="cuda")
+    dA = -torch.nn.functional.softplus(torch.randn((B, T, H), generator=gen, device="cuda"))
+    Bm = torch.randn((B, T, N), generator=gen, device="cuda")
+    Cm = torch.randn((B, T, N), generator=gen, device="cuda")
+    return [t.to(dtype) for t in (xdt, dA, Bm, Cm)]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,dtype,tol,carry", [
+    (1, 128, 2, 64, 32, 128, torch.float32, 2e-4, False),
+    (2, 256, 2, 64, 32, 128, torch.float32, 2e-4, False),
+    (2, 64, 4, 16, 16, 32, torch.float32, 2e-4, False),
+    (1, 96, 2, 32, 32, 32, torch.float32, 2e-4, False),
+    (1, 192, 3, 32, 32, 64, torch.float32, 5e-4, False),
+    (2, 37, 2, 16, 16, 16, torch.float32, 2e-4, True),        # ragged, carried state
+    (1, 379, 4, 64, 128, 128, torch.float32, 2e-4, True),     # mamba2 widths, ragged
+    (1, 128, 2, 32, 32, 64, torch.bfloat16, 2e-2, True)])
+def test_ssd_kernel_matches_plain(gen, B, T, H, P, N, chunk, dtype, tol, carry):
+    xdt, dA, Bm, Cm = _ssd_inputs(gen, B, T, H, P, N, dtype)
+    s0 = torch.randn((B, H, N, P), generator=gen, device="cuda") if carry else None
+    ops.reset_launch_counts()
+    y, state = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=s0)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    y_exp, s_exp = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=s0, force="plain")
+    torch.testing.assert_close(y, y_exp, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s_exp, rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_takes_strided_views(gen):
+    """B and C as slices of one projection, as the SSD layer hands them over."""
+    proj = torch.randn((2, 40, 64 + 2 * 32), generator=gen, device="cuda")
+    Bm, Cm = proj[..., 64:96], proj[..., 96:]
+    xdt, dA, _, _ = _ssd_inputs(gen, 2, 40, 4, 16, 32, torch.float32)
+    torch.testing.assert_close(ops.ssd_scan(xdt, dA, Bm, Cm, chunk=32),
+                               ops.ssd_scan(xdt, dA, Bm, Cm, chunk=32, force="plain"),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_mamba2_with_kernel_matches_plain(gen):
+    """Reduced mamba2_370m in fp32: a prefill, a ragged prefill chunk from the
+    carried state and a decode, with K3 against the plain scan (2e-3)."""
+    cfg = get_reduced_config("mamba2_370m")
+    model = build_model(cfg)
+    params = model.init(gen, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 62), generator=gen, device="cuda")
+    logits = {}
+    for force in (None, "plain"):
+        cache = model.init_cache(2, 64, torch.float32)
+        ops.reset_launch_counts()
+        a, cache = model.prefill(params, {"tokens": toks[:, :24]}, cache, force=force)
+        b, cache = model.prefill(params, {"tokens": toks[:, 24:61]}, cache, force=force)
+        c, cache = model.decode_step(params, cache, toks[:, 61:], force=force)
+        assert ops.launch_counts()["ssd_scan"] == (0 if force else 2 * cfg.num_layers)
+        logits[force] = (a, b, c, cache["layers"]["state"].clone())
     for got, exp in zip(logits[None], logits["plain"]):
         torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)

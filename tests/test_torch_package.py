@@ -19,6 +19,10 @@ SRC = REPO / "src"
 
 COPIES = [
     "models/config.py",
+    "configs/llama3_8b.py",
+    "configs/granite_8b.py",
+    "configs/qwen2_5_3b.py",
+    "configs/mamba2_370m.py",
     "core/clock.py",
     "serving/request.py",
     "serving/kv_cache.py",

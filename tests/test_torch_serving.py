@@ -28,6 +28,8 @@ from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import EngineConfig
 from repro_torch.serving.stack import build_stack
 
+torch.set_num_threads(2)    # the suite runs in several workers at once
+
 ARCH = "llama3_8b"
 MAX_LEN = 128
 # (prompt length, max_new_tokens): no prompt is a multiple of 32
