@@ -14,8 +14,15 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 3. holds each kernel against its plain PyTorch version on the card, over the
    shape grids of ``tests/test_kernels.py`` and at the llama3_8b shapes (K1,
    K2) or the mamba2_370m prefill shapes (K3) (tolerance 2e-4 in fp32, 5e-4
-   at the SSD property points, 2e-2 in bf16), and times kernel, plain
-   version and, where PyTorch has one, a library call at those shapes;
+   at the SSD property points, 2e-2 in bf16), K2 at the edges of its
+   partitions, and times kernel, plain version and, where PyTorch has one,
+   a library call at those shapes, each as 20 calls back to back between
+   CUDA events (``ms``, the method of every earlier run); the kernel and
+   the library call also as 20 calls captured in a CUDA graph and replayed,
+   with the host out of the way (``graph_ms``).  It also prints each
+   kernel's host cost a call, the device time of each of K2's and K3's two
+   launches (torch.profiler), and K3 at the ragged serving chunk (T=379)
+   and at T=2048 and 8192;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -36,7 +43,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 9. profiles that serving run as in 6.
 
 It prints one JSON ``kernels`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
+last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
+phase 3 and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
 """
 
@@ -188,6 +196,39 @@ def check_paged_grid(ops):
     cl = torch.tensor([1], dtype=torch.int32, device="cuda")
     assert_close("K2 ctx=1", ops.paged_attention(q, kp, vp, bt, cl),
                  ops.paged_attention(q, kp, vp, bt, cl, force="plain"), "float32")
+    check_paged_partitions(ops, gen)
+
+
+def check_paged_partitions(ops, gen):
+    """K2 at the edges of its partitions (``paged_attention.PARTITION`` keys):
+    contexts of 1, one partition, one key past it and the full 2048 (32
+    partitions) in one batch over scattered tables at the llama3_8b widths;
+    against the plain version and against the plain split-and-merge, in
+    both types.  An empty context gives 0, as in the Pallas kernel."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ref
+    part = paged_mod.PARTITION
+    B, Hq, Hkv, D, page, pps = 5, 32, 8, 128, 16, 128
+    lens = [1, part, part + 1, pps * page, 2 * part - 1]
+    for dt in ("float32", "bfloat16"):
+        q, kp, vp, _, _ = paged_inputs(gen, B, Hq, Hkv, D, page, pps, getattr(torch, dt))
+        bt = torch.randperm(kp.shape[0], generator=gen, device="cuda")[:B * pps]
+        bt = bt.to(torch.int32).view(B, pps).contiguous()
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = ops.paged_attention(q, kp, vp, bt, cl)
+        torch.cuda.synchronize()
+        assert_close(f"K2 partition edges {lens} {dt}", out,
+                     ops.paged_attention(q, kp, vp, bt, cl, force="plain"), dt)
+        assert_close(f"K2 partition edges {lens} {dt} vs plain split", out,
+                     ref.paged_attention_split(q, kp, vp, bt, cl), dt)
+    cl = torch.tensor([0, 3], dtype=torch.int32, device="cuda")
+    q, kp, vp, bt, _ = paged_inputs(gen, 2, 4, 2, 64, 16, 20, torch.float32)
+    out = ops.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    if out[0].abs().max() != 0 or not torch.isfinite(out).all():
+        raise AssertionError("K2: an empty context must give 0")
+    assert_close("K2 ctx=3 beside an empty context", out[1:],
+                 ops.paged_attention(q, kp, vp, bt, cl, force="plain")[1:], "float32")
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -202,6 +243,64 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, reps=5) -> float:
+    """Device time a call of ``fn`` with the host out of the way: ``iters``
+    calls captured in one CUDA graph, replayed ``reps`` times between CUDA
+    events.  That the capture works also shows that ``fn`` reads no device
+    value on the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def host_us(fn, n=200) -> float:
+    """Host time to issue one call of ``fn`` (the device is not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def pass_ms(fn, names, iters=20):
+    """Device time per call of each launch whose kernel name contains one of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in evt.key:
+                out[name] += getattr(evt, "self_device_time_total", 0) / 1e3 / iters
+    return out
 
 
 def bound(flops, nbytes, peak_flops):
@@ -221,6 +320,8 @@ def measure_flash(ops):
     err = assert_close(f"K1 llama3_8b {(B, T, S, Hq, Hkv, D)} bfloat16", out, exp, "bfloat16")
     ms = time_ms(lambda: ops.flash_attention(q, k, v))
     plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, force="plain"))
+    g_ms = graph_ms(lambda: ops.flash_attention(q, k, v))
+    h_us = host_us(lambda: ops.flash_attention(q, k, v))
     # library yardstick: SDPA with the bottom-right causal mask, KV heads
     # repeated and laid out (B, H, S, D) before timing
     qh = q.transpose(1, 2).contiguous()
@@ -231,19 +332,22 @@ def measure_flash(ops):
     lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     lib_err = float((lib.transpose(1, 2).float() - exp.float()).abs().max())
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
     pairs = sum(min(S, i + (S - T) + 1) for i in range(T))
     flops = 4 * D * Hq * B * pairs
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"K1 llama3_8b: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+    log(f"K1 llama3_8b: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, "
+        f"SDPA {library_ms:.4f} ms ({library_g_ms:.4f} in a graph) "
         f"(SDPA vs plain max abs err {lib_err:.3e}), bound {b_ms:.5f} ms by {b_by} "
         f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); "
-        f"fp32-core bound {flops / PEAK_FP32_FLOPS * 1e3:.5f} ms")
+        f"fp32-core bound {flops / PEAK_FP32_FLOPS * 1e3:.5f} ms; host {h_us:.1f} us a call")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:109",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
+            "library_graph_ms": library_g_ms, "host_us": h_us}
 
 
 def measure_paged(ops):
@@ -283,18 +387,27 @@ def measure_paged(ops):
     lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     lib_err = float((lib[:, :, 0].float() - exp.float()).abs().max())
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    g_ms = graph_ms(lambda: ops.paged_attention(q, *next(turn), bt, cl))
+    h_us = host_us(lambda: ops.paged_attention(q, *next(turn), bt, cl))
+    passes = pass_ms(lambda: ops.paged_attention(q, *next(turn), bt, cl),
+                     ("paged_fwd_partial", "paged_fwd_merge"))
+    log("K2 llama3_8b device time per pass: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
     ctx = int(cl.sum())
     flops = 4 * Hq * D * ctx
     nbytes = 2 * (q.numel() + out.numel()) + 2 * 2 * ctx * Hkv * D + 4 * (bt.numel() + B)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"K2 llama3_8b: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+    log(f"K2 llama3_8b: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, "
+        f"SDPA {library_ms:.4f} ms ({library_g_ms:.4f} in a graph) "
         f"(SDPA vs plain max abs err {lib_err:.3e}), bound {b_ms:.5f} ms by {b_by} "
-        f"({nbytes / 1e6:.3f} MB, contexts {cl.tolist()})")
+        f"({nbytes / 1e6:.3f} MB, contexts {cl.tolist()}); host {h_us:.1f} us a call")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:88",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
+            "library_graph_ms": library_g_ms, "host_us": h_us}
 
 
 def ssd_inputs(gen, B, T, H, P, N, dtype, carry=False):
@@ -324,7 +437,8 @@ def check_ssd_grid(ops):
     for shape, chunk, dt in [((2, 37, 2, 16, 16), 16, "float32"),
                              ((1, 5, 2, 32, 32), 16, "float32"),
                              ((2, 200, 2, 64, 32), 64, "float32"),
-                             ((1, 150, 2, 32, 32), 64, "bfloat16")]:
+                             ((1, 150, 2, 32, 32), 64, "bfloat16"),
+                             ((3, 2000, 4, 32, 32), 32, "float32")]:   # 63 chunks
         cases.append((shape, chunk, dt, None, True))
     # the mamba2_370m prefill shapes: a full 512-token chunk and a ragged one
     for T, carry in ((512, False), (512, True), (379, True)):
@@ -358,30 +472,67 @@ def ssd_flops(B, T, H, P, N, Q):
 
 def measure_ssd(ops):
     """K3 at the mamba2_370m prefill shape: one 512-token chunk of one
-    sequence from a carried state, fp32, as the SSD layer calls it."""
+    sequence from a carried state, fp32, as the SSD layer calls it; then the
+    ragged 379-token chunk of the serving traffic, and prefill budgets of
+    2048 and 8192 tokens (16 and 64 chunks), where the state passing along
+    the chunks would show if it grew faster than the chunks."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
     B, T, H, P, N, Q = 1, 512, 32, 64, 128, 128
     gen = torch.Generator(device="cuda").manual_seed(6)
     (xdt, dA, Bm, Cm), s0 = ssd_inputs(gen, B, T, H, P, N, torch.float32, carry=True)
     y, st = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0)
     y_exp, st_exp = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0, force="plain")
+    y_two, st_two = ref.ssd_scan_two_pass(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0)
     torch.cuda.synchronize()
     err = max(assert_close(f"K3 mamba2_370m {(B, T, H, P, N)} y", y, y_exp, "float32"),
               assert_close(f"K3 mamba2_370m {(B, T, H, P, N)} state", st, st_exp, "float32"))
+    assert_close("K3 plain two passes vs plain y", y_two, y_exp, "float32")
+    assert_close("K3 plain two passes vs plain state", st_two, st_exp, "float32")
     ms = time_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
     plain_ms = time_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0,
                                             force="plain"))
+    g_ms = graph_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
+    h_us = host_us(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
+    passes = pass_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0),
+                     ("ssd_fwd_chunk", "ssd_fwd_scan"))
+    log(f"K3 mamba2_370m T={T} device time per pass (column tile "
+        f"{ssd_mod.col_tile(P)}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
     flops = ssd_flops(B, T, H, P, N, Q)
     nbytes = 4 * (xdt.numel() + dA.numel() + Bm.numel() + Cm.numel() + s0.numel()
                   + y.numel() + st.numel())
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
-    log(f"K3 mamba2_370m: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
+    log(f"K3 mamba2_370m: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, "
+        f"no library call, "
         f"bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.4f} GFLOP at the fp32 rate, "
-        f"{nbytes / 1e6:.3f} MB)")
+        f"{nbytes / 1e6:.3f} MB); host {h_us:.1f} us a call")
+    # the ragged serving chunk (379 tokens) and long prefill budgets, each
+    # from a carried state
+    for T2 in (379, 2048, 8192):
+        (x2, a2, B2, C2), s2 = ssd_inputs(gen, B, T2, H, P, N, torch.float32, carry=True)
+        y2, st2 = ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2)
+        y2_exp, st2_exp = ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2, force="plain")
+        torch.cuda.synchronize()
+        assert_close(f"K3 mamba2_370m T={T2} y", y2, y2_exp, "float32")
+        assert_close(f"K3 mamba2_370m T={T2} state", st2, st2_exp, "float32")
+        ms2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2))
+        g2 = graph_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2))
+        plain2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2,
+                                              force="plain"))
+        passes2 = pass_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2),
+                          ("ssd_fwd_chunk", "ssd_fwd_scan"))
+        nbytes2 = 4 * (2 * x2.numel() + a2.numel() + B2.numel() + C2.numel() + 2 * s2.numel())
+        b2_ms, b2_by = bound(ssd_flops(B, T2, H, P, N, Q), nbytes2, PEAK_FP32_FLOPS)
+        log(f"K3 mamba2_370m T={T2}: kernel {ms2:.4f} ms ({g2:.4f} in a graph), "
+            f"plain {plain2:.4f} ms, bound {b2_ms:.5f} ms by {b2_by}; device time per pass: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in passes2.items()))
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:84",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "graph_ms": g_ms,
+            "library_graph_ms": None, "host_us": h_us}
 
 
 # -------------------------------------------------------------------------
@@ -498,6 +649,9 @@ def main() -> int:
     check_paged_grid(ops)
     check_ssd_grid(ops)
     kernels = [measure_flash(ops), measure_paged(ops), measure_ssd(ops)]
+    if "--kernels-only" in sys.argv[1:]:
+        log(f"--kernels-only: stopping after phase 3, {time.monotonic() - t_start:.1f} s")
+        return 0
     launches = {}
 
     log("== 4. llama3_8b, full width and depth, bf16, random weights (seed 0)")
@@ -521,7 +675,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        log(f"kernel {k['name']}: {k['ms']:.4f} ms a call, {k['launches']} launches on its "
+        log(f"kernel {k['name']}: {k['ms']:.4f} ms a call ({k['graph_ms']:.4f} in a CUDA "
+            f"graph), {k['launches']} launches on its "
             f"serving path, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, plain "
             f"{k['plain_ms']:.4f} ms, library {library}, max abs err {k['max_abs_err']:.3e}")
     log(f"total {time.monotonic() - t_start:.1f} s")

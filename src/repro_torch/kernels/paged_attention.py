@@ -7,16 +7,21 @@ together, pages at or past ``context_len`` are skipped and positions past it
 are masked inside the last page.
 
 On the card the work is bound by bytes: each step reads every K/V byte of
-every context once and does two FLOPs per byte.  The kernel reads each K/V
-row once per (KV head, sequence) for all G query heads together, so the KV
-bytes are not multiplied by G, and gathers pages directly from the pool
-through the table without a copy.  One block per (KV head, sequence) leaves
-SMs idle at small batch; splitting contexts across blocks is later work.  The
-source is ``csrc/paged_attention.cu``.
+every context once and does two FLOPs per byte.  The kernel splits each
+context into partitions of :data:`PARTITION` keys (flash-decoding): one
+block per (partition, KV head, sequence) reads each K/V row once for all G
+query heads, gathering pages through the table with ``cp.async`` into a
+two-stage ring, and writes fp32 partials (m, l, acc); a second launch merges
+them exactly.  The partition count comes from ``pages_per_seq``
+(:func:`plan`), never from ``context_lens``, so the wrapper reads no device
+value and a decode step stays capturable in a CUDA graph.  The source is
+``csrc/paged_attention.cu``.
 
-:func:`paged_attention` launches the kernel on a CUDA tensor and raises on
-what the kernel does not take; it never falls back to the plain version.
-The plain version is :func:`repro_torch.kernels.ref.paged_attention_ref`.
+:func:`paged_attention` launches the kernels on a CUDA tensor and raises on
+what they do not take; it never falls back to the plain version.  The plain
+version is :func:`repro_torch.kernels.ref.paged_attention_ref`, and
+:func:`repro_torch.kernels.ref.paged_attention_split` is the same split and
+merge in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,16 +38,32 @@ from . import _build
 HEAD_DIMS = (32, 64, 128)
 PAGE_SIZES = (8, 16, 32)
 MAX_GROUP_ELEMS = 2048      # G * D the kernel's accumulator holds
+PARTITION = 64              # keys a block of the first launch covers: kPartition in the source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0        # kernel launches since the last reset (plain integer)
+launches = 0        # wrapper calls that launched the kernels since the last reset
+
+
+def plan(pages_per_seq: int, page_size: int) -> int:
+    """Number of partitions a sequence is split into: enough to cover
+    ``pages_per_seq * page_size`` keys, the longest context the table can
+    hold.  Plain integers in, so no device value is read."""
+    if PARTITION % page_size:
+        raise ValueError(f"paged_attention: the partition ({PARTITION}) must be a "
+                         f"multiple of the page size ({page_size})")
+    return max(1, -(-pages_per_seq * page_size // PARTITION))
+
+
+def scratch_shapes(B: int, Hq: int, D: int, num_parts: int):
+    """Shapes of the fp32 partials (m, l, acc) between the two launches."""
+    return (B, Hq, num_parts), (B, Hq, num_parts), (B, Hq, num_parts, D)
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("paged_attention").paged_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,8 +114,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
             or tuple(context_lens.shape) != (B,)):
         raise ValueError(f"paged_attention: block_tables {tuple(block_tables.shape)} "
                          f"and context_lens {tuple(context_lens.shape)} must cover B={B}")
-    if B > 65535:
-        raise ValueError("paged_attention: batch must be <= 65535")
+    if B > 65535 or Hq > 65535:
+        raise ValueError("paged_attention: batch and heads must be <= 65535")
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if x.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} must be 16-byte aligned")
@@ -102,12 +123,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     out = torch.empty_like(q)
     if B == 0:
         return out
+    pps = block_tables.shape[1]
+    num_parts = plan(pps, page_size)
+    # the three partials in one allocation, m then l then acc (fp32)
+    sizes = [math.prod(shape) for shape in scratch_shapes(B, Hq, D, num_parts)]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    m_ptr = scratch.data_ptr()
+    l_ptr = m_ptr + 4 * sizes[0]
+    acc_ptr = l_ptr + 4 * sizes[1]
     fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-             B, Hq, Hkv, D, page_size, block_tables.shape[1], scale,
-             _DTYPES[q.dtype], stream)
+             block_tables.data_ptr(), context_lens.data_ptr(), m_ptr, l_ptr, acc_ptr,
+             out.data_ptr(), B, Hq, Hkv, D, page_size,
+             pps, scale, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention: launch failed with CUDA error {err}")
     launches += 1

@@ -7,7 +7,10 @@ signature (:func:`ssd_scan_chunked`).  The CPU path of
 :mod:`repro_torch.kernels.ops` runs ``flash_attention_ref``,
 ``paged_attention_ref`` and ``ssd_scan_chunked``; on the card they run only
 when a caller asks for them (``force="plain"``), to hold the CUDA kernels
-against them.
+against them.  ``paged_attention_split`` and ``ssd_scan_two_pass`` spell out
+the CUDA kernels' own decompositions (K2's split and merge, K3's two passes)
+in plain PyTorch for the tests and ``chip_smoke.py``; no model path calls
+them.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from .paged_attention import PARTITION
 
 NEG_INF = -1e30
 
@@ -78,6 +83,61 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs.to(v.dtype), v)
     return out.reshape(B, Hq, D)
+
+
+def paged_attention_split(q, k_pages, v_pages, block_tables, context_lens, *,
+                          partition: int = PARTITION, softmax_scale: Optional[float] = None):
+    """K2's algorithm in plain PyTorch: split each context into partitions of
+    ``partition`` keys (a multiple of the page size; their number comes from
+    ``pages_per_seq``, not from the lengths), take each partition's softmax
+    statistics (m, l) and unnormalised sum acc = Σ exp(s − m)·v in fp32, then
+    merge them exactly: o = Σ exp(m_i − M)·acc_i / Σ exp(m_i − M)·l_i over the
+    non-empty partitions.  An empty context gives 0 (as the Pallas kernel
+    does; ``paged_attention_ref`` gives the mean of V there).  Shapes as
+    :func:`paged_attention_ref`; returns (B, Hq, D) in q's type."""
+    m, l, acc = paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens,
+                                         partition=partition, softmax_scale=softmax_scale)
+    return paged_attention_merge(m, l, acc).to(q.dtype)
+
+
+def paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens, *,
+                             partition: int = PARTITION, softmax_scale: Optional[float] = None):
+    """The first pass of :func:`paged_attention_split`: fp32 partials m, l of
+    shape (B, Hq, NP) and acc of shape (B, Hq, NP, D); an empty partition has
+    m = −inf, l = 0 and acc = 0."""
+    B, Hq, D = q.shape
+    _, page_size, Hkv, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    if partition <= 0 or partition % page_size:
+        raise ValueError(f"partition {partition} is not a multiple of the page size "
+                         f"{page_size}")
+    G = Hq // Hkv
+    scale = softmax_scale or 1.0 / math.sqrt(D)
+    NP = max(1, -(-pps * page_size // partition))
+    S = NP * partition
+    tables = F.pad(block_tables.long(), (0, S // page_size - pps))   # pad with page 0
+    k = k_pages[tables].reshape(B, S, Hkv, D).float()
+    v = v_pages[tables].reshape(B, S, Hkv, D).float()
+    qg = q.reshape(B, Hkv, G, D).float() * scale
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+    ctx = torch.clamp(context_lens.to(q.device).long(), max=pps * page_size)
+    valid = torch.arange(S, device=q.device)[None, :] < ctx[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.tensor(-torch.inf, device=q.device))
+    s = s.reshape(B, Hkv, G, NP, partition)
+    m = s.amax(dim=-1)                                                # (B,Hkv,G,NP)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])   # masked keys -> 0
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgnj,bnjhd->bhgnd", p, v.reshape(B, NP, partition, Hkv, D))
+    return m.reshape(B, Hq, NP), l.reshape(B, Hq, NP), acc.reshape(B, Hq, NP, D)
+
+
+def paged_attention_merge(m, l, acc):
+    """The second pass of :func:`paged_attention_split`: (B, Hq, D) in fp32."""
+    M = m.amax(dim=-1, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(M), 0.0, M)))
+    num = (w[..., None] * acc).sum(dim=2)
+    den = (w * l).sum(dim=2)[..., None]
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
 
 
 def ssd_scan_ref(xdt, dA, Bm, Cm, *, initial_state=None):
@@ -151,3 +211,71 @@ def ssd_scan_chunked(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
     y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum.float()), s_prev)
     y = (y_intra + y_inter).reshape(B, nC * Q, H, P)[:, :T]
     return y, s
+
+
+def ssd_chunk_pass(xdt, dA, Bm, Cm, *, chunk: int = 128):
+    """The first pass of K3 in plain PyTorch, parallel over chunks: the T
+    positions are cut into chunks of ``chunk`` (a ragged tail padded with
+    zeros, which is exact).  Returns
+
+    * ``CBt`` (B, C, Q, Q): C·Bᵀ of each chunk, transposed (row j, column i),
+      computed once per chunk since it depends on neither head nor column;
+    * ``cum`` (B, C, Q, H): the inclusive fp64 cumsum of dA in each chunk;
+    * ``dS`` (B, C, H, N, P): each chunk's own state contribution
+      Bᵀ·(exp(cum_last − cum) ∘ xdt);
+    * ``decay`` (B, C, H): exp(cum_last), each chunk's decay of the state.
+    """
+    B, T, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-T) % Q
+    x, a, Bf, Cf = xdt.float(), dA.float(), Bm.float(), Cm.float()
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        a, Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (a, Bf, Cf))
+    nC = (T + pad) // Q
+    x = x.reshape(B, nC, Q, H, P)
+    Bc = Bf.reshape(B, nC, Q, N)
+    Cc = Cf.reshape(B, nC, Q, N)
+    cum = torch.cumsum(a.reshape(B, nC, Q, H).double(), dim=2)
+    CBt = torch.einsum("bcjn,bcin->bcji", Bc, Cc)
+    w = torch.exp((cum[:, :, -1:, :] - cum).float())                 # (B,C,Q,H)
+    dS = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w, x)
+    decay = torch.exp(cum[:, :, -1, :].float())
+    return CBt, cum, dS, decay
+
+
+def ssd_scan_pass(xdt, Cm, CBt, cum, dS, decay, *, initial_state=None):
+    """The second pass of K3 in plain PyTorch: each chunk starts from the
+    state the chunk before it ended with, S ← decay·S + ΔS (the kernel takes
+    it from the nearest earlier chunk that has published its end state and
+    adds the ΔS of those in between), and
+    y = (C·Bᵀ ∘ L)·xdt + exp(cum)·C·S_prev.  Takes the outputs of
+    :func:`ssd_chunk_pass`; returns (y (B,T,H,P), final state (B,H,N,P))."""
+    B, T, H, P = xdt.shape
+    N = Cm.shape[-1]
+    nC, Q = CBt.shape[1], CBt.shape[2]
+    pad = nC * Q - T
+    x = F.pad(xdt.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nC, Q, N)
+    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nC):
+        delta = (cum[:, c, :, None, :] - cum[:, c, None, :, :]).float()   # (B,i,j,H)
+        L = torch.exp(torch.where(mask[None, :, :, None], delta,
+                                  torch.tensor(-torch.inf, device=x.device)))
+        y = torch.einsum("bji,bijh,bjhp->bihp", CBt[:, c], L, x[:, c])
+        y = y + torch.einsum("bin,bih,bhnp->bihp", Cc[:, c], torch.exp(cum[:, c].float()), s)
+        ys.append(y)
+        s = s * decay[:, c, :, None, None] + dS[:, c]
+    return torch.cat(ys, dim=1)[:, :T], s
+
+
+def ssd_scan_two_pass(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
+    """K3's two passes in plain PyTorch (:func:`ssd_chunk_pass`, then
+    :func:`ssd_scan_pass`), with :func:`ssd_scan_chunked`'s signature and
+    result.  Chunks are ``chunk`` long whatever T."""
+    CBt, cum, dS, decay = ssd_chunk_pass(xdt, dA, Bm, Cm, chunk=chunk)
+    return ssd_scan_pass(xdt, Cm, CBt, cum, dS, decay, initial_state=initial_state)

@@ -3,29 +3,34 @@
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan``
 (``_ssd_kernel``): per chunk of Q positions, the intra-chunk quadratic term
 ``(C·Bᵀ ∘ L)·xdt`` plus the carried state's term ``exp(cum)·C·S``, then the
-state update ``S ← exp(cum_Q)·S + Bᵀ·(exp(cum_Q − cum) ∘ xdt)``, with the state
-(N × P, fp32) kept on chip along the chunks.  Unlike the Pallas kernel it
-takes an ``initial_state`` (chunked prefill carries the layer's state from one
-call to the next) and any T >= 1: a ragged last chunk is masked, which is
-exact (a masked position multiplies the state by exp(0) and adds nothing).
+state update ``S ← exp(cum_Q)·S + Bᵀ·(exp(cum_Q − cum) ∘ xdt)``.  Unlike the
+Pallas kernel it takes an ``initial_state`` (chunked prefill carries the
+layer's state from one call to the next) and any T >= 1: a ragged last chunk
+is masked, which is exact (a masked position multiplies the state by exp(0)
+and adds nothing).
 
 On the card the work is bound by operations (at the mamba2_370m prefill
-shape, about 60 FLOPs per byte moved).  One block owns (sequence, head, 16
-state columns) and walks the chunks in order with its slice of the state in
-registers; C·Bᵀ is computed 16 rows at a time from B and C staged once per
-chunk in shared memory, in fp32 on the CUDA cores, to hold the plain version
-to 2e-4.  No tensor cores and no pipelining yet.  The source is
-``csrc/ssd_scan.cu``.
+shape, about 60 FLOPs per byte moved).  The kernel is the chunked-SSD
+decomposition in two launches, both parallel over chunks: the first
+computes C·Bᵀ once per chunk and each (chunk, head)'s own state
+contribution ΔS into fp32 scratch; in the second each chunk takes its
+starting state by a look-back that never waits (the end state the nearest
+earlier chunk has published, plus the ΔS of the chunks in between), publishes
+its own end state, and produces y as one product of depth Q + N.  Products are fp32 on the CUDA cores, register-tiled, to hold the
+plain version to 2e-4.  The source is ``csrc/ssd_scan.cu``.
 
-:func:`ssd_scan` launches the kernel on CUDA tensors and raises on what the
-kernel does not take; it never falls back to the plain version.  The plain
-version is :func:`repro_torch.kernels.ref.ssd_scan_chunked`.
+:func:`ssd_scan` launches the kernels on CUDA tensors and raises on what they
+do not take; it never falls back to the plain version.  The plain version is
+:func:`repro_torch.kernels.ref.ssd_scan_chunked`, and
+:func:`repro_torch.kernels.ref.ssd_scan_two_pass` is the kernel's two passes
+in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,17 +40,41 @@ from . import _build
 MAX_CHUNK = 128             # longest chunk; a multiple of ROW_BLOCK
 MAX_STATE = 128             # largest N
 ROW_BLOCK = 16              # chunk lengths are multiples of this
-COL_TILE = 16               # P is split into tiles of this many columns
+COL_TILE = 16               # P is a multiple of this
+COL_TILES = (64, 32, 16)    # state columns a block may own
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0        # kernel launches since the last reset (plain integer)
+launches = 0        # wrapper calls that launched the kernels since the last reset
+
+
+def n_chunks(T: int, chunk: int) -> int:
+    return -(-T // chunk)
+
+
+def col_tile(P: int) -> int:
+    """State columns a block owns: the widest tile that divides P.  On the
+    H100 at the mamba2_370m prefill shapes the widest tile was the fastest
+    even where it leaves SMs idle (T = 379: 96 blocks), since the narrower
+    ones repeat the weighting of C·Bᵀ for every tile (PERF.md)."""
+    return next(pt for pt in COL_TILES if P % pt == 0)
+
+
+def scratch_shapes(B: int, T: int, H: int, P: int, N: int, chunk: int):
+    """Shapes of the scratch between and within the two launches: AT (C·Bᵀ
+    transposed over Cᵀ, per chunk), dS (each chunk's state contribution per
+    head), carry (each chunk's published end state), decay (exp of each
+    chunk's summed dA per head), all fp32, and the int32 flags that say a
+    chunk's end state is published, one per (chunk, head, column tile)."""
+    nc = n_chunks(T, chunk)
+    return ((B, nc, chunk + N, chunk), (B, nc, H, N, P), (B, nc, H, N, P), (B, nc, H),
+            (B, nc, H, P // col_tile(P)))
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("ssd_scan").ssd_scan_fwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i] + [ll] * 10 + [i, p]
+    fn.argtypes = [p] * 12 + [i] * 7 + [ll] * 10 + [i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,8 +124,8 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     if chunk % ROW_BLOCK or not ROW_BLOCK <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk must be a multiple of {ROW_BLOCK} up to "
                          f"{MAX_CHUNK}, got {chunk}")
-    if B > 65535 or H > 65535:
-        raise ValueError("ssd_scan: batch and heads must be <= 65535")
+    if B > 65535 or H > 65535 or B * n_chunks(T, chunk) > 65535:
+        raise ValueError("ssd_scan: batch, heads and batch x chunks must be <= 65535")
     if initial_state is not None:
         if (tuple(initial_state.shape) != (B, H, N, P)
                 or initial_state.dtype != torch.float32
@@ -106,11 +135,19 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
                              f"{tuple(initial_state.shape)}")
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=xdt.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=xdt.device)
+    # the scratch in one allocation of 4-byte words: AT, dS, carry, decay
+    # (fp32), then the flags (int32); the sizes of AT and dS are multiples of
+    # 16 values, so dS and carry stay 64-byte aligned
+    sizes = [math.prod(shape) for shape in scratch_shapes(B, T, H, P, N, chunk)]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=xdt.device)
+    at_ptr, ds_ptr, carry_ptr, decay_ptr, flags_ptr = (
+        scratch.data_ptr() + 4 * sum(sizes[:k]) for k in range(5))
     fn = _kernel()
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              initial_state.data_ptr() if initial_state is not None else None,
-             y.data_ptr(), state.data_ptr(), B, T, H, P, N, chunk,
+             at_ptr, ds_ptr, carry_ptr, decay_ptr, flags_ptr, y.data_ptr(), state.data_ptr(),
+             B, T, H, P, N, chunk, col_tile(P),
              xdt.stride(0), xdt.stride(1), xdt.stride(2),
              dA.stride(0), dA.stride(1), dA.stride(2),
              Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),

@@ -74,6 +74,31 @@ def test_paged_kernel_matches_plain(gen, B, Hq, Hkv, D, page, pps, dtype):
     torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_partition_edges(gen, dtype):
+    """Contexts of 0, 1, one partition, one key past it and the whole table
+    over scattered tables: against the plain version and the plain
+    split-and-merge (an empty context gives 0)."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ref
+    part, page, pps = paged_mod.PARTITION, 16, 40
+    B, Hq, Hkv, D = 5, 8, 2, 64
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((B * pps + 7, page, Hkv, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(kp.shape, generator=gen, device="cuda").to(dtype)
+    tables = torch.randperm(kp.shape[0], generator=gen, device="cuda")[:B * pps]
+    tables = tables.int().view(B, pps).contiguous()
+    ctx = torch.tensor([0, 1, part, part + 1, page * pps], dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    out = ops.paged_attention(q, kp, vp, tables, ctx)
+    assert ops.launch_counts()["paged_attention"] == 1
+    assert float(out[0].abs().max()) == 0.0
+    exp = ops.paged_attention(q, kp, vp, tables, ctx, force="plain")
+    torch.testing.assert_close(out[1:].float(), exp[1:].float(), rtol=TOL[dtype], atol=TOL[dtype])
+    split = ref.paged_attention_split(q, kp, vp, tables, ctx)
+    torch.testing.assert_close(out.float(), split.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_model_with_kernels_matches_plain(gen):
     """Reduced llama3_8b in fp32: prefill, chunked prefill and decode logits
     with the kernels equal the plain attention's within 2e-3."""
@@ -108,6 +133,9 @@ def _ssd_inputs(gen, B, T, H, P, N, dtype):
     (1, 192, 3, 32, 32, 64, torch.float32, 5e-4, False),
     (2, 37, 2, 16, 16, 16, torch.float32, 2e-4, True),        # ragged, carried state
     (1, 379, 4, 64, 128, 128, torch.float32, 2e-4, True),     # mamba2 widths, ragged
+    (2, 300, 32, 64, 128, 128, torch.float32, 2e-4, True),    # two chunks and a tail
+    (1, 17, 3, 48, 20, 16, torch.float32, 2e-4, True),        # N not a multiple of 16
+    (3, 2000, 4, 32, 32, 32, torch.float32, 2e-4, True),      # 63 chunks: the look-back
     (1, 128, 2, 32, 32, 64, torch.bfloat16, 2e-2, True)])
 def test_ssd_kernel_matches_plain(gen, B, T, H, P, N, chunk, dtype, tol, carry):
     xdt, dA, Bm, Cm = _ssd_inputs(gen, B, T, H, P, N, dtype)
@@ -118,6 +146,23 @@ def test_ssd_kernel_matches_plain(gen, B, T, H, P, N, chunk, dtype, tol, carry):
     y_exp, s_exp = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=s0, force="plain")
     torch.testing.assert_close(y, y_exp, rtol=tol, atol=tol)
     torch.testing.assert_close(state, s_exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_ssd_kernel_every_column_tile(gen, tile, monkeypatch):
+    """Each tile of state columns a block may own, on a ragged T with a
+    carried state, against the plain two passes and the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    monkeypatch.setattr(ssd_mod, "col_tile", lambda *_: tile)
+    xdt, dA, Bm, Cm = _ssd_inputs(gen, 1, 331, 8, 64, 128, torch.float32)
+    s0 = torch.randn((1, 8, 128, 64), generator=gen, device="cuda")
+    y, state = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=128, initial_state=s0)
+    for y_exp, s_exp in (ops.ssd_scan(xdt, dA, Bm, Cm, chunk=128, initial_state=s0,
+                                      force="plain"),
+                         ref.ssd_scan_two_pass(xdt, dA, Bm, Cm, chunk=128, initial_state=s0)):
+        torch.testing.assert_close(y, y_exp, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(state, s_exp, rtol=2e-4, atol=2e-4)
 
 
 def test_ssd_kernel_takes_strided_views(gen):
