@@ -20,16 +20,20 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    CUDA events (``ms``, the method of every earlier run); the kernel and
    the library call also as 20 calls captured in a CUDA graph and replayed,
    with the host out of the way (``graph_ms``).  It also prints each
-   kernel's host cost a call, the device time of each of K2's and K3's two
-   launches (torch.profiler), and K3 at the ragged serving chunk (T=379)
-   and at T=2048 and 8192;
+   kernel's host cost a call, the device time of each launch (K1's one, K2's
+   and K3's two; torch.profiler), K1's plan and ptxas's registers and spills
+   for the kernel it picks, and K3 at the ragged serving chunk (T=379) and
+   at T=2048 and 8192.  K1's grid adds the bf16 kernel's GQA packing (G=8
+   at D=128, G=6), windows with G > 1, T and S - T off the tile grids, D=32
+   and 64, and B=2 views of a larger slot cache;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
 5. serves 8 requests (prompts of 128-1024 tokens, 32 new tokens each)
    through ``build_stack(mode="real")``, with every kernel launch count set
    to 0 just before and read just after, and checks that every request got
-   its 32 tokens and that both kernels ran;
+   its 32 tokens and that both kernels ran; it logs the (B, T, S) of every
+   K1 launch and checks that K1 ran in every layer of every prefill chunk;
 6. serves the same requests again under ``torch.profiler`` and prints the
    device time by kernel and the device's busy and idle shares;
 7. builds mamba2_370m at full width and depth in bf16 from a seeded
@@ -50,6 +54,7 @@ code is not 0; without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import shutil
@@ -162,12 +167,30 @@ def check_flash_grid(ops):
                                     (127, 0, 2, 4, 64), (127, 93, 2, 1, 32),
                                     (33, 93, 1, 2, 128)]:
             cases.append(((1, T, T + extra, Hkv * G, Hkv, D), dt, {}))
+    # the bf16 kernel's packing and tiles: G=8 at D=128 (qwen2_5_3b's widths,
+    # Hq=16, Hkv=2), windows with G > 1, T off the query tile grid with S - T
+    # off the KV tile grid, D=32 and 64, and a packing that does not fill G
+    for shape, kw in [((1, 512, 1024, 16, 2, 128), {}), ((2, 77, 300, 16, 2, 128), {}),
+                      ((1, 200, 260, 8, 2, 64), {"window": 48}),
+                      ((1, 129, 400, 32, 8, 128), {"window": 100}),
+                      ((1, 45, 173, 32, 8, 128), {}), ((1, 333, 1000, 4, 1, 32), {}),
+                      ((2, 150, 301, 12, 4, 64), {}), ((1, 97, 97, 6, 1, 32), {}),
+                      ((1, 70, 70, 16, 2, 128), {"causal": False})]:
+        cases.append((shape, "bfloat16", kw))
     for shape, dt, kw in cases:
         q, k, v = qkv(gen, *shape, getattr(torch, dt))
         out = ops.flash_attention(q, k, v, **kw)
         exp = ops.flash_attention(q, k, v, force="plain", **kw)
         torch.cuda.synchronize()
         assert_close(f"K1 {shape} {dt} {kw}", out, exp, dt)
+    # B=2 views of a larger slot cache (batch stride 2048 positions), as the
+    # model passes k_c[:, :s1]
+    cache = torch.randn((2, 3, 2048, 8, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    for T, S in ((200, 456), (64, 64)):
+        q = torch.randn((2, T, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = cache[0, 1:, :S], cache[1, 1:, :S]
+        assert_close(f"K1 slot-cache views B=2 T={T} S={S} bfloat16", ops.flash_attention(q, k, v),
+                     ops.flash_attention(q, k, v, force="plain"), "bfloat16")
 
 
 def check_paged_grid(ops):
@@ -303,6 +326,24 @@ def pass_ms(fn, names, iters=20):
     return out
 
 
+def kernel_resources(log: str, name: str):
+    """Registers, spill stores and loads (bytes) that ptxas reported for the
+    first kernel whose mangled name contains ``name``; None where the log
+    does not have it (a library built by an earlier run)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            res = {"registers": None, "spill_stores": None, "spill_loads": None}
+            for nxt in lines[i + 1:i + 6]:
+                if "spill stores" in nxt:
+                    nums = [int(w) for w in nxt.replace(",", " ").split() if w.isdigit()]
+                    res["spill_stores"], res["spill_loads"] = nums[1], nums[2]
+                if "Used" in nxt and "registers" in nxt:
+                    res["registers"] = int(nxt.split("Used")[1].split()[0])
+            return res
+    return None
+
+
 def bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -310,7 +351,11 @@ def bound(flops, nbytes, peak_flops):
 
 def measure_flash(ops):
     """K1 at the llama3_8b prefill shape: one 512-token chunk after 512
-    cached tokens."""
+    cached tokens.  Besides the times, the device time of one launch
+    (torch.profiler), the bf16 kernel's plan there and ptxas's registers
+    and spills for the kernel that plan picks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_mod
     B, T, S, Hq, Hkv, D = 1, 512, 1024, 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = qkv(gen, B, T, S, Hq, Hkv, D, torch.bfloat16)
@@ -337,17 +382,25 @@ def measure_flash(ops):
     flops = 4 * D * Hq * B * pairs
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"K1 llama3_8b: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, "
+    launch_ms = pass_ms(lambda: ops.flash_attention(q, k, v), ("flash_fwd_wgmma",))
+    p = flash_mod.plan(B, T, S, Hq, Hkv, D)
+    res = kernel_resources(_build.build_log.get("flash_attention", ""),
+                           f"flash_fwd_wgmma_kernelILi{D}ELi{p.block_keys}ELi{p.block_rows // 64}E")
+    log(f"K1 llama3_8b: kernel {ms:.4f} ms ({g_ms:.4f} in a graph; device time per launch "
+        f"{launch_ms['flash_fwd_wgmma']:.4f} ms), plain {plain_ms:.4f} ms, "
         f"SDPA {library_ms:.4f} ms ({library_g_ms:.4f} in a graph) "
         f"(SDPA vs plain max abs err {lib_err:.3e}), bound {b_ms:.5f} ms by {b_by} "
         f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); "
         f"fp32-core bound {flops / PEAK_FP32_FLOPS * 1e3:.5f} ms; host {h_us:.1f} us a call")
+    log(f"K1 plan at that shape: {p}; ptxas for its kernel: {res}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:109",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
-            "library_graph_ms": library_g_ms, "host_us": h_us}
+            "library_graph_ms": library_g_ms, "host_us": h_us,
+            "launch_ms": launch_ms["flash_fwd_wgmma"], "tiles": [p.block_rows, p.block_keys],
+            "smem_bytes": p.smem_bytes, "ptxas": res}
 
 
 def measure_paged(ops):
@@ -715,6 +768,7 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
     "real")``.  The launch counts are set to 0 just before the run and read
     just after; every kernel in ``path_kernels`` must have launched.  Returns
     those kernels' counts.  With ``profile``, runs under torch.profiler."""
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch.serve import make_requests, run_requests
     from repro_torch.serving.scheduler import EngineConfig
     from repro_torch.serving.stack import build_stack
@@ -729,9 +783,26 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
         profile_serving(lambda: run_requests(stack, reqs, timeout=600))
         return {}
     log(f"prompt lengths {[r.prompt_len for r in reqs]}")
+    shapes = collections.Counter()
+    flash = flash_mod.flash_attention
+
+    def record(q, k, v, **kw):      # the (B, T, S) of every K1 launch
+        shapes[(q.shape[0], q.shape[1], k.shape[1])] += 1
+        return flash(q, k, v, **kw)
+
+    flash_mod.flash_attention = record
     ops.reset_launch_counts()
-    summary = run_requests(stack, reqs, timeout=600)
+    try:
+        summary = run_requests(stack, reqs, timeout=600)
+    finally:
+        flash_mod.flash_attention = flash
     counts = ops.launch_counts()
+    if shapes:
+        log(f"K1 launches by (B, T, S): {sorted(shapes.items())}")
+        if (sum(shapes.values()) != counts["flash_attention"]
+                or any(n % cfg.num_layers for n in shapes.values())):
+            raise AssertionError(f"K1 did not run in every layer of every prefill chunk: "
+                                 f"{dict(shapes)} over {cfg.num_layers} layers")
     steps = summary["steps"]
     log("serving: " + json.dumps(summary))
     log(f"launches during serving: {counts} over {steps} steps ("

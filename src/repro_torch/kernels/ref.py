@@ -7,8 +7,9 @@ signature (:func:`ssd_scan_chunked`).  The CPU path of
 :mod:`repro_torch.kernels.ops` runs ``flash_attention_ref``,
 ``paged_attention_ref`` and ``ssd_scan_chunked``; on the card they run only
 when a caller asks for them (``force="plain"``), to hold the CUDA kernels
-against them.  ``paged_attention_split`` and ``ssd_scan_two_pass`` spell out
-the CUDA kernels' own decompositions (K2's split and merge, K3's two passes)
+against them.  ``flash_attention_tiled``, ``paged_attention_split`` and
+``ssd_scan_two_pass`` spell out the CUDA kernels' own decompositions (K1's
+packed tiles and edge-masked KV walk, K2's split and merge, K3's two passes)
 in plain PyTorch for the tests and ``chip_smoke.py``; no model path calls
 them.
 """
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import flash_attention as flash_mod
 from .paged_attention import PARTITION
 
 NEG_INF = -1e30
@@ -50,6 +52,65 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype), v)
     return out.reshape(B, T, Hq, D)
+
+
+def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                          softmax_scale: Optional[float] = None, block_rows: int = 128,
+                          block_keys: int = 64):
+    """K1's bf16 kernel in plain PyTorch, tile by tile (shapes as
+    :func:`flash_attention_ref`; returns q's type).
+
+    The tiles are ``flash_attention.plan``'s: each holds ``block_rows`` rows,
+    the ``pack`` query heads of one KV head at consecutive positions in
+    (position, head) order.  Each tile walks the KV tiles it can see
+    (``kv_tile_range``), K and V padded with zero rows past S as TMA fills
+    them; only a tile for which ``tile_needs_mask`` holds is masked.  The
+    online softmax runs in the log2 domain in fp32 (scores from fp32
+    products), P is rounded to the input type before P @ V and the row sums
+    take P before rounding; a row that sees no key gives 0."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    p = flash_mod.plan(B, T, S, Hq, Hkv, D, block_rows=block_rows, block_keys=block_keys)
+    scale_log2 = (softmax_scale or 1.0 / math.sqrt(D)) * math.log2(math.e)
+    offset = S - T
+    bk = block_keys
+    pad = (-S) % bk
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)   # (B, Hkv, S + pad, D)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    qf = q.float().reshape(B, T, Hkv, p.groups, p.pack, D)
+    out = torch.zeros((B, T, Hkv, p.groups, p.pack, D), dtype=torch.float32, device=q.device)
+    for qt in range(p.q_tiles):
+        q0 = qt * p.positions
+        n = min(p.positions, T - q0)          # rows past T are zeros the kernel never stores
+        rows = qf[:, q0:q0 + n].permute(0, 2, 3, 1, 4, 5).reshape(B, Hkv, p.groups, n * p.pack, D)
+        qpos = q0 + torch.arange(n * p.pack, device=q.device) // p.pack + offset
+        q_lo, q_hi = q0 + offset, q0 + n - 1 + offset
+        m = torch.full(rows.shape[:-1], -math.inf, device=q.device)
+        l = torch.zeros(rows.shape[:-1], device=q.device)
+        acc = torch.zeros(rows.shape, device=q.device)
+        first, end = flash_mod.kv_tile_range(q0, p.positions, T, S, bk, causal, window)
+        for kt in range(first, end):
+            k0 = kt * bk
+            s = torch.einsum("bhgrd,bhkd->bhgrk", rows, kf[:, :, k0:k0 + bk]) * scale_log2
+            if flash_mod.tile_needs_mask(k0, bk, S, q_lo, q_hi, causal, window):
+                key = k0 + torch.arange(bk, device=q.device)
+                ok = (key < S)[None, :].expand(len(qpos), bk)
+                if causal:
+                    ok = ok & (key[None, :] <= qpos[:, None])
+                    if window is not None:
+                        ok = ok & (qpos[:, None] - key[None, :] < window)
+                s = torch.where(ok, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_use = torch.where(torch.isinf(m_new), 0.0, m_new)
+            alpha = torch.exp2(m - m_use)
+            pt = torch.exp2(s - m_use[..., None])
+            l = l * alpha + pt.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgrk,bhkd->bhgrd", pt.to(q.dtype).float(), vf[:, :, k0:k0 + bk])
+            m = m_new
+        o = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+        out[:, q0:q0 + n] = o.reshape(B, Hkv, p.groups, n, p.pack, D).permute(0, 3, 1, 2, 4, 5)
+    return out.reshape(B, T, Hq, D).to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,

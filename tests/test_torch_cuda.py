@@ -47,6 +47,66 @@ def test_flash_kernel_matches_plain(gen, B, T, S, Hq, Hkv, D, kw, dtype):
     torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,kw", [
+    (1, 512, 1024, 16, 2, 128, {}),                 # G = 8 at D = 128 (qwen2_5_3b's widths)
+    (2, 77, 300, 16, 2, 128, {}),
+    (1, 200, 260, 8, 2, 64, {"window": 48}),        # windows with G > 1
+    (1, 129, 400, 32, 8, 128, {"window": 100}),
+    (1, 45, 173, 32, 8, 128, {}),                   # T and S - T off the tile grids
+    (1, 333, 1000, 4, 1, 32, {}), (2, 150, 301, 12, 4, 64, {}),
+    (1, 97, 97, 6, 1, 32, {})])                     # G = 6: packs of 2
+def test_flash_bf16_kernel_packing(gen, B, T, S, Hq, Hkv, D, kw):
+    """The bf16 kernel's GQA-packed tiles and edge masks against the plain
+    version and the plain tiled decomposition."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    p = flash_mod.plan(B, T, S, Hq, Hkv, D)
+    for exp in (ops.flash_attention(q, k, v, force="plain", **kw),
+                ref.flash_attention_tiled(q, k, v, block_rows=p.block_rows,
+                                          block_keys=p.block_keys, **kw)):
+        torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("block_rows,block_keys", [(64, 64), (64, 128), (128, 64)])
+def test_flash_bf16_kernel_every_tile(gen, block_rows, block_keys, monkeypatch):
+    """Each tile choice the kernel is built for, on a ragged GQA shape with
+    a window, against the plain version."""
+    import functools
+
+    from repro_torch.kernels import flash_attention as flash_mod
+    monkeypatch.setattr(flash_mod, "plan", functools.partial(
+        flash_mod.plan, block_rows=block_rows, block_keys=block_keys))
+    for D in (32, 64, 128):
+        q = torch.randn((2, 150, 16, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((2, 333, 4, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((2, 333, 4, D), generator=gen, device="cuda").to(torch.bfloat16)
+        for kw in ({}, {"window": 70}):
+            torch.testing.assert_close(ops.flash_attention(q, k, v, **kw).float(),
+                                       ops.flash_attention(q, k, v, force="plain", **kw).float(),
+                                       rtol=2e-2, atol=2e-2)
+
+
+def test_flash_bf16_kernel_takes_slot_cache_views(gen):
+    """K and V as B=2 views of a larger slot cache, as the model passes
+    k_c[:, :s1]; a batch stride TMA cannot take raises."""
+    cache = torch.randn((2, 3, 2048, 8, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((2, 200, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = cache[0, 1:, :456], cache[1, 1:, :456]
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               ops.flash_attention(q, k, v, force="plain").float(),
+                               rtol=2e-2, atol=2e-2)
+    flat = torch.randn(2 * (8 * 8 * 32 + 4), generator=gen, device="cuda").to(torch.bfloat16)
+    odd = flat.view(2, -1)[:, :8 * 8 * 32].view(2, 8, 8, 32)
+    with pytest.raises(ValueError, match="batch stride"):
+        ops.flash_attention(odd, odd, odd)
+
+
 def test_flash_kernel_custom_scale(gen):
     """fp32 only, as in tests/test_kernels.py: at scale 0.5 the bf16 plain
     version, which rounds q.k to bf16 before scaling, is itself more than
