@@ -36,6 +36,16 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    K1 launch and checks that K1 ran in every layer of every prefill chunk;
 6. serves the same requests again under ``torch.profiler`` and prints the
    device time by kernel and the device's busy and idle shares;
+6b. holds real execution of llama3_8b against time-warp emulation of the
+   same engine (``repro_torch.launch.real_vs_emulated``): a calibration
+   stream and a separate evaluation stream in real mode (32 synthesized
+   requests each, Poisson arrivals at 2 per second, seeds 1 and 2), a
+   ``LinearPredictor`` fitted on the calibration steps, and the evaluation
+   stream emulated with it and with the analytical H100 model.  It checks
+   that every request finished, that K1 and K2 ran in the real runs, and
+   that the emulated runs launched no kernel, left the allocated device
+   memory as it was and took less wall time than the real run; it prints
+   the errors and the speed-up and asserts nothing about their size;
 7. builds mamba2_370m at full width and depth in bf16 from a seeded
    generator and compares its logits with K3 against the plain scan after a
    256-token prefill, a ragged 379-token chunk from the carried state, and a
@@ -714,6 +724,8 @@ def main() -> int:
     launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention")))
     log("== 6. where the device time goes: the same serving run under torch.profiler")
     serve_path(ops, cfg, model, params, (), profile=True)
+    log("== 6b. llama3_8b real against time-warp emulation of the same engine")
+    real_against_emulated(cfg, model, params)
     del model, params
     torch.cuda.empty_cache()
 
@@ -769,12 +781,9 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
     just after; every kernel in ``path_kernels`` must have launched.  Returns
     those kernels' counts.  With ``profile``, runs under torch.profiler."""
     from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.launch.serve import make_requests, run_requests
-    from repro_torch.serving.scheduler import EngineConfig
+    from repro_torch.launch.serve import engine_config, make_requests, run_requests
     from repro_torch.serving.stack import build_stack
-    engine_cfg = EngineConfig(policy="vllm", max_num_seqs=8, max_batched_tokens=512,
-                              block_size=16, num_blocks=1024, enable_prefix_caching=False,
-                              chip="h100-sxm")
+    engine_cfg = engine_config()
     stack = build_stack(cfg, engine_cfg, "real", model=model, params=params,
                         max_len=2048, device="cuda", dtype=torch.bfloat16)
     reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
@@ -818,6 +827,37 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the serving path")
     return {name: counts[name] for name in path_kernels}
+
+
+def real_against_emulated(cfg, model, params) -> None:
+    """Phase 6b: ``real_vs_emulated.run`` on the card, with the facts that
+    can fail checked here; the sizes of the errors are printed only."""
+    from repro_torch.launch import real_vs_emulated as rve
+    t0 = time.monotonic()
+    report = rve.run(cfg, model, params, device="cuda", dtype=torch.bfloat16,
+                     timeout=300)
+    for line in rve.format_report(report):
+        log("  " + line)
+    log("real_vs_emulated: " + json.dumps(report))
+    for key in ("calibration", "real"):
+        launched = report[key]["launches"]
+        if launched["flash_attention"] <= 0 or launched["paged_attention"] <= 0:
+            raise AssertionError(f"{key}: K1 or K2 never launched: {launched}")
+        if report[key]["num_requests"] != rve.STREAM["num_requests"]:
+            raise AssertionError(f"{key}: {report[key]['num_requests']} requests finished")
+    for key in ("emulate_linear", "emulate_analytical"):
+        r = report[key]
+        if any(r["launches"].values()):
+            raise AssertionError(f"{key} launched kernels: {r['launches']}")
+        if r["allocated_delta_bytes"] != 0:
+            raise AssertionError(f"{key} changed the allocated device memory by "
+                                 f"{r['allocated_delta_bytes']} bytes")
+        if r["num_requests"] != rve.STREAM["num_requests"]:
+            raise AssertionError(f"{key}: {r['num_requests']} requests finished")
+        if not r["wall_s"] < report["real"]["wall_s"]:
+            raise AssertionError(f"{key} took {r['wall_s']} s of wall time, the real "
+                                 f"run {report['real']['wall_s']} s")
+    log(f"phase 6b took {time.monotonic() - t0:.1f} s")
 
 
 def profile_serving(serve) -> None:

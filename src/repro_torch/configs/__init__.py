@@ -5,11 +5,6 @@ Every module in this package exports ``CONFIG`` (the full published config)
 and ``reduced()`` (a tiny same-family config for CPU smoke tests).  Select
 with ``--arch <id>`` in the launchers.
 
-The PyTorch port runs the dense decoders ``llama3_8b``, ``qwen2_5_3b`` and
-``granite_8b`` and the SSM ``mamba2_370m``; ``get_config`` of any other
-architecture raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
-
 Shape cells (assigned): each architecture is paired with all four shapes;
 ``decode_*``/``long_*`` lower ``serve_step`` (one token against a KV cache of
 ``seq_len``), ``prefill_32k`` lowers the chunked-prefill step, ``train_4k``
@@ -34,6 +29,7 @@ __all__ = [
     "get_config",
     "get_reduced_config",
     "applicable_shapes",
+    "all_cells",
 ]
 
 
@@ -75,25 +71,8 @@ PAPER_ARCH_IDS: List[str] = ["llama3_8b", "llama3_70b", "qwen3_30b_a3b"]
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS + PAPER_ARCH_IDS}
 
 
-# Architectures the port does not run yet -> the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "granite_3_8b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "dbrx_132b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "mixtral_8x7b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "qwen3_30b_a3b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "olmo_1b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "llava_next_mistral_7b": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "llama3_70b": "ROADMAP Queue A item 16 (tensor parallelism over four cards)",
-    "recurrentgemma_2b": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
-    "whisper_base": "ROADMAP Queue A item 12 (Whisper encoder-decoder)",
-}
-
-
 def _module(arch_id: str):
     arch_id = _ALIASES.get(arch_id, arch_id)
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id} does not run in the PyTorch port yet: {_NOT_PORTED[arch_id]}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 
@@ -114,3 +93,13 @@ def applicable_shapes(cfg: ModelConfig) -> List[ShapeSpec]:
         out.append(shape)
     return out
 
+
+def all_cells() -> List[tuple[str, str]]:
+    """Every (arch, shape) dry-run cell, including assignment-mandated skips
+    (a skipped cell is simply absent)."""
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in applicable_shapes(cfg):
+            cells.append((arch, shape.name))
+    return cells

@@ -1,5 +1,5 @@
 """Serving driver CLI: run a registry architecture through the port's engine
-in real mode, on the card.
+in any execution mode.
 
     # llama3_8b or mamba2_370m at full width and depth, bf16, one H100:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b
@@ -9,11 +9,24 @@ in real mode, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
         --reduced --device cpu --dtype float32
 
-The weights are random, made from ``--seed``.  Until the workload and metrics
-modules are ported, the CLI makes a fixed list of requests from ``--seed``
-with numpy, submits them all at once, waits for them, and reports TTFT and
-TPOT from each request's own ``arrival_time``, ``first_token_time`` and
-``token_times``.
+    # GPU-free time-warp emulation of an H100 serving any of the 13
+    # architectures at full size, or of a 70B deployment over four of them:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b --mode emulate
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b \\
+        --mode emulate --tp 4 --qps 2 --num-requests 100
+
+    # the strawman sleep-based emulation (the paper's section 3.2):
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode sleep
+
+Requests come from ``workload.synthesize`` (Poisson arrivals at ``--qps``,
+lognormal prompt and output lengths, each at most half of ``--max-len``, so
+that every request fits its slot) and results from ``BenchmarkRunner``.
+Real mode runs on the card unless ``--device`` names the CPU; its weights
+are random, made from ``--seed``.  The emulated modes touch no device and
+build no weights.  ``engine_config`` is the serving configuration of this
+CLI, of ``real_vs_emulated`` and of the smoke test; ``make_requests`` and
+``run_requests`` serve a fixed list of requests all at once, for the smoke
+test's serving phases.
 """
 
 from __future__ import annotations
@@ -29,11 +42,24 @@ import torch
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import build_model
+from repro_torch.serving.benchmark import BenchmarkRunner
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import EngineConfig
 from repro_torch.serving.stack import ServingStack, build_stack
+from repro_torch.workload import WorkloadConfig, synthesize
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def engine_config(max_num_seqs: int = 8, max_len: int = 2048, *, policy: str = "vllm",
+                  chunk: int = 512, chip: str = "h100-sxm", tp: int = 1, pp: int = 1,
+                  ep: int = 1) -> EngineConfig:
+    """16-token blocks enough for every slot at ``max_len``, a ``chunk``-token
+    step budget, no prefix caching."""
+    return EngineConfig(policy=policy, max_num_seqs=max_num_seqs,
+                        max_batched_tokens=chunk, block_size=16,
+                        num_blocks=-(-max_num_seqs * max_len // 16),
+                        enable_prefix_caching=False, chip=chip, tp=tp, pp=pp, ep=ep)
 
 
 def make_requests(num: int, prompt_min: int, prompt_max: int, max_new_tokens: int,
@@ -94,51 +120,68 @@ def run_requests(stack: ServingStack, reqs: List[Request],
     return summary
 
 
-def main() -> None:
+def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_8b")
-    ap.add_argument("--mode", default="real", choices=["real"])
+    ap.add_argument("--mode", default="real", choices=["real", "emulate", "sleep"])
     ap.add_argument("--reduced", action="store_true",
                     help="the architecture's reduced config (CPU rehearsal)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda", help="real mode only")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
     ap.add_argument("--policy", default="vllm", choices=["vllm", "sglang"])
+    ap.add_argument("--chip", default="h100-sxm", help="the emulated chip")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1)
+    ap.add_argument("--ep", type=int, default=1)
     ap.add_argument("--max-num-seqs", type=int, default=8)
     ap.add_argument("--chunk", type=int, default=512,
                     help="max batched tokens (chunked-prefill budget)")
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--num-requests", type=int, default=8)
-    ap.add_argument("--prompt-min", type=int, default=128)
-    ap.add_argument("--prompt-max", type=int, default=1024)
-    ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--qps", type=float, default=2.0)
+    ap.add_argument("--prompt-mean", type=float, default=256.0)
+    ap.add_argument("--output-mean", type=float, default=32.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true", help="machine output")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    dtype = _DTYPES[args.dtype]
     model_cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
-    engine_cfg = EngineConfig(
-        policy=args.policy, max_num_seqs=args.max_num_seqs,
-        max_batched_tokens=args.chunk, block_size=16,
-        num_blocks=-(-args.max_num_seqs * args.max_len // 16),
-        enable_prefix_caching=False, chip="h100-sxm")
-    model = build_model(model_cfg)
-    params = model.init(torch.Generator(device).manual_seed(args.seed), dtype)
-    stack = build_stack(model_cfg, engine_cfg, "real", model=model, params=params,
-                        max_seqs=args.max_num_seqs, max_len=args.max_len,
-                        device=device, dtype=dtype)
-    reqs = make_requests(args.num_requests, args.prompt_min, args.prompt_max,
-                         args.max_new_tokens, model_cfg.vocab_size, args.seed)
-    summary = dict(arch=model_cfg.arch_id, mode=args.mode, device=str(device),
-                   **run_requests(stack, reqs))
-    if device.type == "cuda":
-        summary["device_name"] = torch.cuda.get_device_name(device)
+    engine_cfg = engine_config(args.max_num_seqs, args.max_len, policy=args.policy,
+                               chunk=args.chunk, chip=args.chip, tp=args.tp,
+                               pp=args.pp, ep=args.ep)
+    summary = dict(arch=model_cfg.arch_id, mode=args.mode, policy=args.policy)
+    if args.mode == "real":
+        device = resolve_device(args.device)
+        dtype = _DTYPES[args.dtype]
+        model = build_model(model_cfg)
+        params = model.init(torch.Generator(device).manual_seed(args.seed), dtype)
+        stack = build_stack(model_cfg, engine_cfg, "real", model=model, params=params,
+                            max_seqs=args.max_num_seqs, max_len=args.max_len,
+                            device=device, dtype=dtype)
+        summary["device"] = str(device)
+        if device.type == "cuda":
+            summary["device_name"] = torch.cuda.get_device_name(device)
+    else:
+        stack = build_stack(model_cfg, engine_cfg, args.mode)
+        summary["chip"] = args.chip
+    reqs = synthesize(WorkloadConfig(
+        num_requests=args.num_requests, qps=args.qps,
+        prompt_len_mean=args.prompt_mean, output_len_mean=args.output_mean,
+        max_prompt_len=args.max_len // 2, max_output_len=args.max_len // 2,
+        vocab_size=model_cfg.vocab_size, seed=args.seed))
+    try:
+        res = BenchmarkRunner(stack.engine, reqs,
+                              transport=stack.transport).run(timeout=3600)
+    finally:
+        stack.shutdown()
+    summary.update(res.summary())
+    summary["steps"] = len(stack.engine.step_log)
     if args.json:
         print(json.dumps(summary))
     else:
         for k, v in summary.items():
             print(f"  {k:24s} {v:,.6f}" if isinstance(v, float) else f"  {k:24s} {v}")
+    return summary
 
 
 if __name__ == "__main__":

@@ -19,16 +19,51 @@ SRC = REPO / "src"
 
 COPIES = [
     "models/config.py",
-    "configs/llama3_8b.py",
+    "configs/__init__.py",
+    "configs/dbrx_132b.py",
+    "configs/granite_3_8b.py",
     "configs/granite_8b.py",
-    "configs/qwen2_5_3b.py",
+    "configs/llama3_70b.py",
+    "configs/llama3_8b.py",
+    "configs/llava_next_mistral_7b.py",
     "configs/mamba2_370m.py",
+    "configs/mixtral_8x7b.py",
+    "configs/olmo_1b.py",
+    "configs/qwen2_5_3b.py",
+    "configs/qwen3_30b_a3b.py",
+    "configs/recurrentgemma_2b.py",
+    "configs/whisper_base.py",
     "core/clock.py",
+    "core/hardware.py",
+    "core/predictor.py",
+    "core/timekeeper.py",
+    "core/client.py",
+    "core/emulation.py",
+    "metrics/__init__.py",
+    "metrics/latency.py",
+    "metrics/sketch.py",
+    "workload/__init__.py",
+    "workload/arrival.py",
+    "workload/session.py",
+    "workload/streaming.py",
+    "workload/synth.py",
     "serving/request.py",
     "serving/kv_cache.py",
     "serving/prefix_cache.py",
     "serving/scheduler.py",
     "serving/engine.py",
+    "serving/workers.py",
+    "serving/benchmark.py",
+]
+
+# copies inside a module the port rewrites in part: (module, top-level name)
+COPIED_DEFS = [
+    ("serving/model_runner.py", "DUMMY_TOKEN"),
+    ("serving/model_runner.py", "batch_spec_of"),
+    ("serving/model_runner.py", "_producing"),
+    ("serving/model_runner.py", "TimeWarpModelRunner"),
+    ("serving/model_runner.py", "SleepModelRunner"),
+    ("serving/stack.py", "default_predictor"),
 ]
 
 GUARD = """
@@ -73,10 +108,12 @@ def test_no_import_statement_names_jax_or_reference(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
-def _normalised(path: Path):
+def _normalised(text: str):
+    """Lines with the package named ``repro`` in import lines (indented ones
+    too: a lazy import inside a function) and in ``importlib`` calls."""
     out = []
-    for line in path.read_text().splitlines():
-        if line.startswith(("from ", "import ")):
+    for line in text.splitlines():
+        if line.lstrip().startswith(("from ", "import ")) or "import_module(" in line:
             line = line.replace("repro_torch", "repro")
         out.append(line)
     return out
@@ -84,4 +121,22 @@ def _normalised(path: Path):
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_has_not_drifted(rel):
-    assert _normalised(SRC / "repro_torch" / rel) == _normalised(SRC / "repro" / rel)
+    assert (_normalised((SRC / "repro_torch" / rel).read_text())
+            == _normalised((SRC / "repro" / rel).read_text()))
+
+
+def _definition(path: Path, name: str) -> str:
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)) and node.name == name:
+            return ast.get_source_segment(text, node)
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets):
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{path}: no top-level {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_DEFS)
+def test_copied_definition_has_not_drifted(rel, name):
+    assert (_normalised(_definition(SRC / "repro_torch" / rel, name))
+            == _normalised(_definition(SRC / "repro" / rel, name)))

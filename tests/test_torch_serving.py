@@ -114,10 +114,3 @@ def test_prefix_hit_raises(setup):
         Request(prompt_tokens=prompts[0][:16] + prompts[1][:8], max_new_tokens=2))
     with pytest.raises(NotImplementedError, match="prefix"):
         engine.step()
-
-
-def test_emulated_modes_are_not_ported_yet():
-    cfg = get_reduced_config(ARCH)
-    for mode in ("emulate", "sleep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_stack(cfg, _engine_cfg("vllm"), mode)
