@@ -25,7 +25,11 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    for the kernel it picks, and K3 at the ragged serving chunk (T=379) and
    at T=2048 and 8192.  K1's grid adds the bf16 kernel's GQA packing (G=8
    at D=128, G=6), windows with G > 1, T and S - T off the tile grids, D=32
-   and 64, and B=2 views of a larger slot cache;
+   and 64, and B=2 views of a larger slot cache.  K2's grid adds its
+   sliding window (windows of 1, page - 1, page, two partitions and one past
+   every context), and K2 is timed again at mixtral_8x7b's decode shape
+   with its 4096-key window (contexts 4000-8192), SDPA beside it with the
+   window as a boolean mask;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -54,9 +58,29 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 8. serves the same 8 requests through ``build_stack(mode="real")`` with
    mamba2_370m, counts set to 0 just before and read just after, and checks
    that every request got its 32 tokens and that K3 ran;
-9. profiles that serving run as in 6.
+9. profiles that serving run as in 6;
+10. builds qwen3_30b_a3b at full width and depth in bf16 (30,532,110,336
+   parameters, 48 MoE layers of 128 experts, top-8), compares its logits
+   with K1 and K2 against the plain attention as in 4, and holds the MoE of
+   layer 0 on a 512-token chunk with its grouped products
+   (``torch._grouped_mm``) against the per-expert loop (2e-2), timing both;
+11. serves the 8 requests of 5 with it, counts as in 5, and checks that K1
+   ran in every layer of every chunk and that K2 ran;
+12. profiles that run as in 6, with the MoE layers' device time (routing,
+   dispatch, grouped products, combine) as a group of its own;
+13. builds mixtral_8x7b at full width with 16 of its 32 layers
+   (23,482,470,400 parameters) and compares the logits of a 6144-token
+   prefill (three 2048-token chunks) and of a decode at position 6144, K1
+   and K2 with the 4096-token window against the plain attention, beside
+   the same weights without the window;
+14. serves one request of 6144 prompt tokens and 64 new ones in a cache of
+   8192 through ``build_stack(mode="real")`` and checks that K1 ran the
+   window over more keys than it holds and K2 ran every decode with it,
+   logging K1's (B, T, S, window) and K2's windows.
 
-It prints one JSON ``kernels`` line, the card's name and power limit, and
+Each model is freed before the next is built.  It prints one JSON
+``kernels`` line (K1, K2 and K3, their launches summed over the serving
+runs of 5, 8, 11 and 14), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3 and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
@@ -65,6 +89,7 @@ code is not 0; without a CUDA device it exits 1 before doing anything.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import shutil
@@ -262,6 +287,31 @@ def check_paged_partitions(ops, gen):
         raise AssertionError("K2: an empty context must give 0")
     assert_close("K2 ctx=3 beside an empty context", out[1:],
                  ops.paged_attention(q, kp, vp, bt, cl, force="plain")[1:], "float32")
+    check_paged_windows(ops, gen)
+
+
+def check_paged_windows(ops, gen):
+    """K2's sliding window (the Pallas kernel has none): windows of 1, page
+    − 1, page, two partitions and one longer than every context, over
+    contexts on both sides of partition edges, against the plain version
+    and the plain split-and-merge, in both types."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ref
+    part = paged_mod.PARTITION
+    B, Hq, Hkv, D, page, pps = 6, 8, 2, 64, 16, 24
+    lens = [1, part - 1, part, part + 1, 2 * part + 5, pps * page]
+    for dt in ("float32", "bfloat16"):
+        q, kp, vp, _, _ = paged_inputs(gen, B, Hq, Hkv, D, page, pps, getattr(torch, dt))
+        bt = torch.randperm(kp.shape[0], generator=gen, device="cuda")[:B * pps]
+        bt = bt.to(torch.int32).view(B, pps).contiguous()
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for window in (1, page - 1, page, 2 * part, pps * page + 7):
+            out = ops.paged_attention(q, kp, vp, bt, cl, window=window)
+            torch.cuda.synchronize()
+            assert_close(f"K2 window {window} contexts {lens} {dt}", out,
+                         ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain"), dt)
+            assert_close(f"K2 window {window} {dt} vs plain split", out,
+                         ref.paged_attention_split(q, kp, vp, bt, cl, window=window), dt)
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -468,6 +518,57 @@ def measure_paged(ops):
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:88",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
+            "library_graph_ms": library_g_ms, "host_us": h_us}
+
+
+def measure_paged_window(ops):
+    """K2 at mixtral_8x7b's decode shape with its 4096-key window: 8
+    sequences, page 16, 512 pages each (a cache of 8192), contexts in
+    4000-8192, bf16; the same timings as :func:`measure_paged`, SDPA beside
+    it with the window as a boolean mask.  The bound counts the keys the
+    window lets each sequence see."""
+    B, Hq, Hkv, D, page, pps, window = 8, 32, 8, 128, 16, 512, 4096
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt = torch.randperm(B * pps, generator=gen, device="cuda").to(torch.int32).view(B, pps)
+    bt = bt.contiguous()
+    cl = torch.tensor([4000, 4096, 4097, 5000, 6144, 6208, 7777, 8192], dtype=torch.int32,
+                      device="cuda")
+    out = ops.paged_attention(q, kp, vp, bt, cl, window=window)
+    exp = ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain")
+    torch.cuda.synchronize()
+    err = assert_close(f"K2 mixtral_8x7b {(B, Hq, Hkv, D, page, pps)} window {window} bfloat16",
+                       out, exp, "bfloat16")
+    ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window))
+    plain_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window,
+                                                   force="plain"))
+    g_ms = graph_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window))
+    h_us = host_us(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window))
+    S = pps * page
+    kh = kp[bt.long()].reshape(B, S, Hkv, D).repeat_interleave(Hq // Hkv, dim=2)
+    vh = vp[bt.long()].reshape(B, S, Hkv, D).repeat_interleave(Hq // Hkv, dim=2)
+    kh, vh = kh.transpose(1, 2).contiguous(), vh.transpose(1, 2).contiguous()
+    qh = q[:, :, None, :]
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = ((pos < cl[:, None]) & (pos >= cl[:, None] - window))[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib_err = float((lib[:, :, 0].float() - exp.float()).abs().max())
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    keys = int(torch.clamp(cl, max=window).sum())
+    flops = 4 * Hq * D * keys
+    nbytes = 2 * (q.numel() + out.numel()) + 2 * 2 * keys * Hkv * D + 4 * (bt.numel() + B)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"K2 mixtral_8x7b window {window}: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms ({library_g_ms:.4f} in a graph) "
+        f"(SDPA vs plain max abs err {lib_err:.3e}), bound {b_ms:.5f} ms by {b_by} "
+        f"({nbytes / 1e6:.3f} MB, {keys} keys in the windows of contexts {cl.tolist()}); "
+        f"host {h_us:.1f} us a call")
+    return {"shape": [B, Hq, Hkv, D, page, pps], "window": window, "contexts": cl.tolist(),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
             "library_graph_ms": library_g_ms, "host_us": h_us}
@@ -712,10 +813,11 @@ def main() -> int:
     check_paged_grid(ops)
     check_ssd_grid(ops)
     kernels = [measure_flash(ops), measure_paged(ops), measure_ssd(ops)]
+    kernels[1]["windowed"] = measure_paged_window(ops)
     if "--kernels-only" in sys.argv[1:]:
         log(f"--kernels-only: stopping after phase 3, {time.monotonic() - t_start:.1f} s")
         return 0
-    launches = {}
+    launches = collections.Counter()      # summed over every serving path
 
     log("== 4. llama3_8b, full width and depth, bf16, random weights (seed 0)")
     cfg, model, params = build_full("llama3_8b")
@@ -736,6 +838,27 @@ def main() -> int:
     launches.update(serve_path(ops, cfg, model, params, ("ssd_scan",)))
     log("== 9. where the device time goes: the same serving run under torch.profiler")
     serve_path(ops, cfg, model, params, (), profile=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    log("== 10. qwen3_30b_a3b, full width and depth, bf16, random weights (seed 0)")
+    cfg, model, params = build_full("qwen3_30b_a3b", expect=30_532_110_336)
+    check_model(model, params, cfg.vocab_size)
+    check_moe_grouped(cfg, params)
+    log("== 11. serving qwen3_30b_a3b through build_stack(mode='real')")
+    launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention")))
+    log("== 12. where the device time goes: the same serving run under torch.profiler")
+    serve_path(ops, cfg, model, params, (), profile=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    log("== 13. mixtral_8x7b at full width, 16 of its 32 layers, bf16, random weights")
+    cfg, model, params = build_full("mixtral_8x7b", layers=16, expect=23_482_470_400)
+    check_window_model(cfg, model, params)
+    log("== 14. serving one 6144-token prompt past mixtral's 4096-token window")
+    launches.update(serve_window(ops, cfg, model, params))
+    del model, params
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -754,12 +877,15 @@ def main() -> int:
     return 0
 
 
-def build_full(arch):
-    """``arch`` at full width and depth in bf16 on the card, random weights
-    from seed 0; its parameter count must equal the config's."""
+def build_full(arch, layers=None, expect=None):
+    """``arch`` at full width in bf16 on the card, at full depth or cut to
+    ``layers``, random weights from seed 0; its parameter count must equal
+    the config's, and ``expect`` where given."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import build_model
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers, layer_pattern=None)
     model = build_model(cfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
@@ -768,8 +894,9 @@ def build_full(arch):
     log(f"initialised {n_params:,} parameters (config says {cfg.param_count():,}) "
         f"in {time.monotonic() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         "allocated")
-    if n_params != cfg.param_count():
-        raise AssertionError("parameter count disagrees with the config")
+    if n_params != cfg.param_count() or n_params != (expect or n_params):
+        raise AssertionError(f"parameter count {n_params} disagrees with the config "
+                             f"({cfg.param_count()}) or the expected {expect}")
     return cfg, model, params
 
 
@@ -780,7 +907,6 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
     "real")``.  The launch counts are set to 0 just before the run and read
     just after; every kernel in ``path_kernels`` must have launched.  Returns
     those kernels' counts.  With ``profile``, runs under torch.profiler."""
-    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch.serve import engine_config, make_requests, run_requests
     from repro_torch.serving.stack import build_stack
     engine_cfg = engine_config()
@@ -789,25 +915,15 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
     reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
                          SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
     if profile:
-        profile_serving(lambda: run_requests(stack, reqs, timeout=600))
+        profile_serving(lambda: serve_inline(stack, reqs), moe=cfg.moe is not None)
         return {}
     log(f"prompt lengths {[r.prompt_len for r in reqs]}")
-    shapes = collections.Counter()
-    flash = flash_mod.flash_attention
-
-    def record(q, k, v, **kw):      # the (B, T, S) of every K1 launch
-        shapes[(q.shape[0], q.shape[1], k.shape[1])] += 1
-        return flash(q, k, v, **kw)
-
-    flash_mod.flash_attention = record
-    ops.reset_launch_counts()
-    try:
+    with recording() as (shapes, _):
+        ops.reset_launch_counts()
         summary = run_requests(stack, reqs, timeout=600)
-    finally:
-        flash_mod.flash_attention = flash
-    counts = ops.launch_counts()
+        counts = ops.launch_counts()
     if shapes:
-        log(f"K1 launches by (B, T, S): {sorted(shapes.items())}")
+        log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}")
         if (sum(shapes.values()) != counts["flash_attention"]
                 or any(n % cfg.num_layers for n in shapes.values())):
             raise AssertionError(f"K1 did not run in every layer of every prefill chunk: "
@@ -827,6 +943,156 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False):
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the serving path")
     return {name: counts[name] for name in path_kernels}
+
+
+def serve_inline(stack, reqs) -> None:
+    """Serve ``reqs``, all arriving at once, by stepping the engine in the
+    calling thread until every one has finished, then shut the stack down.
+    The profiled runs use it: torch.profiler records operators and their
+    ``record_function`` ranges only in the thread that started it, and the
+    engine's own loop runs in a thread of its own."""
+    engine = stack.engine
+    try:
+        now = stack.clock.now()
+        for r in reqs:
+            r.arrival_time = now
+            engine.scheduler.add_request(r)
+        while not all(r.finished for r in reqs):
+            engine.step()
+    finally:
+        stack.shutdown()
+
+
+@contextlib.contextmanager
+def recording():
+    """Counters of the (B, T, S, window) of every K1 launch and of the window
+    of every K2 launch while the block runs, taken from shapes and Python
+    arguments (no device value is read)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import paged_attention as paged_mod
+    shapes, windows = collections.Counter(), collections.Counter()
+    flash, paged = flash_mod.flash_attention, paged_mod.paged_attention
+
+    def record_flash(q, k, v, **kw):
+        shapes[(q.shape[0], q.shape[1], k.shape[1], kw.get("window"))] += 1
+        return flash(q, k, v, **kw)
+
+    def record_paged(*args, **kw):
+        windows[kw.get("window")] += 1
+        return paged(*args, **kw)
+
+    flash_mod.flash_attention, paged_mod.paged_attention = record_flash, record_paged
+    try:
+        yield shapes, windows
+    finally:
+        flash_mod.flash_attention, paged_mod.paged_attention = flash, paged
+
+
+def serve_window(ops, cfg, model, params):
+    """Phase 14: one request of 6144 prompt tokens and 64 new ones through
+    ``build_stack(mode="real")`` in one slot of 8192 positions (512-token
+    chunks).  K1 must have run the window on keys past it (S > window) and
+    K2 every decode with the window; returns the launch counts."""
+    from repro_torch.launch.serve import engine_config, make_requests, run_requests
+    from repro_torch.serving.stack import build_stack
+    window, prompt, new = cfg.sliding_window, 6144, 64
+    stack = build_stack(cfg, engine_config(max_num_seqs=1, max_len=8192), "real",
+                        model=model, params=params, max_len=8192, device="cuda",
+                        dtype=torch.bfloat16)
+    reqs = make_requests(1, prompt, prompt, new, cfg.vocab_size, seed=SERVING["seed"])
+    with recording() as (shapes, windows):
+        ops.reset_launch_counts()
+        summary = run_requests(stack, reqs, timeout=600)
+        counts = ops.launch_counts()
+    log("serving: " + json.dumps(summary))
+    log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}")
+    log(f"K2 launches by window: {dict(windows)}; launches {counts} over "
+        f"{summary['steps']} steps")
+    req = reqs[0]
+    if req.num_generated != new or summary["finished"] != 1:
+        raise AssertionError(f"the request produced {req.num_generated} tokens")
+    if not any(S > window and w == window for (_, _, S, w) in shapes):
+        raise AssertionError(f"K1 never ran the window past {window} keys: {dict(shapes)}")
+    if counts["paged_attention"] != (new - 1) * cfg.num_layers:
+        raise AssertionError(f"K2 ran {counts['paged_attention']} times for {new - 1} decodes "
+                             f"of {cfg.num_layers} layers")
+    if set(windows) != {window}:
+        raise AssertionError(f"K2 ran without the window: {dict(windows)}")
+    return {name: counts[name] for name in ("flash_attention", "paged_attention")}
+
+
+def check_window_model(cfg, model, params):
+    """Phase 13: logits of a 6144-token prefill (three 2048-token chunks, the
+    last one's keys past the window) and of a decode at position 6144, with
+    K1 and K2 against the plain attention, in relative terms as
+    :func:`check_model`; beside them, how far the same weights without the
+    window are, to show that the window shaped the result."""
+    from repro_torch.models.transformer import build_model
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (1, 6145), generator=gen, device="cuda")
+    unwindowed = build_model(cfg.replace(sliding_window=None))
+
+    def run(m, force):
+        cache = m.init_cache(1, 8192, torch.bfloat16, "cuda")
+        for a in range(0, 6144, 2048):
+            pre, cache = m.prefill(params, {"tokens": toks[:, a:a + 2048]}, cache, force=force)
+        dec, _ = m.decode_step(params, cache, toks[:, 6144:], force=force)
+        return pre.float(), dec.float()
+
+    with recording() as (shapes, windows):
+        kern = run(model, None)
+    plain, wide = run(model, "plain"), run(unwindowed, None)
+    torch.cuda.synchronize()
+    log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}; K2 by window: "
+        f"{dict(windows)}")
+    for i, what in enumerate(("prefill to position 6143 (K1, window 4096)",
+                              "decode at position 6144 (K2, window 4096)")):
+        a, b, c = kern[i], plain[i], wide[i]
+        if tuple(a.shape) != (1, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"mixtral {what}: logits not finite or of the wrong shape")
+        rel = float((a - b).abs().max() / b.abs().max())
+        rel_wide = float((c - b).abs().max() / b.abs().max())
+        log(f"mixtral {what}: max relative error kernels vs plain {rel:.3e} (argmax "
+            f"{int(a.argmax())} vs {int(b.argmax())}); without the window {rel_wide:.3e}")
+        if rel > 5e-2:
+            raise AssertionError(f"mixtral {what}: kernels and plain differ by {rel}")
+
+
+def check_moe_grouped(cfg, params):
+    """The MoE of layer 0 of qwen3_30b_a3b on a 512-token chunk in bf16: the
+    grouped call (``torch._grouped_mm``) against the per-expert loop, for
+    the whole layer and for the first product alone (2e-2), and both timed;
+    the router's expert loads beside them."""
+    from repro_torch.models import layers as L
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    y, aux = L.moe(cfg, p, x)
+    y_loop, _ = L.moe(cfg, p, x, force="plain")
+    torch.cuda.synchronize()
+    err = assert_close("MoE layer 0 grouped vs per-expert loop (1, 512) bfloat16", y, y_loop,
+                       "bfloat16")
+    _, _, idx = L.moe_route(cfg, p, x.reshape(-1, cfg.d_model))
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = x.reshape(-1, cfg.d_model)[order // cfg.moe.top_k]
+    sizes = torch.bincount(flat, minlength=cfg.moe.num_experts).int()
+    assert_close("MoE w_in product grouped vs loop bfloat16", L.grouped_mm(xs, p["w_in"], sizes),
+                 L.grouped_mm_loop(xs, p["w_in"], sizes), "bfloat16")
+    ms = time_ms(lambda: L.grouped_mm(xs, p["w_in"], sizes))
+    g_ms = graph_ms(lambda: L.grouped_mm(xs, p["w_in"], sizes))
+    loop_ms = time_ms(lambda: L.grouped_mm_loop(xs, p["w_in"], sizes))
+    layer_ms = time_ms(lambda: L.moe(cfg, p, x))
+    loop_layer_ms = time_ms(lambda: L.moe(cfg, p, x, force="plain"))
+    rows, (E, d, n) = xs.shape[0], p["w_in"].shape
+    nbytes = 2 * (xs.numel() + rows * n + int((sizes > 0).sum()) * d * n)
+    b_ms, b_by = bound(2 * rows * d * n, nbytes, PEAK_BF16_FLOPS)
+    load = sizes.tolist()
+    log(f"MoE layer 0: {sum(1 for s in load if s == 0)} of {E} experts got no token, the "
+        f"largest {max(load)} rows; max abs err {err:.3e}; w_in product grouped "
+        f"{ms:.4f} ms ({g_ms:.4f} in a graph), loop {loop_ms:.4f} ms, bound {b_ms:.5f} ms by "
+        f"{b_by}; whole layer grouped {layer_ms:.4f} ms, loop {loop_layer_ms:.4f} ms; "
+        f"aux loss {float(aux['moe_aux_loss']):.4f}")
 
 
 def real_against_emulated(cfg, model, params) -> None:
@@ -860,19 +1126,44 @@ def real_against_emulated(cfg, model, params) -> None:
     log(f"phase 6b took {time.monotonic() - t0:.1f} s")
 
 
-def profile_serving(serve) -> None:
+def profile_serving(serve, moe=False) -> None:
     """Device time by kernel over one ``serve()`` call, and the device's busy
-    share of the wall time (one stream, so kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.monotonic()
-        serve()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
+    share of the wall time (one stream, so kernels do not overlap).  With
+    ``moe``, operators are recorded too and each MoE layer runs inside a
+    ``record_function("moe")`` range, whose device time is every kernel of
+    the layer: routing, sort, gather, the grouped products (kernels named
+    ``*group*``), the activation and the scatter-add.  (Without it only the
+    device is traced: turning a serving run's operator records into events
+    costs about a minute of host time.)"""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import layers as L
+    moe_layer = L.moe
+
+    def moe_in_range(*args, **kw):
+        with record_function("moe"):
+            return moe_layer(*args, **kw)
+
+    L.moe = moe_in_range
+    try:
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+        with profile(activities=activities, acc_events=True) as prof:
+            t0 = time.monotonic()
+            serve()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        L.moe = moe_layer
+    # the "moe" ranges: operator events of this thread, whose device time
+    # is that of every kernel launched inside them
+    ranges = [e for e in (prof.events() if moe else ())
+              if e.name == "moe" and e.device_type == torch.autograd.DeviceType.CPU]
+    moe_ms = sum(e.device_time_total for e in ranges) / 1e3
+    moe_calls = len(ranges)
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a range's device-side annotation spans kernels; it is none itself
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key == "moe":
             continue
         ms = getattr(evt, "self_device_time_total", 0) / 1e3
         if ms > 0:
@@ -882,10 +1173,13 @@ def profile_serving(serve) -> None:
         log("profiler saw no device time")
         return
     groups = {"flash_attention (K1)": 0.0, "paged_attention (K2)": 0.0,
-              "ssd_scan (K3)": 0.0, "matrix products": 0.0, "other": 0.0}
+              "ssd_scan (K3)": 0.0, "MoE grouped products": 0.0, "matrix products": 0.0,
+              "other": 0.0}
     for ms, _, name in kernels:
         low = name.lower()
-        if "flash_fwd" in name:
+        if "group" in low:
+            groups["MoE grouped products"] += ms
+        elif "flash_fwd" in name:
             groups["flash_attention (K1)"] += ms
         elif "paged_fwd" in name:
             groups["paged_attention (K2)"] += ms
@@ -895,10 +1189,15 @@ def profile_serving(serve) -> None:
             groups["matrix products"] += ms
         else:
             groups["other"] += ms
-    log(f"wall {wall_ms:.1f} ms under the profiler, device busy {total:.1f} ms "
+    log(f"wall {wall_ms:.1f} ms under the profiler (engine stepped in this thread), "
+        f"device busy {total:.1f} ms "
         f"({100 * total / wall_ms:.1f}%), idle {100 * (1 - total / wall_ms):.1f}%")
     for g, ms in groups.items():
         log(f"  {g:24s} {ms:9.2f} ms  {100 * ms / total:5.1f}% of device time")
+    if moe_calls:
+        log(f"  MoE layers, all their kernels ({moe_calls} calls): {moe_ms:.2f} ms, "
+            f"{100 * moe_ms / total:.1f}% of device time; routing, dispatch and combine "
+            f"{moe_ms - groups['MoE grouped products']:.2f} ms")
     for ms, n, name in sorted(kernels, reverse=True)[:10]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
 

@@ -9,7 +9,9 @@
 // Layout: q (B, Hq, D) dense; k/v pages (num_pages, page_size, Hkv, D)
 // dense; block_tables (B, pages_per_seq) int32 dense; context_lens (B,)
 // int32; o (B, Hq, D).  The G = Hq / Hkv query heads of KV head hk are
-// hk*G .. hk*G + G - 1.
+// hk*G .. hk*G + G - 1.  An optional sliding window (window > 0; the Pallas
+// kernel has none) masks the keys at positions < context_len - window: the
+// query sits at context_len - 1 and sees `window` keys.
 //
 // Bound: bytes.  Every K/V byte of a context is read once, for all G query
 // heads of its KV head together, and each byte takes two FLOPs a head.
@@ -20,8 +22,11 @@
 //    of every page size; 32, 128 and 256 were slower on the H100, PERF.md);
 //    the number of partitions comes from pages_per_seq, a shape, never from
 //    context_lens, so the host reads no device value.  A
-//    block whose partition starts at or past its context writes m = -inf,
-//    l = 0 and exits.  The others stage their slice of the block table and
+//    block whose partition starts at or past its context, or ends at or
+//    before the window's start, writes m = -inf, l = 0 and exits, so a
+//    windowed decode reads about `window` keys whatever the context; the
+//    partition that holds the window's start gives its earlier keys a score
+//    of -inf.  The others stage their slice of the block table and
 //    their G query rows, then stream the partition's K tiles and then its V
 //    tiles (64 keys in bf16, 32 in fp32) through a two-stage ring in shared
 //    memory, kept in the input type and filled by 16-byte cp.async, so the
@@ -92,7 +97,8 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
                   const T* __restrict__ v_pages, const int* __restrict__ block_tables,
                   const int* __restrict__ context_lens, float* __restrict__ m_out,
                   float* __restrict__ l_out, float* __restrict__ acc_out, int num_heads,
-                  int num_kv_heads, int page_size, int pages_per_seq, float scale) {
+                  int num_kv_heads, int page_size, int pages_per_seq, int window,
+                  float scale) {
   constexpr int TK = TileK<T>::value;
   constexpr int LDK = RowLd<T, D>::value;
   constexpr int LDQ = D + 4;
@@ -111,15 +117,19 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
   const long long row0 = (static_cast<long long>(b) * num_heads + hk * G) * num_parts + part;
 
   const int ctx = min(context_lens[b], pages_per_seq * page_size);
+  const int lo = window > 0 ? max(0, ctx - window) : 0;  // the first visible key
   const int start = part * kPartition;
-  if (start >= ctx) {  // an empty partition: the merge skips it
+  if (start >= ctx || start + kPartition <= lo) {  // an empty partition: the merge skips it
     for (int g = tid; g < G; g += kThreads) {
       m_out[row0 + static_cast<long long>(g) * num_parts] = -INFINITY;
       l_out[row0 + static_cast<long long>(g) * num_parts] = 0.f;
     }
     return;
   }
-  const int n = min(kPartition, ctx - start);  // visible keys of this partition
+  const int n = min(kPartition, ctx - start);  // keys of this partition up to the context
+  // keys of this partition before the window's start; key n - 1 is at or
+  // past it (start + kPartition > lo and ctx - 1 >= lo), so n > skip
+  const int skip = max(0, lo - start);
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // (G, LDQ) scaled queries
@@ -174,7 +184,9 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
       for (int idx = tid; idx < G * TK; idx += kThreads) {
         const int g = idx / TK;
         const int j = idx % TK;
-        if (k0 + j < n) {
+        if (k0 + j < skip) {
+          Ss[g * kPartition + k0 + j] = -INFINITY;  // exp gives 0: no weight
+        } else if (k0 + j < n) {
           const float* qr = Qs + g * LDQ;
           const T* kr = tile + j * LDK;
           float s = 0.f;
@@ -193,8 +205,8 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
       }
       if (t == n_k - 1) {
         __syncthreads();
-        // the partition's softmax statistics, one warp per head; n >= 1, so
-        // the max is finite
+        // the partition's softmax statistics, one warp per head; n > skip,
+        // so the max is finite
         for (int g = warp; g < G; g += kWarps) {
           float* sr = Ss + g * kPartition;
           float mx = -INFINITY;
@@ -285,8 +297,8 @@ __global__ void paged_fwd_merge(const float* __restrict__ m_in, const float* __r
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* ctx, float* m, float* l, float* acc, void* o, int B, int Hq,
-                   int Hkv, int page_size, int pages_per_seq, int num_parts, float scale,
-                   cudaStream_t stream) {
+                   int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
+                   float scale, cudaStream_t stream) {
   // the most any group and page size take stays within the 48 KB a block
   // gets without raising its limit
   static_assert(partial_smem_bytes<T, D>(kMaxGroupElems / D, kMinPage) <= 48 * 1024,
@@ -294,7 +306,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
   const int bytes = partial_smem_bytes<T, D>(Hq / Hkv, page_size);
   paged_fwd_partial<T, D><<<dim3(num_parts, Hkv, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables, ctx,
-      m, l, acc, Hq, Hkv, page_size, pages_per_seq, scale);
+      m, l, acc, Hq, Hkv, page_size, pages_per_seq, window, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_fwd_merge<T><<<dim3(Hq, B), D, 0, stream>>>(m, l, acc, static_cast<T*>(o), Hq,
@@ -305,18 +317,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, const int* tables,
                        const int* ctx, float* m, float* l, float* acc, void* o, int B, int Hq,
-                       int Hkv, int page_size, int pages_per_seq, int num_parts, float scale,
-                       cudaStream_t stream) {
+                       int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
+                       float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
-                           pages_per_seq, num_parts, scale, stream);
+                           pages_per_seq, num_parts, window, scale, stream);
     case 64:
       return launch<T, 64>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
-                           pages_per_seq, num_parts, scale, stream);
+                           pages_per_seq, num_parts, window, scale, stream);
     case 128:
       return launch<T, 128>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
-                            pages_per_seq, num_parts, scale, stream);
+                            pages_per_seq, num_parts, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -328,18 +340,19 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, con
 // m_part, l_part: (B, Hq, num_parts) fp32 scratch; acc_part: (B, Hq,
 // num_parts, D) fp32 scratch, with num_parts = max(1, ceil(pages_per_seq *
 // page_size / 64)); the page size divides 64 and Hq / Hkv * D <= 2048.
-// dtype: 0 = float32, 1 = bfloat16.  Two launches on `stream`.  Returns a
-// cudaError_t (0 on success).
+// window: the sliding window in keys, or 0 for none.  dtype: 0 = float32,
+// 1 = bfloat16.  Two launches on `stream`.  Returns a cudaError_t (0 on
+// success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                    const void* block_tables, const void* context_lens,
                                    void* m_part, void* l_part, void* acc_part, void* o, int B,
                                    int Hq, int Hkv, int D, int page_size, int pages_per_seq,
-                                   float scale, int dtype, void* stream) {
+                                   int window, float scale, int dtype, void* stream) {
   using repro_torch::kMaxGroupElems;
   using repro_torch::kMinPage;
   using repro_torch::kPartition;
   if (page_size < kMinPage || kPartition % page_size || Hkv <= 0 || Hq % Hkv ||
-      Hq / Hkv * D > kMaxGroupElems || pages_per_seq < 0) {
+      Hq / Hkv * D > kMaxGroupElems || pages_per_seq < 0 || window < 0) {
     return cudaErrorInvalidValue;
   }
   const int num_parts = pages_per_seq * page_size > kPartition
@@ -353,13 +366,13 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
   float* acc = static_cast<float*>(acc_part);
   if (dtype == 0) {
     return repro_torch::dispatch_d<float>(D, q, k_pages, v_pages, tables, ctx, m, l, acc, o, B,
-                                          Hq, Hkv, page_size, pages_per_seq, num_parts, scale,
-                                          st);
+                                          Hq, Hkv, page_size, pages_per_seq, num_parts, window,
+                                          scale, st);
   }
   if (dtype == 1) {
     return repro_torch::dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, ctx, m, l,
                                                   acc, o, B, Hq, Hkv, page_size, pages_per_seq,
-                                                  num_parts, scale, st);
+                                                  num_parts, window, scale, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -36,14 +36,14 @@ def flash_attention(q, k, v, *, causal=True, window=None,
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    softmax_scale=None, force: Optional[str] = None):
+                    window=None, softmax_scale=None, force: Optional[str] = None):
     if _use_kernel(q, force):
         return _paged.paged_attention(
             q, k_pages, v_pages, block_tables, context_lens,
-            softmax_scale=softmax_scale)
+            window=window, softmax_scale=softmax_scale)
     return ref.paged_attention_ref(
         q, k_pages, v_pages, block_tables, context_lens,
-        softmax_scale=softmax_scale)
+        window=window, softmax_scale=softmax_scale)
 
 
 def ssd_scan(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None,

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``repro/kernels/paged_attention.py::paged_attention``
 (``_paged_kernel``): one query token per sequence attends over a paged KV
 pool through a block table; the G query heads of a KV head are handled
 together, pages at or past ``context_len`` are skipped and positions past it
-are masked inside the last page.
+are masked inside the last page.  Beyond the Pallas kernel it takes a
+sliding ``window``: keys before ``context_len - window`` are skipped by
+whole partitions and masked inside the partition that holds the window's
+start.
 
 On the card the work is bound by bytes: each step reads every K/V byte of
 every context once and does two FLOPs per byte.  The kernel splits each
@@ -63,13 +66,14 @@ def scratch_shapes(B: int, Hq: int, D: int, num_parts: int):
 def _kernel():
     fn = _build.load("paged_attention").paged_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                     block_tables: torch.Tensor, context_lens: torch.Tensor, *,
+                    window: Optional[int] = None,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over a paged KV pool.
 
@@ -77,6 +81,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     k/v_pages:    (num_pages, page_size, Hkv, D)
     block_tables: (B, pages_per_seq) int32; every entry a valid page id
     context_lens: (B,) int32
+    window:       None, or a sliding window of at least 1 key: keys at
+                  positions < context_len - window are masked
     returns       (B, Hq, D) in q's type
 
     CUDA tensors only, all dense: fp32 or bf16, D in {32, 64, 128}, page
@@ -116,6 +122,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                          f"and context_lens {tuple(context_lens.shape)} must cover B={B}")
     if B > 65535 or Hq > 65535:
         raise ValueError("paged_attention: batch and heads must be <= 65535")
+    if window is not None and not 1 <= window < 2**31:
+        raise ValueError(f"paged_attention: window {window} must be at least 1")
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if x.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} must be 16-byte aligned")
@@ -136,7 +144,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(), m_ptr, l_ptr, acc_ptr,
              out.data_ptr(), B, Hq, Hkv, D, page_size,
-             pps, scale, _DTYPES[q.dtype], stream)
+             pps, window or 0, scale, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention: launch failed with CUDA error {err}")
     launches += 1

@@ -113,7 +113,16 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
     return out.reshape(B, T, Hq, D).to(q.dtype)
 
 
+def _window_start(context_lens, window: Optional[int]):
+    """First visible key of each context: ``context_len - window`` (at least
+    0), or 0 without a window; the query sits at ``context_len - 1``."""
+    if window is None:
+        return torch.zeros_like(context_lens)
+    return torch.clamp(context_lens - window, min=0)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
+                        window: Optional[int] = None,
                         softmax_scale: Optional[float] = None):
     """Decode attention against a paged KV pool.
 
@@ -121,6 +130,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     k/v_pages:    (num_pages, page_size, Hkv, D)
     block_tables: (B, pages_per_seq) int32 — page ids per sequence
     context_lens: (B,) int32      — valid KV length per sequence
+    window:       keys at positions < context_len − window are masked (the
+                  Pallas kernel has no window; this is the dense attention's
+                  ``causal_mask(window=)`` for a query at context_len − 1)
     returns       (B, Hq, D)
     """
     B, Hq, D = q.shape
@@ -137,8 +149,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     v = v.reshape(B, S, Hkv, D)
     qg = q.reshape(B, Hkv, G, D)
     scores = torch.einsum("bhgd,bshd->bhgs", qg, k).float() * scale
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < context_lens.to(q.device)[:, None])
+    lens = context_lens.to(q.device).long()
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = (pos < lens[:, None]) & (pos >= _window_start(lens, window)[:, None])
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
@@ -147,22 +160,27 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
 
 
 def paged_attention_split(q, k_pages, v_pages, block_tables, context_lens, *,
-                          partition: int = PARTITION, softmax_scale: Optional[float] = None):
+                          window: Optional[int] = None, partition: int = PARTITION,
+                          softmax_scale: Optional[float] = None):
     """K2's algorithm in plain PyTorch: split each context into partitions of
     ``partition`` keys (a multiple of the page size; their number comes from
     ``pages_per_seq``, not from the lengths), take each partition's softmax
     statistics (m, l) and unnormalised sum acc = Σ exp(s − m)·v in fp32, then
     merge them exactly: o = Σ exp(m_i − M)·acc_i / Σ exp(m_i − M)·l_i over the
-    non-empty partitions.  An empty context gives 0 (as the Pallas kernel
-    does; ``paged_attention_ref`` gives the mean of V there).  Shapes as
-    :func:`paged_attention_ref`; returns (B, Hq, D) in q's type."""
+    non-empty partitions.  With a window, a partition that ends at or before
+    ``context_len − window`` is empty, and the one that holds the window's
+    start masks the keys before it.  An empty context gives 0 (as the Pallas
+    kernel does; ``paged_attention_ref`` gives the mean of V there).  Shapes
+    as :func:`paged_attention_ref`; returns (B, Hq, D) in q's type."""
     m, l, acc = paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens,
-                                         partition=partition, softmax_scale=softmax_scale)
+                                         window=window, partition=partition,
+                                         softmax_scale=softmax_scale)
     return paged_attention_merge(m, l, acc).to(q.dtype)
 
 
 def paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens, *,
-                             partition: int = PARTITION, softmax_scale: Optional[float] = None):
+                             window: Optional[int] = None, partition: int = PARTITION,
+                             softmax_scale: Optional[float] = None):
     """The first pass of :func:`paged_attention_split`: fp32 partials m, l of
     shape (B, Hq, NP) and acc of shape (B, Hq, NP, D); an empty partition has
     m = −inf, l = 0 and acc = 0."""
@@ -182,7 +200,8 @@ def paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens, *,
     qg = q.reshape(B, Hkv, G, D).float() * scale
     s = torch.einsum("bhgd,bshd->bhgs", qg, k)
     ctx = torch.clamp(context_lens.to(q.device).long(), max=pps * page_size)
-    valid = torch.arange(S, device=q.device)[None, :] < ctx[:, None]
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = (pos < ctx[:, None]) & (pos >= _window_start(ctx, window)[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.tensor(-torch.inf, device=q.device))
     s = s.reshape(B, Hkv, G, NP, partition)
     m = s.amax(dim=-1)                                                # (B,Hkv,G,NP)

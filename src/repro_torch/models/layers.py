@@ -1,5 +1,5 @@
-"""Model building blocks in PyTorch: the dense and Mamba2 (SSD) subsets of
-``repro.models.layers``.
+"""Model building blocks in PyTorch: the dense, dropless-MoE and Mamba2 (SSD)
+subsets of ``repro.models.layers``.
 
 Plain functions over explicit parameter dictionaries that keep the JAX
 package's names and layouts (attention weights (d, H, Dh) and (H, Dh, d)), so
@@ -15,7 +15,10 @@ mask-based attention, kept for layer-level parity tests; the model attends
 over its cache through :mod:`repro_torch.kernels.ops`.  :func:`ssd_prefill`
 runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
 :func:`ssd_decode_step` has no kernel in the reference and stays plain
-PyTorch.
+PyTorch.  :func:`moe` is the reference's dropless MoE; its two grouped
+products lie outside any Pallas kernel in the reference
+(``jax.lax.ragged_dot``) and stay PyTorch products here
+(:func:`grouped_mm`).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from repro_torch.kernels import ops, ref
 from .config import ModelConfig
 
 # Leaves the reference initialises in fp32 whatever the model's type
-# (``repro.models.layers.ssd_params``); conversions leave them in fp32.
-FP32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
+# (``repro.models.layers.ssd_params`` and ``moe_params``); conversions leave
+# them in fp32.
+FP32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router"})
 
 # --------------------------------------------------------------------------
 # initialisation helpers
@@ -232,6 +236,98 @@ def mlp(cfg: ModelConfig, p, x):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts: sort-based dispatch, grouped products (dropless)
+# --------------------------------------------------------------------------
+
+
+def moe_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=None, lead=()):
+    """``router`` (d, E) in fp32 whatever ``dtype``; ``w_in`` (E, d, n_in·F_e)
+    and ``w_out`` (E, F_e, d) with their fan-in on axis 1 (after ``lead``)."""
+    moe_cfg = cfg.moe
+    n_in = 2 if cfg.mlp_act == "swiglu" else 1
+    E, F_e = moe_cfg.num_experts, moe_cfg.d_ff_expert
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    return {
+        "router": dense_init((cfg.d_model, E), generator, dtype=torch.float32,
+                             device=device, lead=lead),
+        "w_in": dense_init((E, cfg.d_model, n_in * F_e), generator, in_axis=1, **kw),
+        "w_out": dense_init((E, F_e, cfg.d_model), generator, in_axis=1, **kw),
+    }
+
+
+def moe_route(cfg: ModelConfig, p, xf):
+    """Router of :func:`moe`: fp32 logits ``xf @ router``, their softmax, and
+    its top-k, renormalised.  xf: (n, d) -> probs (n, E), gate (n, K) and the
+    expert ids idx (n, K), both in descending order of probability."""
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, gate / gate.sum(dim=-1, keepdim=True), idx
+
+
+def grouped_mm(x, w, group_sizes, *, force: Optional[str] = None):
+    """``jax.lax.ragged_dot``: rows of ``x`` (m, k) sorted by group, group g's
+    ``group_sizes[g]`` rows times ``w[g]`` (G, k, n) -> (m, n) in x's type.
+
+    On the card it is one ``torch._grouped_mm`` call whose group ends are the
+    cumulative sizes on the device, so no host read waits on the router; its
+    plain version, :func:`grouped_mm_loop`, serves the CPU and
+    ``force="plain"``."""
+    if ops._use_kernel(x, force):
+        return torch._grouped_mm(x, w, offs=torch.cumsum(group_sizes, 0, dtype=torch.int32))
+    return grouped_mm_loop(x, w, group_sizes)
+
+
+def grouped_mm_loop(x, w, group_sizes):
+    """The plain version of :func:`grouped_mm`: one product per expert over
+    its rows, the sizes read on the host."""
+    out = x.new_empty((x.shape[0], w.shape[-1]))
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        out[start:start + size] = x[start:start + size] @ w[g]
+        start += size
+    return out
+
+
+def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
+    """Dropless MoE, as the reference: route, sort the (token, choice) pairs
+    by expert (stable), two grouped products, scatter-add back weighted by
+    the gates.  x: (B, T, d) -> (y (B, T, d), {"moe_aux_loss",
+    "expert_load"}), the Switch-style load-balance loss and each expert's
+    share of the n·K choices.  ``force="plain"`` runs the per-expert loop."""
+    moe_cfg = cfg.moe
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    B, T, d = x.shape
+    n = B * T
+    xf = x.reshape(n, d)
+    probs, gate, idx = moe_route(cfg, p, xf)
+    flat_expert = idx.reshape(-1)                                     # (n*K,)
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    token_of = sort_idx // K
+    xs = xf[token_of]                                                 # (n*K, d)
+    # a scatter, not bincount, which reads the largest id on the host
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
+
+    h = grouped_mm(xs, p["w_in"], group_sizes, force=force)          # (n*K, n_in*F_e)
+    if cfg.mlp_act == "swiglu":
+        hi, hg = torch.chunk(h, 2, dim=-1)
+        h = F.silu(hi) * hg
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ys = grouped_mm(h, p["w_out"], group_sizes, force=force)         # (n*K, d)
+
+    flat_gate = gate.reshape(-1)[sort_idx]
+    ys = ys * flat_gate[:, None].to(ys.dtype)
+    out = torch.zeros((n, d), dtype=ys.dtype, device=x.device).index_add_(0, token_of, ys)
+
+    me = probs.mean(dim=0)                                            # (E,)
+    ce = group_sizes.float() / (n * K)
+    aux_loss = E * torch.sum(me * ce)
+    return out.reshape(B, T, d), {"moe_aux_loss": aux_loss, "expert_load": ce}
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Decoder LM in PyTorch: the uniform-``attn`` (dense) and uniform-``ssd``
-(Mamba2) paths of ``repro.models.transformer.TransformerLM``.
+"""Decoder LM in PyTorch: the uniform-``attn`` (dense, dropless MoE, sliding
+window, prepended frontend embeddings) and uniform-``ssd`` (Mamba2) paths of
+``repro.models.transformer.TransformerLM``.
 
 Entry points, as in the reference:
 
@@ -30,15 +31,25 @@ Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
   ``b * S / PAGE_SIZE + arange(S / PAGE_SIZE)`` and its context length is
   position + 1.  The pages are a view of the cache, not a copy.
 
+A sliding window (``cfg.sliding_window``) goes to both kernels, which mask
+by position: a query at p sees the keys at p − window + 1 .. p.  The cache
+stays linear, ``cache_size`` positions a row, where the reference keeps a
+ring of about one window (``positions % S``): the same function, since the
+reference also masks by position, at the memory of the whole context.
+
+An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`; its
+auxiliary outputs are dropped, as serving does in the reference.  A
+``frontend`` config takes ``inputs["frontend_embeds"]`` (B, F, d), which
+are prepended to the token embeddings: that prefill writes F + T positions.
+
 An SSD block's prefill runs its chunked scan through ``ops.ssd_scan`` (K3 on
 the card) from the rows' carried states, at any T; its decode is plain
 PyTorch, as in the reference.  A recurrent state has no position mask, so a
 decode reads and writes the state rows of the listed slots and no others.
 
-Anything else of the reference (sliding windows, ``local_attn``, MoE, RG-LRU,
-mixed layer patterns, encoder-decoder, frontends, ``kv_append="defer"``, the
-training loss) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+Anything else of the reference (``local_attn``, RG-LRU, mixed layer patterns,
+encoder-decoder, ``kv_append="defer"``, ``moe_impl="a2a"``, the training
+loss) raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -57,14 +68,12 @@ from .config import ModelConfig
 PAGE_SIZE = 16     # K2's view of a slot: S / PAGE_SIZE consecutive pages
 
 _ROADMAP = {
-    "sliding_window": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "local_attn": "ROADMAP Queue A item 8 (sliding window and MoE)",
-    "moe": "ROADMAP Queue A item 8 (sliding window and MoE)",
+    "local_attn": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "defer": "ROADMAP Queue A item 9 (deferred KV append)",
     "rglru": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "mixed": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "encoder": "ROADMAP Queue A item 12 (Whisper encoder-decoder)",
-    "frontend": "ROADMAP Queue A item 8 (llava's frontend embeddings)",
+    "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
     "train": "ROADMAP Queue A item 13 (training)",
 }
 
@@ -81,16 +90,12 @@ def check_supported(cfg: ModelConfig) -> None:
             raise _unported(kind)
     if len(set(cfg.layer_pattern)) > 1:
         raise _unported("mixed")
-    if cfg.sliding_window is not None:
-        raise _unported("sliding_window")
-    if cfg.moe is not None:
-        raise _unported("moe")
     if cfg.encoder is not None:
         raise _unported("encoder")
-    if cfg.frontend is not None:
-        raise _unported("frontend")
     if cfg.kv_append != "inline":
         raise _unported("defer")
+    if cfg.moe is not None and cfg.moe_impl != "ragged":
+        raise _unported("a2a")
 
 
 # ==========================================================================
@@ -100,20 +105,23 @@ def check_supported(cfg: ModelConfig) -> None:
 def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
                  device=None, lead=()) -> Dict:
     """One block's parameters; ``lead=(L,)`` stacks L blocks on axis 0.  An
-    SSD block has one pre-norm and no MLP."""
+    SSD block has one pre-norm and no MLP; an MoE config's attention block
+    has ``moe`` where a dense one has ``mlp``."""
     if kind == "ssd":
         return {"norm1": L.norm_params(cfg, dtype, device, lead),
                 "ssd": L.ssd_params(cfg, generator, dtype, device, lead)}
     if kind != "attn":
         raise _unported(kind)
-    if cfg.moe is not None:
-        raise _unported("moe")
-    return {
+    p = {
         "norm1": L.norm_params(cfg, dtype, device, lead),
         "attn": L.attn_params(cfg, generator, dtype, device, lead),
         "norm2": L.norm_params(cfg, dtype, device, lead),
-        "mlp": L.mlp_params(cfg, generator, dtype, device, lead=lead),
     }
+    if cfg.moe is not None:
+        p["moe"] = L.moe_params(cfg, generator, dtype, device, lead)
+    else:
+        p["mlp"] = L.mlp_params(cfg, generator, dtype, device, lead=lead)
+    return p
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
@@ -131,8 +139,6 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                                     **f32)}
     if kind != "attn":
         raise _unported(kind)
-    if cfg.sliding_window is not None:
-        raise _unported("sliding_window")
     shape = tuple(lead) + (batch, cache_size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -169,13 +175,14 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
     T = positions.shape[1]
+    window = cfg.sliding_window
     if step.start is not None:
         s0, s1 = step.start, step.start + T
         k_c[:, s0:s1] = k_new.to(k_c.dtype)
         v_c[:, s0:s1] = v_new.to(v_c.dtype)
         kv_pos[:, s0:s1] = positions.to(kv_pos.dtype)
         ctx = ops.flash_attention(q, k_c[:, :s1], v_c[:, :s1], causal=True,
-                                  force=force)
+                                  window=window, force=force)
     else:
         rows, pos = step.rows, positions[:, 0].long()
         k_c[rows, pos] = k_new[:, 0].to(k_c.dtype)
@@ -184,9 +191,11 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
         page_shape = (-1, PAGE_SIZE) + tuple(k_c.shape[2:])
         ctx = ops.paged_attention(
             q[:, 0].contiguous(), k_c.view(page_shape), v_c.view(page_shape),
-            step.block_tables, step.context_lens, force=force)[:, None]
+            step.block_tables, step.context_lens, window=window, force=force)[:, None]
     x = x + L.attn_out(p["attn"], ctx.to(x.dtype))
     h2 = L.apply_norm(cfg, x, p["norm2"])
+    if cfg.moe is not None:
+        return x + L.moe(cfg, p["moe"], h2, force=force)[0]
     return x + L.mlp(cfg, p["mlp"], h2)
 
 
@@ -250,13 +259,17 @@ class TransformerLM:
 
     # -------------------------------------------------------------- embed --
     def _embed_inputs(self, params, inputs):
-        extra = set(inputs) - {"tokens"}
-        if "frontend_embeds" in extra:
-            raise _unported("frontend")
+        """(B, T, d): the token embeddings, after the frontend embeddings
+        (B, F, d) where the config has a frontend and the inputs carry them."""
+        allowed = {"tokens", "frontend_embeds"} if self.cfg.frontend else {"tokens"}
+        extra = set(inputs) - allowed
         if extra:
             raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
                              "always follow the cache length")
-        return params["embed"][inputs["tokens"]]
+        x = params["embed"][inputs["tokens"]]
+        if "frontend_embeds" in inputs:
+            x = torch.cat([inputs["frontend_embeds"].to(x.dtype), x], dim=1)
+        return x
 
     def _unembed(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
@@ -287,14 +300,15 @@ class TransformerLM:
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
     def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
-        """Extend every row of ``cache`` (in place) with T new tokens at
-        positions cache_len + arange(T); returns (last-position logits (B, V),
-        the same cache).  ``force="plain"`` runs the plain attention or SSD
-        scan on the card."""
+        """Extend every row of ``cache`` (in place) with T new positions at
+        cache_len + arange(T), the frontend embeddings (if given) and then the
+        tokens; returns (last-position logits (B, V), the same cache).
+        ``force="plain"`` runs the plain attention, SSD scan or per-expert
+        loop on the card."""
         tokens = inputs["tokens"]
         x = self._embed_inputs(params, inputs)
-        B, T = tokens.shape
-        if T == 1:
+        B, T = x.shape[:2]
+        if T == 1 and "frontend_embeds" not in inputs:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
         if self.uniform == "ssd":

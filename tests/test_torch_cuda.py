@@ -159,6 +159,47 @@ def test_paged_kernel_partition_edges(gen, dtype):
     torch.testing.assert_close(out.float(), split.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 15, 16, 64, 1000])
+def test_paged_kernel_window(gen, window, dtype):
+    """K2's sliding window against the plain version and the plain
+    split-and-merge, contexts on both sides of partition edges."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ref
+    part, page, pps = paged_mod.PARTITION, 16, 12
+    B, Hq, Hkv, D = 6, 8, 2, 64
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(kp.shape, generator=gen, device="cuda").to(dtype)
+    tables = torch.randperm(B * pps, generator=gen, device="cuda").int().view(B, pps)
+    ctx = torch.tensor([1, part - 1, part, part + 1, 2 * part + 3, page * pps],
+                       dtype=torch.int32, device="cuda")
+    out = ops.paged_attention(q, kp, vp, tables, ctx, window=window)
+    exp = ops.paged_attention(q, kp, vp, tables, ctx, window=window, force="plain")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    split = ref.paged_attention_split(q, kp, vp, tables, ctx, window=window)
+    torch.testing.assert_close(out.float(), split.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_moe_window_model_with_kernels_matches_plain(gen):
+    """Reduced mixtral_8x7b (MoE, window 64) at D=32 in bf16: prefill past
+    the window in two chunks and a decode, K1, K2 and the grouped products
+    against the plain attention and the per-expert loop."""
+    cfg = get_reduced_config("mixtral_8x7b").replace(head_dim=32, d_model=128)
+    model = build_model(cfg)
+    params = model.init(gen, torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, 151), generator=gen, device="cuda")
+    logits = {}
+    for force in (None, "plain"):
+        cache = model.init_cache(1, 160, torch.bfloat16)
+        a, cache = model.prefill(params, {"tokens": toks[:, :40]}, cache, force=force)
+        b, cache = model.prefill(params, {"tokens": toks[:, 40:150]}, cache, force=force)
+        c, cache = model.decode_step(params, cache, toks[:, 150:], force=force)
+        logits[force] = [t.float() for t in (a, b, c)]
+    for got, exp in zip(logits[None], logits["plain"]):
+        assert float((got - exp).abs().max() / exp.abs().max()) < 5e-2
+
+
 def test_model_with_kernels_matches_plain(gen):
     """Reduced llama3_8b in fp32: prefill, chunked prefill and decode logits
     with the kernels equal the plain attention's within 2e-3."""

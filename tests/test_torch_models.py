@@ -1,11 +1,13 @@
-"""The port's dense decoder against the JAX model on the CPU, in fp32.
+"""The port's attention decoders against the JAX model on the CPU, in fp32.
 
 Reduced ``llama3_8b``, ``qwen2_5_3b`` (qkv bias, tied embeddings),
 ``granite_8b``, ``granite_3_8b`` (tied embeddings), ``olmo_1b``
-(non-parametric LayerNorm, tied embeddings, MHA) and ``llama3_70b``: the
-JAX parameters are carried into the port by
-``repro_torch.models.convert``, inputs are made with numpy from a seed, and
-the outputs are compared at the reference's own tolerances
+(non-parametric LayerNorm, tied embeddings, MHA), ``llama3_70b``,
+``mixtral_8x7b`` (dropless MoE, sliding window), ``qwen3_30b_a3b`` (MoE),
+``dbrx_132b`` (MoE with LayerNorm) and ``llava_next_mistral_7b`` (frontend
+embeddings prepended to the first chunk): the JAX parameters are carried
+into the port by ``repro_torch.models.convert``, inputs are made with numpy
+from a seed, and the outputs are compared at the reference's own tolerances
 (``tests/test_models_smoke.py``: 2e-3 on logits).
 """
 
@@ -27,7 +29,8 @@ from repro_torch.models.transformer import build_model
 torch.set_num_threads(2)    # the suite runs in several workers at once
 
 ARCHS = ["llama3_8b", "qwen2_5_3b", "granite_8b", "granite_3_8b", "olmo_1b",
-         "llama3_70b"]
+         "llama3_70b", "mixtral_8x7b", "qwen3_30b_a3b", "dbrx_132b",
+         "llava_next_mistral_7b"]
 ALL_ARCHS = sorted(ARCH_IDS + PAPER_ARCH_IDS)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -46,6 +49,18 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
+def _inputs(cfg, toks, seed):
+    """JAX and port inputs for a prefill of ``toks``; a frontend config's
+    also carry frontend embeddings (B, F, d) made from ``seed``."""
+    j, t = {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks)}
+    if cfg.frontend is not None:
+        rng = np.random.default_rng(seed)
+        fe = 0.02 * rng.standard_normal((toks.shape[0], cfg.frontend_tokens, cfg.d_model))
+        j["frontend_embeds"] = jnp.asarray(fe.astype(np.float32))
+        t["frontend_embeds"] = _t(fe.astype(np.float32))
+    return j, t
+
+
 def test_configs_are_the_reference_configs():
     from dataclasses import asdict
 
@@ -56,7 +71,7 @@ def test_configs_are_the_reference_configs():
         assert asdict(get_reduced_config(arch)) == asdict(jax_reduced_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "recurrentgemma_2b", "whisper_base"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_base"])
 def test_unported_config_names_its_roadmap_item(arch):
     """Every config can be had (the emulator needs only the config); a model
     whose layers the port lacks raises when it is built."""
@@ -108,9 +123,16 @@ def test_layers_match_jax(arch):
     for t_out, j_out in zip(TL.attn_qkv(cfg, tb["attn"], _t(x), _t(pos)),
                             JL.attn_qkv(cfg, jb["attn"], jnp.asarray(x), jnp.asarray(pos))):
         np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **LAYER_TOL)
-    np.testing.assert_allclose(
-        TL.mlp(cfg, tb["mlp"], _t(x)).numpy(),
-        np.asarray(JL.mlp(cfg, jb["mlp"], jnp.asarray(x))), **LAYER_TOL)
+    if cfg.moe is not None:
+        t_y, t_aux = TL.moe(cfg, tb["moe"], _t(x))
+        j_y, j_aux = JL.moe(cfg, jb["moe"], jnp.asarray(x))
+        np.testing.assert_allclose(t_y.numpy(), np.asarray(j_y), **LAYER_TOL)
+        for key in ("moe_aux_loss", "expert_load"):
+            np.testing.assert_allclose(t_aux[key].numpy(), np.asarray(j_aux[key]), **LAYER_TOL)
+    else:
+        np.testing.assert_allclose(
+            TL.mlp(cfg, tb["mlp"], _t(x)).numpy(),
+            np.asarray(JL.mlp(cfg, jb["mlp"], jnp.asarray(x))), **LAYER_TOL)
     # the dense reference attention and its mask, kept for layer parity
     q, k, v = (rng.standard_normal((2, 7, h, cfg.head_dim)).astype(np.float32)
                for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
@@ -128,26 +150,30 @@ def test_layers_match_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_matches_jax(arch):
     """prefill(T) then decode against the JAX model, and against the port's
-    own prefill(T + 1)."""
+    own prefill(T + 1); a frontend's F embeddings come first, so the cache
+    holds F + T + 1 positions."""
     cfg, jm, jp, tm, tp = _models(arch, 3)
     B, T = 2, 12
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, T + 1))
+    j_in, t_in = _inputs(cfg, toks[:, :T], 3)
+    n = T + 1 + cfg.frontend_tokens
 
     jc = jm.init_cache(B, 64, jnp.float32)
-    jl_pre, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :T])}, jc)
+    jl_pre, jc = jm.prefill(jp, j_in, jc)
     jl_dec, _ = jm.decode_step(jp, jc, jnp.asarray(toks[:, T:]))
 
     tc = tm.init_cache(B, 64, torch.float32, "cpu")
-    tl_pre, tc = tm.prefill(tp, {"tokens": _t(toks[:, :T])}, tc)
+    tl_pre, tc = tm.prefill(tp, t_in, tc)
     tl_dec, tc = tm.decode_step(tp, tc, _t(toks[:, T:]))
-    assert tc["cache_len"].tolist() == [T + 1] * B
-    assert tc["layers"]["kv_pos"][:, :, :T + 1].tolist() == (
-        [[list(range(T + 1))] * B] * cfg.num_layers)
-    assert (tc["layers"]["kv_pos"][:, :, T + 1:] == -1).all()
+    assert tc["cache_len"].tolist() == [n] * B
+    assert tc["layers"]["kv_pos"][:, :, :n].tolist() == (
+        [[list(range(n))] * B] * cfg.num_layers)
+    assert (tc["layers"]["kv_pos"][:, :, n:] == -1).all()
 
     np.testing.assert_allclose(tl_pre.numpy(), np.asarray(jl_pre), **LOGIT_TOL)
     np.testing.assert_allclose(tl_dec.numpy(), np.asarray(jl_dec), **LOGIT_TOL)
-    full, _ = tm.prefill(tp, {"tokens": _t(toks)}, tm.init_cache(B, 64, torch.float32, "cpu"))
+    _, t_full = _inputs(cfg, toks, 3)
+    full, _ = tm.prefill(tp, t_full, tm.init_cache(B, 64, torch.float32, "cpu"))
     np.testing.assert_allclose(full.numpy(), tl_dec.numpy(), **LOGIT_TOL)
 
 
@@ -155,12 +181,15 @@ def test_prefill_decode_matches_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_chunked_prefill_matches_jax(arch, split):
     """Two prefill chunks equal the JAX model's monolithic prefill; a last
-    chunk of one token takes the paged (decode) path."""
+    chunk of one token takes the paged (decode) path.  Frontend embeddings
+    arrive with the first chunk only."""
     cfg, jm, jp, tm, tp = _models(arch, 4)
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 16))
-    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jm.init_cache(1, 64, jnp.float32))
+    j_in, _ = _inputs(cfg, toks, 4)
+    jl, _ = jm.prefill(jp, j_in, jm.init_cache(1, 64, jnp.float32))
     tc = tm.init_cache(1, 64, torch.float32, "cpu")
-    _, tc = tm.prefill(tp, {"tokens": _t(toks[:, :split])}, tc)
+    _, t_first = _inputs(cfg, toks[:, :split], 4)
+    _, tc = tm.prefill(tp, t_first, tc)
     tl, _ = tm.prefill(tp, {"tokens": _t(toks[:, split:])}, tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
 
@@ -173,16 +202,18 @@ def test_decode_slots_touches_only_its_slots(arch):
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (3, 10))
     nxt = rng.integers(0, cfg.vocab_size, (3, 1))
+    j_in, t_in = _inputs(cfg, toks, 5)
+    n = 10 + cfg.frontend_tokens
     cache = tm.init_cache(3, 32, torch.float32, "cpu")
-    _, cache = tm.prefill(tp, {"tokens": _t(toks)}, cache)
+    _, cache = tm.prefill(tp, t_in, cache)
     before = {k: v[:, 1].clone() for k, v in cache["layers"].items()}
     logits = tm.decode_slots(tp, cache, _t(nxt[[2, 0]]), torch.tensor([2, 0]))
     for k, v in cache["layers"].items():
         assert torch.equal(v[:, 1], before[k]), k
-    assert cache["cache_len"].tolist() == [11, 10, 11]
+    assert cache["cache_len"].tolist() == [n + 1, n, n + 1]
     for i, row in enumerate((2, 0)):
         jc = jm.init_cache(1, 32, jnp.float32)
-        _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[row:row + 1])}, jc)
+        _, jc = jm.prefill(jp, {k: v[row:row + 1] for k, v in j_in.items()}, jc)
         jl, _ = jm.decode_step(jp, jc, jnp.asarray(nxt[row:row + 1]))
         np.testing.assert_allclose(logits[i:i + 1].numpy(), np.asarray(jl), **LOGIT_TOL)
 
@@ -204,8 +235,8 @@ def test_param_count_accounting(arch):
 
 def test_unported_paths_raise():
     cfg = get_reduced_config("llama3_8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(sliding_window=8))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
+        build_model(get_reduced_config("mixtral_8x7b").replace(moe_impl="a2a"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(kv_append="defer"))
     model = build_model(cfg)
