@@ -29,7 +29,15 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    sliding window (windows of 1, page - 1, page, two partitions and one past
    every context), and K2 is timed again at mixtral_8x7b's decode shape
    with its 4096-key window (contexts 4000-8192), SDPA beside it with the
-   window as a boolean mask;
+   window as a boolean mask.  At RecurrentGemma's and Whisper's shapes it
+   holds K1 at D=256 with 10 query heads over one KV head (bf16
+   and fp32, windows, ragged edges), K1 without the causal mask with S off
+   the KV tile grid, and K2 at D=256 (G * D = 2560 and 4096, windows); and
+   times K1 at recurrentgemma_2b's prefill (T=S=3072 and a 512-token chunk
+   over 3072 keys, window 2048, bf16 and fp32) and whisper_base's
+   non-causal shapes (T=S=1500 and T=64 over 1500 frames, 8 heads of 64),
+   each with SDPA beside it and ptxas's registers and spills at D=256, and
+   K2 at recurrentgemma_2b's decode (contexts 2049-3072, window 2048);
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -50,6 +58,15 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    that the emulated runs launched no kernel, left the allocated device
    memory as it was and took less wall time than the real run; it prints
    the errors and the speed-up and asserts nothing about their size;
+6c. serves 8 requests that share a 1024-token prefix (the first alone, the
+   other 7 after it), with prefix caching on (the runner keeps the cached
+   blocks' KV) and off, and checks that the cached run hit and that every
+   request's tokens equal the uncached run's, or, at the first token where
+   they part, that step's logits lie within the relative 5e-2 of the model
+   checks;
+6d. serves the smoke traffic in a block pool too small for its decodes,
+   checks that the engine preempted, and holds the tokens against the same
+   traffic in phase 5's pool as in 6c;
 7. builds mamba2_370m at full width and depth in bf16 from a seeded
    generator and compares its logits with K3 against the plain scan after a
    256-token prefill, a ragged 379-token chunk from the carried state, and a
@@ -59,6 +76,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    mamba2_370m, counts set to 0 just before and read just after, and checks
    that every request got its 32 tokens and that K3 ran;
 9. profiles that serving run as in 6;
+9b. preemption with mamba2_370m, as in 6d, in fp32 (a resumed request's
+   SSD state replayed through K3);
 10. builds qwen3_30b_a3b at full width and depth in bf16 (30,532,110,336
    parameters, 48 MoE layers of 128 experts, top-8), compares its logits
    with K1 and K2 against the plain attention as in 4, and holds the MoE of
@@ -76,11 +95,30 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 14. serves one request of 6144 prompt tokens and 64 new ones in a cache of
    8192 through ``build_stack(mode="real")`` and checks that K1 ran the
    window over more keys than it holds and K2 ran every decode with it,
-   logging K1's (B, T, S, window) and K2's windows.
+   logging K1's (B, T, S, window, causal) and K2's windows;
+15. builds recurrentgemma_2b at full size (2,894,435,840 parameters: 18
+   RG-LRU and 8 local-attention layers, head_dim 256, 10 query heads over
+   one KV head, window 2048) and compares the logits of a 3072-token
+   prefill (three 1024-token chunks) and of a decode at position 3072 as
+   in 13; times the RG-LRU recurrence at 512 and 2048 tokens and a decode;
+16. serves 4 requests of 3072 prompt tokens and 32 new ones (slots of
+   4096) and checks that K1 ran in every local-attention layer of every
+   chunk and that K2 ran;
+17. profiles that run as in 6, with the RG-LRU recurrence as a range;
+18. builds whisper_base at full size (87,405,056 parameters) and compares
+   the logits of a prefill with 1500 random frame embeddings and 64 tokens
+   (the encoder and the cross-attention through K1 without the causal
+   mask) and of a decode (cross-attention through K2 over the padded
+   cross cache) with the kernels and with the plain attention; times the
+   encoder;
+19. serves 8 text requests (prompts of 16-256 tokens, no frames, as the
+   reference's runner) and checks that K1 ran with and without the causal
+   mask and that K2 ran.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K2 and K3, their launches summed over the serving
-runs of 5, 8, 11 and 14), the card's name and power limit, and
+runs of 5, 6c, 6d, 8, 9b, 11, 14, 16 and 19), the card's name and power
+limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3 and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
@@ -90,12 +128,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -212,6 +252,16 @@ def check_flash_grid(ops):
                       ((2, 150, 301, 12, 4, 64), {}), ((1, 97, 97, 6, 1, 32), {}),
                       ((1, 70, 70, 16, 2, 128), {"causal": False})]:
         cases.append((shape, "bfloat16", kw))
+    # head_dim 256 with 10 query heads over one KV head (recurrentgemma_2b:
+    # packed by 2 into 5 groups), windows and ragged edges; non-causal with S
+    # off the KV tile grid (whisper_base's encoder and cross-attention)
+    for dt in ("float32", "bfloat16"):
+        for shape, kw in [((1, 100, 300, 10, 1, 256), {}), ((2, 77, 77, 10, 1, 256), {}),
+                          ((1, 130, 333, 10, 1, 256), {"window": 64}),
+                          ((1, 33, 1500, 10, 1, 256), {"causal": False}),
+                          ((1, 150, 150, 8, 8, 64), {"causal": False}),
+                          ((2, 7, 150, 8, 8, 64), {"causal": False})]:
+            cases.append((shape, dt, kw))
     for shape, dt, kw in cases:
         q, k, v = qkv(gen, *shape, getattr(torch, dt))
         out = ops.flash_attention(q, k, v, **kw)
@@ -238,6 +288,10 @@ def check_paged_grid(ops):
     for B, Hkv, G, page, pps in [(1, 1, 1, 8, 1), (4, 2, 4, 16, 5), (3, 1, 2, 8, 3),
                                  (2, 2, 2, 16, 2)]:
         cases.append(((B, Hkv * G, Hkv, 32, page, pps), "float32"))
+    # head_dim 256, G = 10 (recurrentgemma_2b; G * D = 2560), and G * D = 4096
+    for shape in [(3, 10, 1, 256, 16, 9), (2, 16, 1, 256, 8, 10), (2, 32, 1, 128, 16, 6)]:
+        for dt in ("float32", "bfloat16"):
+            cases.append((shape, dt))
     for shape, dt in cases:
         q, kp, vp, bt, cl = paged_inputs(gen, *shape, getattr(torch, dt))
         out = ops.paged_attention(q, kp, vp, bt, cl)
@@ -312,6 +366,18 @@ def check_paged_windows(ops, gen):
                          ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain"), dt)
             assert_close(f"K2 window {window} {dt} vs plain split", out,
                          ref.paged_attention_split(q, kp, vp, bt, cl, window=window), dt)
+    # the same windows at head_dim 256, G = 10
+    B, Hq, Hkv, D = 6, 10, 1, 256
+    for dt in ("float32", "bfloat16"):
+        q, kp, vp, _, _ = paged_inputs(gen, B, Hq, Hkv, D, page, pps, getattr(torch, dt))
+        bt = torch.randperm(kp.shape[0], generator=gen, device="cuda")[:B * pps]
+        bt = bt.to(torch.int32).view(B, pps).contiguous()
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for window in (1, part + 3, pps * page + 7):
+            out = ops.paged_attention(q, kp, vp, bt, cl, window=window)
+            torch.cuda.synchronize()
+            assert_close(f"K2 D=256 G=10 window {window} contexts {lens} {dt}", out,
+                         ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain"), dt)
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -574,6 +640,136 @@ def measure_paged_window(ops):
             "library_graph_ms": library_g_ms, "host_us": h_us}
 
 
+def flash_pairs(T, S, causal, window):
+    """Query-key pairs that K1 computes for one (batch, query head): every
+    one without the causal mask, else the keys each query position sees."""
+    if not causal:
+        return T * S
+    total = 0
+    for i in range(T):
+        p = i + S - T
+        total += p + 1 - (max(0, p - window + 1) if window else 0)
+    return total
+
+
+def measure_flash_point(ops, gen, B, T, S, Hq, Hkv, D, dtype, causal=True, window=None):
+    """K1 at one shape against its plain version, then timed as
+    :func:`measure_flash` times it (``ms``, ``graph_ms``, plain), SDPA
+    beside it with the same mask as a boolean tensor (KV heads repeated and
+    laid out (B, H, S, D) before timing), and the bound from the pairs that
+    the causal mask and the window leave."""
+    dt = getattr(torch, dtype)
+    q, k, v = qkv(gen, B, T, S, Hq, Hkv, D, dt)
+    kw = {"causal": causal, "window": window}
+    what = f"K1 {(B, T, S, Hq, Hkv, D)} {dtype} causal={causal} window={window}"
+    out = ops.flash_attention(q, k, v, **kw)
+    exp = ops.flash_attention(q, k, v, force="plain", **kw)
+    torch.cuda.synchronize()
+    err = assert_close(what, out, exp, dtype)
+    del exp
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    g_ms = graph_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, force="plain", **kw), iters=5)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+    mask = None
+    if causal:
+        qi = torch.arange(T, device="cuda")[:, None] + (S - T)
+        kj = torch.arange(S, device="cuda")[None, :]
+        mask = kj <= qi
+        if window:
+            mask &= qi - kj < window
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    flops = 4 * D * Hq * B * flash_pairs(T, S, causal, window)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    b_ms, b_by = bound(flops, nbytes, peak)
+    log(f"{what}: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms ({library_g_ms:.4f} in a graph), bound {b_ms:.5f} ms by {b_by} "
+        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    return {"shape": [B, T, S, Hq, Hkv, D], "dtype": dtype, "causal": causal, "window": window,
+            "max_abs_err": err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library_graph_ms": library_g_ms}
+
+
+def measure_flash_new_shapes(ops):
+    """K1 at the shapes of recurrentgemma_2b's local attention (D=256, 10
+    query heads over one KV head, window 2048: a 3072-token prompt at once
+    and its last 512-token chunk) in bf16 and fp32, and at whisper_base's
+    non-causal shapes (8 heads of 64: the encoder over 1500 frames, a
+    64-token decoder chunk over them) in bf16.  Also the bf16 kernel's plan
+    and ptxas's registers and spills at D=256."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_mod
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for T, S in ((3072, 3072), (512, 3072)):
+            rows.append(measure_flash_point(ops, gen, 1, T, S, 10, 1, 256, dtype, window=2048))
+    for T in (1500, 64):
+        rows.append(measure_flash_point(ops, gen, 1, T, 1500, 8, 8, 64, "bfloat16", causal=False))
+    log_text = _build.build_log.get("flash_attention", "")
+    for T, S in ((3072, 3072), (512, 3072)):
+        p = flash_mod.plan(1, T, S, 10, 1, 256)
+        res = kernel_resources(log_text, f"flash_fwd_wgmma_kernelILi256ELi{p.block_keys}"
+                                         f"ELi{p.block_rows // 64}E")
+        log(f"K1 plan at (T={T}, S={S}, G=10, D=256): {p}; ptxas for its kernel: {res}")
+    for tiles in ((64, 64), (128, 64)):
+        res = kernel_resources(log_text, f"flash_fwd_wgmma_kernelILi256ELi{tiles[1]}"
+                                         f"ELi{tiles[0] // 64}E")
+        log(f"K1 bf16 D=256 tiles {tiles}: ptxas {res}")
+    log(f"K1 fp32 D=256: ptxas {kernel_resources(log_text, 'flash_fwd_kernelIfLi256E')}")
+    return rows
+
+
+def measure_paged_d256(ops):
+    """K2 at recurrentgemma_2b's decode shape: 4 sequences, 10 query heads
+    over one KV head of 256, window 2048, page 16, 256 pages a row (a slot
+    of 4096), contexts 2049-3072; timed as :func:`measure_paged_window`."""
+    from repro_torch.kernels import _build
+    B, Hq, Hkv, D, page, pps, window = 4, 10, 1, 256, 16, 256, 2048
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt = torch.arange(B * pps, dtype=torch.int32, device="cuda").view(B, pps)
+    cl = torch.tensor([3072, 2049, 2500, 3072], dtype=torch.int32, device="cuda")
+    out = ops.paged_attention(q, kp, vp, bt, cl, window=window)
+    exp = ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain")
+    torch.cuda.synchronize()
+    err = assert_close(f"K2 recurrentgemma_2b {(B, Hq, Hkv, D, page, pps)} window {window} "
+                       "bfloat16", out, exp, "bfloat16")
+    ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window))
+    plain_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window,
+                                                   force="plain"))
+    g_ms = graph_ms(lambda: ops.paged_attention(q, kp, vp, bt, cl, window=window))
+    S = pps * page
+    kh = kp[bt.long()].reshape(B, S, Hkv, D).repeat_interleave(Hq // Hkv, dim=2)
+    vh = vp[bt.long()].reshape(B, S, Hkv, D).repeat_interleave(Hq // Hkv, dim=2)
+    kh, vh = kh.transpose(1, 2).contiguous(), vh.transpose(1, 2).contiguous()
+    qh = q[:, :, None, :]
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = ((pos < cl[:, None]) & (pos >= cl[:, None] - window))[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    keys = int(torch.clamp(cl, max=window).sum())
+    flops = 4 * Hq * D * keys
+    nbytes = 2 * (q.numel() + out.numel()) + 2 * 2 * keys * Hkv * D + 4 * (bt.numel() + B)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    res = kernel_resources(_build.build_log.get("paged_attention", ""),
+                           "paged_fwd_partialI13__nv_bfloat16Li256E")
+    log(f"K2 recurrentgemma_2b window {window}: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), "
+        f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms ({library_g_ms:.4f} in a graph), "
+        f"bound {b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.3f} MB, {keys} keys); ptxas {res}")
+    return {"shape": [B, Hq, Hkv, D, page, pps], "window": window, "contexts": cl.tolist(),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "graph_ms": g_ms,
+            "library_graph_ms": library_g_ms, "ptxas": res}
+
+
 def ssd_inputs(gen, B, T, H, P, N, dtype, carry=False):
     """Inputs of K3 with realistic decays, dA = -softplus(normal)."""
     dev = "cuda"
@@ -792,6 +988,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import engine_config, make_requests
 
     t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -814,6 +1011,8 @@ def main() -> int:
     check_ssd_grid(ops)
     kernels = [measure_flash(ops), measure_paged(ops), measure_ssd(ops)]
     kernels[1]["windowed"] = measure_paged_window(ops)
+    kernels[0]["shapes"] = measure_flash_new_shapes(ops)
+    kernels[1]["d256"] = measure_paged_d256(ops)
     if "--kernels-only" in sys.argv[1:]:
         log(f"--kernels-only: stopping after phase 3, {time.monotonic() - t_start:.1f} s")
         return 0
@@ -828,6 +1027,10 @@ def main() -> int:
     serve_path(ops, cfg, model, params, (), profile=True)
     log("== 6b. llama3_8b real against time-warp emulation of the same engine")
     real_against_emulated(cfg, model, params)
+    log("== 6c. llama3_8b prefix-cache hits: 8 requests sharing a 1024-token prefix")
+    launches.update(serve_prefix_hits(cfg, model, params))
+    log("== 6d. llama3_8b preemption: the smoke traffic in a block pool too small for it")
+    launches.update(serve_preempted(cfg, model, params, ("flash_attention", "paged_attention")))
     del model, params
     torch.cuda.empty_cache()
 
@@ -838,6 +1041,9 @@ def main() -> int:
     launches.update(serve_path(ops, cfg, model, params, ("ssd_scan",)))
     log("== 9. where the device time goes: the same serving run under torch.profiler")
     serve_path(ops, cfg, model, params, (), profile=True)
+    log("== 9b. mamba2_370m preemption, in fp32: the smoke traffic in a block pool too "
+        "small for it")
+    launches.update(serve_preempted(cfg, model, params, ("ssd_scan",), dtype=torch.float32))
     del model, params
     torch.cuda.empty_cache()
 
@@ -857,6 +1063,34 @@ def main() -> int:
     check_window_model(cfg, model, params)
     log("== 14. serving one 6144-token prompt past mixtral's 4096-token window")
     launches.update(serve_window(ops, cfg, model, params))
+    del model, params
+    torch.cuda.empty_cache()
+
+    log("== 15. recurrentgemma_2b, full size, bf16, random weights (seed 0)")
+    cfg, model, params = build_full("recurrentgemma_2b", expect=2_894_435_840)
+    check_window_model(cfg, model, params, name="recurrentgemma", prompt=3072, chunk=1024,
+                       cache=4096, seed=13)
+    time_rglru(cfg, params)
+    log("== 16. serving recurrentgemma_2b: 4 prompts of 3072 tokens, past its window")
+    long_cfg = engine_config(max_num_seqs=4, max_len=4096)
+    launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention"),
+                               reqs=make_requests(4, 3072, 3072, 32, cfg.vocab_size, seed=0),
+                               engine_cfg=long_cfg, max_len=4096))
+    log("== 17. where the device time goes: the same serving run under torch.profiler")
+    serve_path(ops, cfg, model, params, (), profile=True,
+               reqs=make_requests(4, 3072, 3072, 32, cfg.vocab_size, seed=0),
+               engine_cfg=long_cfg, max_len=4096, ranges=("rglru_scan",))
+    del model, params
+    torch.cuda.empty_cache()
+
+    log("== 18. whisper_base, full size, bf16, random weights (seed 0)")
+    cfg, model, params = build_full("whisper_base", expect=87_405_056)
+    check_whisper(cfg, model, params)
+    log("== 19. serving whisper_base: 8 text requests, no frames (as the reference)")
+    launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention"),
+                               reqs=make_requests(8, 16, 256, 32, cfg.vocab_size, seed=0),
+                               engine_cfg=engine_config(max_num_seqs=8, max_len=512),
+                               max_len=512, noncausal=True))
     del model, params
     torch.cuda.empty_cache()
 
@@ -900,41 +1134,52 @@ def build_full(arch, layers=None, expect=None):
     return cfg, model, params
 
 
-def serve_path(ops, cfg, model, params, path_kernels, profile=False):
+def serve_path(ops, cfg, model, params, path_kernels, profile=False, *, reqs=None,
+               engine_cfg=None, max_len=2048, ranges=(), noncausal=False):
     """Serve the smoke traffic (8 requests at once, prompts uniform in
     128-1024 from numpy seed 0, 32 new tokens each; vllm policy, 512-token
-    step budget, 8 slots, no prefix caching) through ``build_stack(mode=
-    "real")``.  The launch counts are set to 0 just before the run and read
-    just after; every kernel in ``path_kernels`` must have launched.  Returns
-    those kernels' counts.  With ``profile``, runs under torch.profiler."""
+    step budget, 8 slots, no prefix caching), or ``reqs`` on ``engine_cfg``,
+    through ``build_stack(mode="real")``.  The launch counts are set to 0
+    just before the run and read just after; every kernel in
+    ``path_kernels`` must have launched, and K1 in every attention layer of
+    every prefill chunk.  Returns those kernels' counts.  With ``profile``,
+    runs under torch.profiler, with the layer functions named in ``ranges``
+    as ranges of their own.  With ``noncausal``, K1 must also have run
+    without the causal mask (an enc-dec decoder's cross-attention)."""
     from repro_torch.launch.serve import engine_config, make_requests, run_requests
     from repro_torch.serving.stack import build_stack
-    engine_cfg = engine_config()
+    engine_cfg = engine_cfg or engine_config()
     stack = build_stack(cfg, engine_cfg, "real", model=model, params=params,
-                        max_len=2048, device="cuda", dtype=torch.bfloat16)
-    reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
-                         SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
+                        max_len=max_len, device="cuda", dtype=torch.bfloat16)
+    if reqs is None:
+        reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
+                             SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
+    new_tokens = [r.max_new_tokens for r in reqs]
     if profile:
-        profile_serving(lambda: serve_inline(stack, reqs), moe=cfg.moe is not None)
+        profile_serving(lambda: serve_inline(stack, reqs),
+                        ranges=ranges or (("moe",) if cfg.moe is not None else ()))
         return {}
     log(f"prompt lengths {[r.prompt_len for r in reqs]}")
-    with recording() as (shapes, _):
+    with recording() as rec:
         ops.reset_launch_counts()
         summary = run_requests(stack, reqs, timeout=600)
         counts = ops.launch_counts()
-    if shapes:
-        log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}")
-        if (sum(shapes.values()) != counts["flash_attention"]
-                or any(n % cfg.num_layers for n in shapes.values())):
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    if rec.flash:
+        log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+        if (sum(rec.flash.values()) != counts["flash_attention"]
+                or any(n % n_attn for n in rec.flash.values())):
             raise AssertionError(f"K1 did not run in every layer of every prefill chunk: "
-                                 f"{dict(shapes)} over {cfg.num_layers} layers")
+                                 f"{dict(rec.flash)} over {n_attn} attention layers")
+    if noncausal and not any(not causal for (*_, causal) in rec.flash):
+        raise AssertionError(f"K1 never ran without the causal mask: {dict(rec.flash)}")
     steps = summary["steps"]
     log("serving: " + json.dumps(summary))
     log(f"launches during serving: {counts} over {steps} steps ("
         + ", ".join(f"{name} {counts[name] / steps:.2f}" for name in path_kernels)
         + " per step)")
-    for r in reqs:
-        if (r.num_generated != SERVING["new_tokens"]
+    for r, n in zip(reqs, new_tokens):
+        if (r.num_generated != n
                 or not all(0 <= t < cfg.vocab_size for t in r.output_tokens)):
             raise AssertionError(f"request {r.request_id} produced {r.num_generated} tokens")
     if summary["finished"] != len(reqs):
@@ -965,25 +1210,27 @@ def serve_inline(stack, reqs) -> None:
 
 @contextlib.contextmanager
 def recording():
-    """Counters of the (B, T, S, window) of every K1 launch and of the window
-    of every K2 launch while the block runs, taken from shapes and Python
-    arguments (no device value is read)."""
+    """Counters of the (B, T, S, window, causal) of every K1 launch
+    (``rec.flash``) and of the window of every K2 launch (``rec.paged``)
+    while the block runs, taken from shapes and Python arguments (no device
+    value is read)."""
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import paged_attention as paged_mod
-    shapes, windows = collections.Counter(), collections.Counter()
+    rec = types.SimpleNamespace(flash=collections.Counter(), paged=collections.Counter())
     flash, paged = flash_mod.flash_attention, paged_mod.paged_attention
 
     def record_flash(q, k, v, **kw):
-        shapes[(q.shape[0], q.shape[1], k.shape[1], kw.get("window"))] += 1
+        rec.flash[(q.shape[0], q.shape[1], k.shape[1], kw.get("window"),
+                   kw.get("causal", True))] += 1
         return flash(q, k, v, **kw)
 
     def record_paged(*args, **kw):
-        windows[kw.get("window")] += 1
+        rec.paged[kw.get("window")] += 1
         return paged(*args, **kw)
 
     flash_mod.flash_attention, paged_mod.paged_attention = record_flash, record_paged
     try:
-        yield shapes, windows
+        yield rec
     finally:
         flash_mod.flash_attention, paged_mod.paged_attention = flash, paged
 
@@ -1000,62 +1247,266 @@ def serve_window(ops, cfg, model, params):
                         model=model, params=params, max_len=8192, device="cuda",
                         dtype=torch.bfloat16)
     reqs = make_requests(1, prompt, prompt, new, cfg.vocab_size, seed=SERVING["seed"])
-    with recording() as (shapes, windows):
+    with recording() as rec:
         ops.reset_launch_counts()
         summary = run_requests(stack, reqs, timeout=600)
         counts = ops.launch_counts()
     log("serving: " + json.dumps(summary))
-    log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}")
-    log(f"K2 launches by window: {dict(windows)}; launches {counts} over "
+    log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+    log(f"K2 launches by window: {dict(rec.paged)}; launches {counts} over "
         f"{summary['steps']} steps")
     req = reqs[0]
     if req.num_generated != new or summary["finished"] != 1:
         raise AssertionError(f"the request produced {req.num_generated} tokens")
-    if not any(S > window and w == window for (_, _, S, w) in shapes):
-        raise AssertionError(f"K1 never ran the window past {window} keys: {dict(shapes)}")
-    if counts["paged_attention"] != (new - 1) * cfg.num_layers:
+    if not any(S > window and w == window for (_, _, S, w, _) in rec.flash):
+        raise AssertionError(f"K1 never ran the window past {window} keys: {dict(rec.flash)}")
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    if counts["paged_attention"] != (new - 1) * n_attn:
         raise AssertionError(f"K2 ran {counts['paged_attention']} times for {new - 1} decodes "
-                             f"of {cfg.num_layers} layers")
-    if set(windows) != {window}:
-        raise AssertionError(f"K2 ran without the window: {dict(windows)}")
+                             f"of {n_attn} attention layers")
+    if set(rec.paged) != {window}:
+        raise AssertionError(f"K2 ran without the window: {dict(rec.paged)}")
     return {name: counts[name] for name in ("flash_attention", "paged_attention")}
 
 
-def check_window_model(cfg, model, params):
-    """Phase 13: logits of a 6144-token prefill (three 2048-token chunks, the
-    last one's keys past the window) and of a decode at position 6144, with
-    K1 and K2 against the plain attention, in relative terms as
-    :func:`check_model`; beside them, how far the same weights without the
-    window are, to show that the window shaped the result."""
+def check_window_model(cfg, model, params, *, name="mixtral", prompt=6144, chunk=2048,
+                       cache=8192, seed=9):
+    """Phase 13 (and 15): logits of a ``prompt``-token prefill in chunks of
+    ``chunk`` (the last one's keys past the window) and of a decode at
+    position ``prompt``, with K1 and K2 against the plain attention, in
+    relative terms as :func:`check_model`; beside them, how far the same
+    weights without the window are, to show that the window shaped the
+    result."""
     from repro_torch.models.transformer import build_model
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    toks = torch.randint(0, cfg.vocab_size, (1, 6145), generator=gen, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt + 1), generator=gen, device="cuda")
     unwindowed = build_model(cfg.replace(sliding_window=None))
+    window = cfg.sliding_window
 
     def run(m, force):
-        cache = m.init_cache(1, 8192, torch.bfloat16, "cuda")
-        for a in range(0, 6144, 2048):
-            pre, cache = m.prefill(params, {"tokens": toks[:, a:a + 2048]}, cache, force=force)
-        dec, _ = m.decode_step(params, cache, toks[:, 6144:], force=force)
+        c = m.init_cache(1, cache, torch.bfloat16, "cuda")
+        for a in range(0, prompt, chunk):
+            pre, c = m.prefill(params, {"tokens": toks[:, a:a + chunk]}, c, force=force)
+        dec, _ = m.decode_step(params, c, toks[:, prompt:], force=force)
         return pre.float(), dec.float()
 
-    with recording() as (shapes, windows):
+    with recording() as rec:
         kern = run(model, None)
     plain, wide = run(model, "plain"), run(unwindowed, None)
     torch.cuda.synchronize()
-    log(f"K1 launches by (B, T, S, window): {sorted(shapes.items())}; K2 by window: "
-        f"{dict(windows)}")
-    for i, what in enumerate(("prefill to position 6143 (K1, window 4096)",
-                              "decode at position 6144 (K2, window 4096)")):
+    log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; K2 by "
+        f"window: {dict(rec.paged)}")
+    for i, what in enumerate((f"prefill to position {prompt - 1} (K1, window {window})",
+                              f"decode at position {prompt} (K2, window {window})")):
         a, b, c = kern[i], plain[i], wide[i]
         if tuple(a.shape) != (1, cfg.vocab_size) or not torch.isfinite(a).all():
-            raise AssertionError(f"mixtral {what}: logits not finite or of the wrong shape")
+            raise AssertionError(f"{name} {what}: logits not finite or of the wrong shape")
         rel = float((a - b).abs().max() / b.abs().max())
         rel_wide = float((c - b).abs().max() / b.abs().max())
-        log(f"mixtral {what}: max relative error kernels vs plain {rel:.3e} (argmax "
+        log(f"{name} {what}: max relative error kernels vs plain {rel:.3e} (argmax "
             f"{int(a.argmax())} vs {int(b.argmax())}); without the window {rel_wide:.3e}")
         if rel > 5e-2:
-            raise AssertionError(f"mixtral {what}: kernels and plain differ by {rel}")
+            raise AssertionError(f"{name} {what}: kernels and plain differ by {rel}")
+
+
+def serve_runs(cfg, model, params, engine_cfg, waves, max_len=2048, dtype=torch.bfloat16):
+    """Serve ``waves`` of requests through ``build_stack(mode="real")`` (the
+    slot cache in ``dtype``), each
+    wave arriving when the one before has finished, the engine stepped in
+    this thread, the logits of every produced token kept
+    (``runner.logits``).  The launch counts are set to 0 just before and
+    read just after.  Returns (stack, counts, wall seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.stack import build_stack
+    stack = build_stack(cfg, engine_cfg, "real", model=model, params=params, max_len=max_len,
+                        device="cuda", dtype=dtype)
+    stack.runner.logits = {}
+    engine = stack.engine
+    try:
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for wave in waves:
+            now = stack.clock.now()
+            for r in wave:
+                r.arrival_time = now
+                engine.scheduler.add_request(r)
+            while not all(r.finished for r in wave):
+                engine.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+    finally:
+        stack.shutdown()
+    return stack, counts, wall
+
+
+def compare_runs(what, got, got_logits, ref, ref_logits, vocab):
+    """Every request of ``got`` must produce the tokens of its twin in
+    ``ref``, or, from the first token where bf16 rounding of a differently
+    chunked prefill makes them part, that step's logits must lie within
+    the relative 5e-2 of the model checks; each parting is logged."""
+    parted = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if (a.num_generated != a.max_new_tokens
+                or not all(0 <= t < vocab for t in a.output_tokens)):
+            raise AssertionError(f"{what}: request {i} produced {a.num_generated} tokens")
+        if a.output_tokens == b.output_tokens:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a.output_tokens, b.output_tokens)) if x != y)
+        la = got_logits[a.request_id][j].float()
+        lb = ref_logits[b.request_id][j].float()
+        rel = float((la - lb).abs().max() / lb.abs().max())
+        log(f"{what}: request {i} parts at token {j} ({a.output_tokens[j]} against "
+            f"{b.output_tokens[j]}); that step's logits differ by {rel:.3e} relative")
+        if rel > 5e-2:
+            raise AssertionError(f"{what}: request {i}'s logits at token {j} differ by {rel}")
+        parted.append(i)
+    log(f"{what}: {len(got) - len(parted)} of {len(got)} requests give the same tokens; "
+        f"{len(parted)} part, within 5e-2 where they do")
+
+
+def serve_prefix_hits(cfg, model, params):
+    """Phase 6c: 8 requests that share a 1024-token prefix (suffixes of
+    64-320 random tokens, 32 new tokens each, torch seed 14): the first one
+    is served alone, the other 7 arrive when it has finished, with prefix
+    caching on (the runner keeps the cached blocks' KV, 1024 blocks of 16
+    positions) and then off.  The cached run must hit (the engine's and the
+    prefix cache's counters) and give the uncached run's tokens
+    (:func:`compare_runs`).  Returns the cached run's K1 and K2 launches."""
+    from repro_torch.launch.serve import engine_config
+    from repro_torch.serving.request import Request
+    gen = torch.Generator().manual_seed(14)
+    prefix = torch.randint(0, cfg.vocab_size, (1024,), generator=gen).tolist()
+    suffixes = [torch.randint(0, cfg.vocab_size, (int(n),), generator=gen).tolist()
+                for n in torch.randint(64, 321, (8,), generator=gen)]
+    runs = {}
+    for caching in (True, False):
+        reqs = [Request(prompt_tokens=prefix + sfx, max_new_tokens=32) for sfx in suffixes]
+        ec = dataclasses.replace(engine_config(), enable_prefix_caching=caching)
+        runs[caching] = (reqs,) + serve_runs(cfg, model, params, ec, [reqs[:1], reqs[1:]])
+    reqs, stack, counts, wall = runs[True]
+    pc = stack.engine.prefix_cache.stats
+    store = stack.runner._store
+    gib = sum(t.numel() * t.element_size() for t in store.values()) / 2**30
+    skipped = sum(r.cached_prefix_len for r in reqs)
+    log(f"prefix hits: {pc.device_hits} block hits, {pc.hit_tokens} of {pc.query_tokens} "
+        f"prompt tokens from the cache (hit rate {stack.engine.stats()['prefix_hit_rate']:.4f}), "
+        f"{skipped} prefill tokens skipped, cached_prefix_len "
+        f"{[r.cached_prefix_len for r in reqs]}; store {gib:.2f} GiB "
+        f"({stack.engine.cfg.num_blocks} blocks of {stack.engine.cfg.block_size}); "
+        f"wall {wall:.3f} s against {runs[False][3]:.3f} s uncached; launches {counts}")
+    if pc.device_hits <= 0 or skipped < 7 * 1024:
+        raise AssertionError(f"the prefix cache served {skipped} tokens, not 7 x 1024")
+    compare_runs("prefix hits against caching off", reqs, stack.runner.logits,
+                 runs[False][0], runs[False][1].runner.logits, cfg.vocab_size)
+    return {name: counts[name] for name in ("flash_attention", "paged_attention")}
+
+
+def serve_preempted(cfg, model, params, path_kernels, dtype=torch.bfloat16):
+    """Phases 6d and 9b: the smoke traffic of phase 5 (8 requests, 32 new
+    tokens each) in a block pool of one block a request more than the
+    prompts take, while 32 new tokens take two a request, so that the
+    decodes run out and the engine preempts; then in phase 5's pool (1024
+    blocks).  The tight run must preempt and give the roomy run's tokens
+    (:func:`compare_runs`); ``path_kernels`` must have run in it.  Returns
+    their launches in the tight run.  ``dtype`` is the type of the weights
+    (bf16 ones are widened to fp32) and of the slot cache.
+
+    mamba2_370m runs in fp32, as :func:`check_mamba` holds its logits: in
+    bf16 two runs of the same requests whose decodes are batched
+    differently part by more than 5e-2 (6.032e-02 at token 28 of a request
+    that was never preempted, on an H100; the bf16 model is 20-36% from the
+    fp32 one), which says nothing of the replay."""
+    from repro_torch.launch.serve import engine_config, make_requests
+    if dtype == torch.float32:
+        params = _widen(params)
+    roomy = engine_config()
+    waves = {}
+    for name in ("tight", "roomy"):
+        reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
+                             SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
+        need = sum(-(-r.prompt_len // roomy.block_size) for r in reqs)
+        tight = dataclasses.replace(roomy, num_blocks=need + len(reqs))
+        ec = tight if name == "tight" else roomy
+        waves[name] = (reqs,) + serve_runs(cfg, model, params, ec, [reqs], dtype=dtype)
+    reqs, stack, counts, wall = waves["tight"]
+    stats = stack.engine.stats()
+    log(f"preemption: {stats['num_preemptions']} preemptions in a pool of "
+        f"{stack.engine.cfg.num_blocks} blocks, requests preempted "
+        f"{[r.num_preemptions for r in reqs]}; {stats['steps']} steps in {wall:.3f} s "
+        f"against {waves['roomy'][1].engine.stats()['steps']} steps in "
+        f"{waves['roomy'][3]:.3f} s unpressured; launches {counts}")
+    if stats["num_preemptions"] <= 0:
+        raise AssertionError("the tight pool preempted nothing")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched in the preempted run")
+    compare_runs("preempted against unpressured", reqs, stack.runner.logits,
+                 waves["roomy"][0], waves["roomy"][1].runner.logits, cfg.vocab_size)
+    return {name: counts[name] for name in path_kernels}
+
+
+def time_rglru(cfg, params):
+    """The RG-LRU recurrence of recurrentgemma_2b (``layers.rglru_scan``,
+    fp32, width 2560) at a 512-token prefill chunk (the serving chunk), at
+    2048 tokens, and a decode step of 4 rows; and layer 0's whole RG-LRU
+    mixer (projections, conv, gates, recurrence) at 512 tokens, bf16."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    W = cfg.rglru.lru_width
+    for B, T in ((1, 512), (1, 2048), (4, 1)):
+        log_a = -0.108 * torch.rand((B, T, W), generator=gen, device="cuda")
+        b = torch.randn((B, T, W), generator=gen, device="cuda")
+        h0 = torch.randn((B, W), generator=gen, device="cuda")
+        ms = time_ms(lambda: L.rglru_scan(log_a, b, h0))
+        g_ms = graph_ms(lambda: L.rglru_scan(log_a, b, h0))
+        nbytes = 4 * (2 * log_a.numel() + b.numel() + h0.numel())
+        log(f"RG-LRU recurrence (B={B}, T={T}, W={W}): {ms:.4f} ms ({g_ms:.4f} in a graph); "
+            f"reading its inputs and writing h once would take {nbytes / PEAK_BYTES * 1e3:.5f} ms")
+    p = params["blocks"][0]["rglru"]
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    layer_ms = time_ms(lambda: L.rglru(cfg, p, x))
+    log(f"RG-LRU mixer of layer 0 at a 512-token chunk: {layer_ms:.4f} ms")
+
+
+def check_whisper(cfg, model, params):
+    """Phase 18: ``EncDecLM.prefill`` with 1500 random frame embeddings
+    (torch seed 0) and a 64-token prompt, then a decode, with the kernels
+    (the encoder and the cross-attention through K1 without the causal
+    mask, the decode's cross-attention through K2 over the padded cross
+    cache) against the plain attention, in relative terms as
+    :func:`check_model`; the encoder alone is timed."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    F = cfg.encoder.max_source_positions
+    frames = torch.randn((1, F, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, 65), generator=gen, device="cuda")
+    results = {}
+    for force in (None, "plain"):
+        with recording() as rec:
+            cache = model.init_cache(1, 512, torch.bfloat16, "cuda")
+            pre, cache = model.prefill(params, {"tokens": toks[:, :64], "frontend_embeds": frames},
+                                       cache, force=force)
+            dec, _ = model.decode_step(params, cache, toks[:, 64:], force=force)
+        results[force] = (pre.float(), dec.float())
+        if force is None:
+            log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; "
+                f"K2: {dict(rec.paged)}; cross cache {tuple(cache['cross_k'].shape)} for "
+                f"{cache['cross_frames']} frames")
+            if not any(S == F and not causal for (_, _, S, _, causal) in rec.flash):
+                raise AssertionError("K1 never ran the encoder or the cross-attention")
+    torch.cuda.synchronize()
+    for i, what in enumerate(("prefill (encoder over 1500 frames, 64 tokens)",
+                              "decode (cross-attention over 1500 frames, K2)")):
+        a, b = results[None][i], results["plain"][i]
+        if tuple(a.shape) != (1, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"whisper {what}: logits not finite or of the wrong shape")
+        rel = float((a - b).abs().max() / b.abs().max())
+        log(f"whisper {what}: max relative error kernels vs plain {rel:.3e} "
+            f"(argmax {int(a.argmax())} vs {int(b.argmax())})")
+        if rel > 5e-2:
+            raise AssertionError(f"whisper {what}: kernels and plain differ by {rel}")
+    enc_ms = time_ms(lambda: model.encode(params, frames), iters=5)
+    log(f"whisper encoder over {F} frames: {enc_ms:.4f} ms")
 
 
 def check_moe_grouped(cfg, params):
@@ -1126,44 +1577,51 @@ def real_against_emulated(cfg, model, params) -> None:
     log(f"phase 6b took {time.monotonic() - t0:.1f} s")
 
 
-def profile_serving(serve, moe=False) -> None:
+def profile_serving(serve, ranges=()) -> None:
     """Device time by kernel over one ``serve()`` call, and the device's busy
-    share of the wall time (one stream, so kernels do not overlap).  With
-    ``moe``, operators are recorded too and each MoE layer runs inside a
-    ``record_function("moe")`` range, whose device time is every kernel of
-    the layer: routing, sort, gather, the grouped products (kernels named
-    ``*group*``), the activation and the scatter-add.  (Without it only the
-    device is traced: turning a serving run's operator records into events
-    costs about a minute of host time.)"""
+    share of the wall time (one stream, so kernels do not overlap).  Each
+    function of ``repro_torch.models.layers`` named in ``ranges`` (``moe``,
+    ``rglru_scan``) runs inside a ``record_function`` range of its name, and
+    operators are recorded too: a range's device time is that of every
+    kernel launched inside it (for the MoE: routing, sort, gather, the
+    grouped products, named ``*group*``, the activation and the scatter-add;
+    for the RG-LRU recurrence, its elementwise kernels and reductions).
+    (Without ranges only the device is traced: turning a serving run's
+    operator records into events costs about a minute of host time.)"""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import layers as L
-    moe_layer = L.moe
+    originals = {name: getattr(L, name) for name in ranges}
 
-    def moe_in_range(*args, **kw):
-        with record_function("moe"):
-            return moe_layer(*args, **kw)
+    def in_range(name, fn):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
 
-    L.moe = moe_in_range
+    for name, fn in originals.items():
+        setattr(L, name, in_range(name, fn))
     try:
-        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
         with profile(activities=activities, acc_events=True) as prof:
             t0 = time.monotonic()
             serve()
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3
     finally:
-        L.moe = moe_layer
-    # the "moe" ranges: operator events of this thread, whose device time
-    # is that of every kernel launched inside them
-    ranges = [e for e in (prof.events() if moe else ())
-              if e.name == "moe" and e.device_type == torch.autograd.DeviceType.CPU]
-    moe_ms = sum(e.device_time_total for e in ranges) / 1e3
-    moe_calls = len(ranges)
+        for name, fn in originals.items():
+            setattr(L, name, fn)
+    # the ranges: operator events of this thread, whose device time is that
+    # of every kernel launched inside them
+    in_ranges = collections.defaultdict(lambda: [0.0, 0])
+    for e in (prof.events() if ranges else ()):
+        if e.name in originals and e.device_type == torch.autograd.DeviceType.CPU:
+            in_ranges[e.name][0] += e.device_time_total / 1e3
+            in_ranges[e.name][1] += 1
     kernels = []
     for evt in prof.key_averages():
         # a range's device-side annotation spans kernels; it is none itself
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key == "moe":
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in originals:
             continue
         ms = getattr(evt, "self_device_time_total", 0) / 1e3
         if ms > 0:
@@ -1194,10 +1652,16 @@ def profile_serving(serve, moe=False) -> None:
         f"({100 * total / wall_ms:.1f}%), idle {100 * (1 - total / wall_ms):.1f}%")
     for g, ms in groups.items():
         log(f"  {g:24s} {ms:9.2f} ms  {100 * ms / total:5.1f}% of device time")
-    if moe_calls:
+    if "moe" in in_ranges:
+        moe_ms, moe_calls = in_ranges["moe"]
         log(f"  MoE layers, all their kernels ({moe_calls} calls): {moe_ms:.2f} ms, "
             f"{100 * moe_ms / total:.1f}% of device time; routing, dispatch and combine "
             f"{moe_ms - groups['MoE grouped products']:.2f} ms")
+    if "rglru_scan" in in_ranges:
+        scan_ms, scan_calls = in_ranges["rglru_scan"]
+        log(f"  RG-LRU recurrence, all its kernels ({scan_calls} calls): {scan_ms:.2f} ms, "
+            f"{100 * scan_ms / total:.1f}% of device time (within \"other\"); the rest of "
+            f"\"other\" {groups['other'] - scan_ms:.2f} ms")
     for ms, n, name in sorted(kernels, reverse=True)[:10]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
 
@@ -1206,12 +1670,16 @@ def _widen(tree):
     """The same tree with every tensor in fp32."""
     if isinstance(tree, dict):
         return {k: _widen(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widen(v) for v in tree]
     return tree.float()
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

@@ -205,8 +205,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // tile's Q K^T is issued before this tile's P V, so that its softmax overlaps
 // the P V product on the tensor cores.
 //
-// Shared memory follows TMA's swizzle: 128-byte rows (D = 64, and D = 128 as
-// two 64-column slabs) use the 128B swizzle, 64-byte rows (D = 32) the 64B
+// Shared memory follows TMA's swizzle: 128-byte rows (D = 64, and D = 128 and
+// 256 as two and four 64-column slabs) use the 128B swizzle, 64-byte rows (D = 32) the 64B
 // swizzle, and the wgmma descriptors name the same layout.  Out-of-range rows
 // of Q (past T) and of K/V (past S) arrive as zeros; the masks decide.  Only a
 // KV tile that an edge crosses (the causal diagonal, the window's start or
@@ -214,12 +214,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // Blocks are ordered so that the query tiles that see the most keys start
 // first.
 
+constexpr int kSmemLimit = 232448;  // shared memory a block may have on the H100 (227 KB)
+
+// Dynamic shared memory of flash_fwd_wgmma_kernel<D, BK, NWG>: 1024 bytes of
+// slack to align the tiles to the swizzle's 1024-byte period, the Q tile,
+// the K and V rings of two stages, the mbarriers.  Mirrored by
+// repro_torch.kernels.flash_attention.smem_bytes.
+constexpr int wgmma_smem_bytes(int D, int BK, int NWG) {
+  return 1024 + 64 * NWG * D * 2 + 2 * 2 * BK * D * 2 + 8 * (1 + 4 * 2);
+}
+
 template <int D, int BK, int NWG>
 struct Tile {
   static constexpr int kRows = 64 * NWG;                // query rows a block
   static constexpr int kRowBytes = D >= 64 ? 128 : 64;  // bytes of a row of one slab
   static constexpr int kCols = kRowBytes / 2;           // bf16 columns of a slab
-  static constexpr int kSlabs = D / kCols;              // 2 at D = 128, else 1
+  static constexpr int kSlabs = D / kCols;              // 4 at D = 256, 2 at D = 128, else 1
   static constexpr int kLayout = D >= 64 ? 1 : 2;       // wgmma descriptor: 128B or 64B swizzle
   static constexpr int kGroupBytes = 8 * kRowBytes;     // one 8-row core group
   static constexpr int kStages = 2;
@@ -229,7 +239,9 @@ struct Tile {
   static constexpr int kBarrierBytes = 8 * (1 + 4 * kStages);
   // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte period
   static constexpr int kSmemBytes = 1024 + kQBytes + 2 * kStages * kKVBytes + kBarrierBytes;
-  static_assert(kSmemBytes <= 232448, "more shared memory than a block may have");
+  static_assert(kSmemBytes == wgmma_smem_bytes(D, BK, NWG),
+                "wgmma_smem_bytes disagrees with the tile");
+  static_assert(kSmemBytes <= kSmemLimit, "more shared memory than a block may have");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -439,7 +451,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b);
   } else {
-    static_assert(N == 128, "head dims are 32, 64 or 128");
+    static_assert(N == 128, "one P V product is 32, 64 or 128 columns wide");
     wgmma_rs_n128(d, a, desc_b);
   }
 }
@@ -468,16 +480,25 @@ __device__ __forceinline__ void qk_issue(float (&s)[BK / 2], uint32_t q_addr, ui
 // Issue O += P V for one V tile and commit it.  P is the A operand from
 // registers; V is the B operand read MN-major (its rows are keys, its
 // columns the output dims): a k16 step moves 16 rows, the 8-row groups are
-// kGroupBytes apart and the two 64-column slabs of D = 128 kKV/2 apart.
+// kGroupBytes apart and the 64-column slabs BK * kRowBytes apart.  A product
+// covers at most 128 columns, so D = 256 takes two, each on its half of the
+// accumulator (the fragments of columns 128.. follow those of 0..127) and
+// its two slabs of V.
 template <int D, int BK, int NWG>
 __device__ __forceinline__ void pv_issue(float (&acc)[D / 2], const uint32_t (&p)[BK / 16][4],
                                          uint32_t v_addr) {
   using C = Tile<D, BK, NWG>;
+  constexpr int kN = D > 128 ? 128 : D;  // columns of one product
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = gmma_desc(v_addr + kk * 16 * C::kRowBytes, BK * C::kRowBytes,
-                                  C::kGroupBytes, C::kLayout);
-    wgmma_rs<D>(acc, p[kk], db);
+  for (int part = 0; part < D / kN; ++part) {
+    float(&d)[kN / 2] = *reinterpret_cast<float(*)[kN / 2]>(&acc[part * kN / 2]);
+    const uint32_t base = v_addr + part * (kN / C::kCols) * BK * C::kRowBytes;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = gmma_desc(base + kk * 16 * C::kRowBytes, BK * C::kRowBytes,
+                                    C::kGroupBytes, C::kLayout);
+      wgmma_rs<kN>(d, p[kk], db);
+    }
   }
   wgmma_commit();
 }
@@ -873,6 +894,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // The three tile choices: 64 rows and 64 or 128 keys (one consumer
 // warpgroup), 128 rows and 64 keys (two; with 128 keys they would spill).
+// At D = 256, 64 x 128 needs more shared memory than a block may have and
+// is not built.
 template <int D>
 int launch_bf16_tiles(int block_rows, int block_keys, const void* q, const void* k,
                       const void* v, void* o, int B, int Tq, int Sk, int Hq, int Hkv,
@@ -881,9 +904,11 @@ int launch_bf16_tiles(int block_rows, int block_keys, const void* q, const void*
   if (block_rows == 64 && block_keys == 64)
     return launch_bf16<D, 64, 1>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale,
                                  causal, window, pack_log2, stream);
-  if (block_rows == 64 && block_keys == 128)
-    return launch_bf16<D, 128, 1>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale,
-                                  causal, window, pack_log2, stream);
+  if constexpr (wgmma_smem_bytes(D, 128, 1) <= kSmemLimit) {
+    if (block_rows == 64 && block_keys == 128)
+      return launch_bf16<D, 128, 1>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb,
+                                    scale, causal, window, pack_log2, stream);
+  }
   if (block_rows == 128 && block_keys == 64)
     return launch_bf16<D, 64, 2>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale,
                                  causal, window, pack_log2, stream);
@@ -911,13 +936,17 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
     case 128:
       return repro_torch::launch_f32<float, 128>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
                                                  o_sb, scale, causal, window, st);
+    case 256:
+      return repro_torch::launch_f32<float, 256>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
+                                                 o_sb, scale, causal, window, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // bf16 inputs, with the wrapper's plan: block_rows query rows a block and
-// block_keys keys a KV tile (64 x 64, 64 x 128 or 128 x 64), 2^pack_log2
+// block_keys keys a KV tile (64 x 64, 64 x 128 or 128 x 64; not 64 x 128 at
+// D = 256), 2^pack_log2
 // query heads packed into a tile.  Every batch stride (elements) must be a multiple of 8
 // and every base 16-byte aligned, as TMA requires.  Returns a cudaError_t,
 // 1000 + the CUresult of a tensor map the driver refused, or 3000 when the
@@ -940,6 +969,10 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
                                                pack_log2, st);
     case 128:
       return repro_torch::launch_bf16_tiles<128>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
+                                                Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
+                                                pack_log2, st);
+    case 256:
+      return repro_torch::launch_bf16_tiles<256>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
                                                 Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
                                                 pack_log2, st);
     default:

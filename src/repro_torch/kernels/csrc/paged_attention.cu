@@ -28,8 +28,8 @@
 //    partition that holds the window's start gives its earlier keys a score
 //    of -inf.  The others stage their slice of the block table and
 //    their G query rows, then stream the partition's K tiles and then its V
-//    tiles (64 keys in bf16, 32 in fp32) through a two-stage ring in shared
-//    memory, kept in the input type and filled by 16-byte cp.async, so the
+//    tiles (64 keys in bf16, 32 in fp32; half as many at D = 256) through a
+//    two-stage ring in shared memory, kept in the input type and filled by 16-byte cp.async, so the
 //    gather of the next tile overlaps the math of this one.  The scores of
 //    the whole partition stay in shared memory: after the last K tile one
 //    warp per head takes the partition's max m and sum l of exp(s - m), and
@@ -47,15 +47,18 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroupElems = 2048;            // G * D the accumulator holds
+constexpr int kMaxGroupElems = 4096;            // G * D the accumulator holds
 constexpr int kMaxPairs = kMaxGroupElems / 2 / kThreads;  // (g, d) pairs a thread
 constexpr int kPartition = 64;                  // keys a block of the first launch covers
 constexpr int kMinPage = 8;                     // smallest page size
+constexpr int kSmemDefault = 48 * 1024;         // shared memory a block gets without opting in
+constexpr int kSmemLimit = 232448;              // the most a block may opt in to on the H100
 
-// Keys per staged tile: 64 rows of bf16 or 32 of fp32, about 17 KB at D = 128.
-template <typename T>
+// Keys per staged tile: 64 rows of bf16 or 32 of fp32 up to D = 128, half as
+// many at D = 256; about 17 KB either way.
+template <typename T, int D>
 struct TileK {
-  static constexpr int value = sizeof(T) == 2 ? 64 : 32;
+  static constexpr int value = (sizeof(T) == 2 ? 64 : 32) / (D > 128 ? 2 : 1);
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -87,7 +90,7 @@ __host__ __device__ constexpr int float_words(int G, int D) {
 template <typename T, int D>
 constexpr int partial_smem_bytes(int G, int page_size) {
   return static_cast<int>(sizeof(float)) * float_words(G, D) +
-         2 * TileK<T>::value * RowLd<T, D>::value * static_cast<int>(sizeof(T)) +
+         2 * TileK<T, D>::value * RowLd<T, D>::value * static_cast<int>(sizeof(T)) +
          static_cast<int>(sizeof(int)) * (kPartition / page_size);
 }
 
@@ -99,7 +102,7 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
                   float* __restrict__ l_out, float* __restrict__ acc_out, int num_heads,
                   int num_kv_heads, int page_size, int pages_per_seq, int window,
                   float scale) {
-  constexpr int TK = TileK<T>::value;
+  constexpr int TK = TileK<T, D>::value;
   constexpr int LDK = RowLd<T, D>::value;
   constexpr int LDQ = D + 4;
   constexpr int E = Vec16<T>::kElems;
@@ -299,11 +302,17 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
                    const int* ctx, float* m, float* l, float* acc, void* o, int B, int Hq,
                    int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
                    float scale, cudaStream_t stream) {
-  // the most any group and page size take stays within the 48 KB a block
-  // gets without raising its limit
-  static_assert(partial_smem_bytes<T, D>(kMaxGroupElems / D, kMinPage) <= 48 * 1024,
-                "paged_fwd_partial needs more than 48 KB of shared memory");
+  // the most any group and page size take stays within what a block may
+  // have; a group whose rows take more than the 48 KB a block gets by
+  // default opts in to more
+  static_assert(partial_smem_bytes<T, D>(kMaxGroupElems / D, kMinPage) <= kSmemLimit,
+                "paged_fwd_partial needs more shared memory than a block may have");
   const int bytes = partial_smem_bytes<T, D>(Hq / Hkv, page_size);
+  if (bytes > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_fwd_partial<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
   paged_fwd_partial<T, D><<<dim3(num_parts, Hkv, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables, ctx,
       m, l, acc, Hq, Hkv, page_size, pages_per_seq, window, scale);
@@ -329,6 +338,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, con
     case 128:
       return launch<T, 128>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
                             pages_per_seq, num_parts, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
+                            pages_per_seq, num_parts, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -339,7 +351,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, con
 
 // m_part, l_part: (B, Hq, num_parts) fp32 scratch; acc_part: (B, Hq,
 // num_parts, D) fp32 scratch, with num_parts = max(1, ceil(pages_per_seq *
-// page_size / 64)); the page size divides 64 and Hq / Hkv * D <= 2048.
+// page_size / 64)); the page size divides 64 and Hq / Hkv * D <= 4096.
 // window: the sliding window in keys, or 0 for none.  dtype: 0 = float32,
 // 1 = bfloat16.  Two launches on `stream`.  Returns a cudaError_t (0 on
 // success).

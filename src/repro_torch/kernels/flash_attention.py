@@ -38,9 +38,11 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # (query rows a block, keys a KV tile) the bf16 kernel is built for: 64 rows
-# per consumer warpgroup; at 128 rows and 128 keys the consumers would spill
+# per consumer warpgroup; at 128 rows and 128 keys the consumers would spill.
+# A tile is built for a head dim only where it fits SMEM_LIMIT (not 64 x 128
+# at D = 256: 296,008 bytes)
 TILES = ((64, 64), (64, 128), (128, 64))
 STAGES = 2                  # K/V tiles in flight: kStages in the source
 SMEM_LIMIT = 232448         # shared memory a block may have on the H100 (227 KB)
@@ -89,15 +91,21 @@ def plan(B: int, T: int, S: int, Hq: int, Hkv: int, D: int, *,
     and serving shapes and at G = 8 (``scripts/time_flash_shapes.py``):
     128 query rows (two consumer warpgroups) when that grid still gives at
     least two thirds of the SMs a block, else 64; KV tiles of 64 keys, or of
-    128 for 64-row tiles over 512 keys or more."""
+    128 for 64-row tiles over 512 keys or more where they fit the shared
+    memory (not at D = 256).  Tiles that do not fit ``SMEM_LIMIT`` raise."""
     G = Hq // Hkv
     if block_rows is None:
         wide = plan(B, T, S, Hq, Hkv, D, block_rows=128, block_keys=64).blocks
         block_rows = 128 if 3 * wide >= 2 * SMS else 64
     if block_keys is None:
-        block_keys = 128 if block_rows == 64 and S >= 512 else 64
+        wide_keys = block_rows == 64 and S >= 512 and smem_bytes(D, 64, 128) <= SMEM_LIMIT
+        block_keys = 128 if wide_keys else 64
     if (block_rows, block_keys) not in TILES:
         raise ValueError(f"flash_attention: tiles ({block_rows}, {block_keys}) not in {TILES}")
+    if smem_bytes(D, block_rows, block_keys) > SMEM_LIMIT:
+        raise ValueError(f"flash_attention: tiles ({block_rows}, {block_keys}) at D={D} need "
+                         f"{smem_bytes(D, block_rows, block_keys)} bytes of shared memory, "
+                         f"more than the {SMEM_LIMIT} a block may have")
     pack = pack_factor(G, block_rows)
     positions = block_rows // pack
     q_tiles = -(-T // positions)
@@ -189,7 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, T, Hq, D); k, v: (B, S, Hkv, D) -> (B, T, Hq, D) in q's type.
 
-    CUDA tensors only: fp32 or bf16, D in {32, 64, 128}, Hq a multiple of
+    CUDA tensors only: fp32 or bf16, D in {32, 64, 128, 256}, Hq a multiple of
     Hkv, S >= T when causal; bf16 batch strides a multiple of 16 bytes.
     Launches on the current stream without synchronising."""
     global launches

@@ -38,9 +38,9 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 PAGE_SIZES = (8, 16, 32)
-MAX_GROUP_ELEMS = 2048      # G * D the kernel's accumulator holds
+MAX_GROUP_ELEMS = 4096      # G * D the kernel's accumulator holds
 PARTITION = 64              # keys a block of the first launch covers: kPartition in the source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,7 +85,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                   positions < context_len - window are masked
     returns       (B, Hq, D) in q's type
 
-    CUDA tensors only, all dense: fp32 or bf16, D in {32, 64, 128}, page
+    CUDA tensors only, all dense: fp32 or bf16, D in {32, 64, 128, 256}, page
     size in {8, 16, 32}, Hq a multiple of Hkv.  Launches on the current
     stream without synchronising."""
     global launches

@@ -1,10 +1,12 @@
 """Carry a JAX parameter tree into the port.
 
-The JAX package's ``TransformerLM.init`` gives a nested dictionary whose
-leaves are arrays; passed through ``numpy.asarray`` it becomes the input of
-:func:`from_numpy`.  The port keeps the JAX names, layouts and the stacked
-(L, ...) block leaves, so the conversion is a copy keyed by the JAX path,
-with no renaming and no transposes.  Random initialisations cannot match
+The JAX package's ``TransformerLM.init`` and ``EncDecLM.init`` give nested
+dictionaries whose leaves are arrays (a mixed layer pattern's blocks are a
+list of per-layer dictionaries); passed through ``numpy.asarray`` they become
+the input of :func:`from_numpy`.  The port keeps the JAX names, layouts, the
+stacked (L, ...) block leaves of a uniform stack and the per-layer list of a
+mixed one, so the conversion is a copy keyed by the JAX path, with no
+renaming and no transposes.  Random initialisations cannot match
 across frameworks; this is how both packages get the same weights.
 """
 
@@ -34,6 +36,8 @@ def _leaf(arr, device, dtype) -> torch.Tensor:
 def _convert(tree: Any, device, dtype, name: str = "") -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device, dtype, name) for v in tree]
     return _leaf(tree, device, None if name in FP32_LEAVES else dtype)
 
 

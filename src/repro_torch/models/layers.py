@@ -1,5 +1,5 @@
-"""Model building blocks in PyTorch: the dense, dropless-MoE and Mamba2 (SSD)
-subsets of ``repro.models.layers``.
+"""Model building blocks in PyTorch: the dense, dropless-MoE, Mamba2 (SSD)
+and RG-LRU (RecurrentGemma) subsets of ``repro.models.layers``.
 
 Plain functions over explicit parameter dictionaries that keep the JAX
 package's names and layouts (attention weights (d, H, Dh) and (H, Dh, d)), so
@@ -10,15 +10,17 @@ and SSD recurrence, as in the reference.
 Conventions: B batch, T query tokens, S KV length, H heads, Hkv KV heads,
 D head_dim, d = d_model, F = d_ff; for SSD, H heads of P channels, state N.
 
-:func:`attention` and :func:`causal_mask` are the reference's dense,
-mask-based attention, kept for layer-level parity tests; the model attends
+:func:`attention`, :func:`causal_mask` and :func:`full_mask` are the
+reference's dense, mask-based attention, kept for layer-level parity tests; the model attends
 over its cache through :mod:`repro_torch.kernels.ops`.  :func:`ssd_prefill`
 runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
 :func:`ssd_decode_step` has no kernel in the reference and stays plain
 PyTorch.  :func:`moe` is the reference's dropless MoE; its two grouped
 products lie outside any Pallas kernel in the reference
 (``jax.lax.ragged_dot``) and stay PyTorch products here
-(:func:`grouped_mm`).
+(:func:`grouped_mm`).  :func:`rglru` runs its fp32 recurrence as a chunked
+scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
+it either (``jax.lax.associative_scan``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from .config import ModelConfig
 # Leaves the reference initialises in fp32 whatever the model's type
 # (``repro.models.layers.ssd_params`` and ``moe_params``); conversions leave
 # them in fp32.
-FP32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router"})
+FP32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router", "log_lambda"})
 
 # --------------------------------------------------------------------------
 # initialisation helpers
@@ -158,6 +160,12 @@ def causal_mask(q_pos, kv_pos, window: Optional[int] = None):
     if window is not None:
         m &= q_pos[:, :, None] - kv_pos[:, None, :] < window
     return m
+
+
+def full_mask(q_pos, kv_pos):
+    """Bidirectional (encoder) mask: only invalid slots (kv_pos < 0) masked."""
+    B, T = q_pos.shape
+    return (kv_pos[:, None, :] >= 0).expand(B, T, kv_pos.shape[1])
 
 
 # --------------------------------------------------------------------------
@@ -328,6 +336,98 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     ce = group_sizes.float() / (n * K)
     aux_loss = E * torch.sum(me * ce)
     return out.reshape(B, T, d), {"moe_aux_loss": aux_loss, "expert_load": ce}
+
+
+# --------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------
+
+RGLRU_CHUNK = 16    # positions of one block of the chunked scan (rglru_scan)
+
+
+def rglru_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=None, lead=()):
+    """The reference's RG-LRU block: input and gate branches, the recurrence
+    and input gates, the output projection, the depthwise conv and the fp32
+    Λ, a linspace from −4.3 to −9.0 over the width."""
+    rg = cfg.rglru
+    w = rg.lru_width
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    lam = torch.linspace(-4.3, -9.0, w, dtype=torch.float32, device=device)
+    return {
+        "w_x": dense_init((cfg.d_model, w), generator, **kw),
+        "w_gate_in": dense_init((cfg.d_model, w), generator, **kw),
+        "w_a": dense_init((w, w), generator, **kw),
+        "w_i": dense_init((w, w), generator, **kw),
+        "w_out": dense_init((w, cfg.d_model), generator, **kw),
+        "conv": dense_init((rg.conv_width, w), generator, **kw),
+        "log_lambda": lam.expand(tuple(lead) + (w,)).clone(),
+    }
+
+
+def rglru_scan(log_a, b, h0, chunk: int = RGLRU_CHUNK):
+    """h_t = exp(log_a_t)·h_{t−1} + b_t from h_{−1} = h0, every t at once.
+    log_a, b: (B, T, W) fp32; h0: (B, W) fp32 -> h (B, T, W) fp32.
+
+    In blocks of ``chunk`` positions: inside a block h is a sum of b_s
+    weighted by exp(cum_t − cum_s), the block-local cumulative sums of
+    log_a, which stay small (a single cumulative sum over T overflows
+    exp(−·) in fp32 past about 800 positions at Λ = −4.3); across blocks
+    each block's entering state is the same sum over the blocks before it,
+    their decays summed in fp64.  Every exponent is a difference of later
+    minus earlier sums, so it is at most 0 and nothing is divided.  A ragged
+    last block is padded with a = 1, b = 0, which leaves the earlier
+    positions as they are.  T = 1 is the one step."""
+    B, T, W = b.shape
+    if T == 1:
+        return torch.exp(log_a) * h0[:, None, :] + b
+    pad = (-T) % chunk
+    if pad:
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+    n = (T + pad) // chunk
+    la = log_a.view(B, n, chunk, W)
+    cum = torch.cumsum(la, dim=2)                                     # (B, n, C, W)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=b.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # (B, n, t, s, W)
+    weights = torch.exp(diff.masked_fill(~causal[:, :, None], -math.inf))
+    local = (weights * b.view(B, n, 1, chunk, W)).sum(dim=3)          # from a zero state
+    # the state entering block c: the blocks before it, decayed to its start
+    ends = torch.cumsum(cum[:, :, -1, :].double(), dim=1)             # (B, n, W) fp64
+    blocks = torch.tril(torch.ones(n, n, dtype=torch.bool, device=b.device))
+    decay = torch.exp((ends[:, :, None, :] - ends[:, None, :, :]).masked_fill(
+        ~blocks[:, :, None], -math.inf)).float()                      # (B, c, c', W)
+    after = (decay * local[:, None, :, -1, :]).sum(dim=2) \
+        + torch.exp(ends).float() * h0[:, None, :]                    # state after block c
+    entering = torch.cat([h0[:, None, :], after[:, :-1]], dim=1)
+    h = local + torch.exp(cum) * entering[:, :, None, :]
+    return h.reshape(B, n * chunk, W)[:, :T]
+
+
+def rglru(cfg: ModelConfig, p, x, h0=None, conv_state=None):
+    """RG-LRU block.  x: (B,T,d) -> (y (B,T,d), hT (B,W) fp32, conv_stateT).
+
+    h_t = a_t ⊙ h_{t−1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ u_t) with
+    a_t = exp(−8 · softplus(Λ) · r_t), the r and i gates from the conv'd
+    input branch; the recurrence runs in fp32 (:func:`rglru_scan`)."""
+    B, T, _ = x.shape
+    u = x @ p["w_x"]                                       # (B,T,W)
+    g = F.silu(x @ p["w_gate_in"])                         # gate branch
+    u_conv, conv_state = _causal_conv1d(u, p["conv"], conv_state)
+    r = torch.sigmoid(u_conv @ p["w_a"]).float()
+    i = torch.sigmoid(u_conv @ p["w_i"]).float()
+    log_a = -8.0 * F.softplus(p["log_lambda"]) * r         # (B,T,W) fp32
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * i * u_conv.float()
+    if h0 is None:
+        h0 = torch.zeros((B, u.shape[-1]), dtype=torch.float32, device=x.device)
+    h = rglru_scan(log_a, b, h0)
+    y = (h.to(x.dtype) * g) @ p["w_out"]
+    return y, h[:, -1, :], conv_state
+
+
+def rglru_step(cfg: ModelConfig, p, x_t, h_prev, conv_state):
+    """Single decode step.  x_t: (B,1,d); h_prev: (B,W); conv: (B,K-1,W)."""
+    return rglru(cfg, p, x_t, h0=h_prev, conv_state=conv_state)
 
 
 # --------------------------------------------------------------------------

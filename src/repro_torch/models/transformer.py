@@ -1,6 +1,7 @@
-"""Decoder LM in PyTorch: the uniform-``attn`` (dense, dropless MoE, sliding
-window, prepended frontend embeddings) and uniform-``ssd`` (Mamba2) paths of
-``repro.models.transformer.TransformerLM``.
+"""Decoder LMs and the encoder-decoder in PyTorch: the paths of
+``repro.models.transformer.TransformerLM`` (dense, dropless MoE, sliding
+window, prepended frontend embeddings; Mamba2's SSD; RecurrentGemma's mixed
+RG-LRU and local-attention pattern) and of ``EncDecLM`` (Whisper).
 
 Entry points, as in the reference:
 
@@ -12,14 +13,17 @@ Entry points, as in the reference:
   the sequences of a step this way, so a slot that is mid-prefill is never
   touched by another request's decode.
 
-Parameters are nested dictionaries of tensors with the JAX names and layouts,
-blocks stacked on a leading layer axis.  The cache keeps the reference's
-layout: for attention ``k``/``v`` (L, B, S, Hkv, D) and ``kv_pos`` (L, B, S)
-filled with −1; for SSD the fp32 recurrent ``state`` (L, B, H, N, P) and
-``conv`` state (L, B, K−1, d_inner + 2N), whatever the cache's type; and
-``cache_len`` (B,).  **The cache is updated in place**: ``prefill`` and the
-decodes write the new K/V or states, positions and lengths into the tensors
-they were given and return that same cache.
+Parameters are nested dictionaries of tensors with the JAX names and layouts.
+A uniform layer pattern stacks its blocks on a leading layer axis; a mixed
+one (RecurrentGemma) keeps a list of per-layer blocks and caches, as the
+reference's unrolled stack does.  The cache keeps the reference's layout:
+for attention (``attn``, ``local_attn``) ``k``/``v`` (L, B, S, Hkv, D) and
+``kv_pos`` (L, B, S) filled with −1; for SSD the fp32 recurrent ``state``
+(L, B, H, N, P) and ``conv`` state (L, B, K−1, d_inner + 2N); for RG-LRU the
+fp32 ``state`` (L, B, W) and ``conv`` state (L, B, K−1, W), whatever the
+cache's type; and ``cache_len`` (B,).  **The cache is updated in place**:
+``prefill`` and the decodes write the new K/V or states, positions and
+lengths into the tensors they were given and return that same cache.
 
 Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
 
@@ -31,11 +35,12 @@ Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
   ``b * S / PAGE_SIZE + arange(S / PAGE_SIZE)`` and its context length is
   position + 1.  The pages are a view of the cache, not a copy.
 
-A sliding window (``cfg.sliding_window``) goes to both kernels, which mask
-by position: a query at p sees the keys at p − window + 1 .. p.  The cache
-stays linear, ``cache_size`` positions a row, where the reference keeps a
-ring of about one window (``positions % S``): the same function, since the
-reference also masks by position, at the memory of the whole context.
+A sliding window (``cfg.sliding_window``, on every attention layer, as in
+the reference) goes to both kernels, which mask by position: a query at p
+sees the keys at p − window + 1 .. p.  The cache stays linear,
+``cache_size`` positions a row, where the reference keeps a ring of about
+one window (``positions % S``): the same function, since the reference also
+masks by position, at the memory of the whole context.
 
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`; its
 auxiliary outputs are dropped, as serving does in the reference.  A
@@ -44,18 +49,23 @@ are prepended to the token embeddings: that prefill writes F + T positions.
 
 An SSD block's prefill runs its chunked scan through ``ops.ssd_scan`` (K3 on
 the card) from the rows' carried states, at any T; its decode is plain
-PyTorch, as in the reference.  A recurrent state has no position mask, so a
-decode reads and writes the state rows of the listed slots and no others.
+PyTorch, as in the reference.  An RG-LRU block runs its recurrence in plain
+PyTorch (:func:`layers.rglru`).  A recurrent state has no position mask, so
+a decode reads and writes the state rows of the listed slots and no others.
 
-Anything else of the reference (``local_attn``, RG-LRU, mixed layer patterns,
-encoder-decoder, ``kv_append="defer"``, ``moe_impl="a2a"``, the training
-loss) raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+:class:`EncDecLM` runs the encoder's bidirectional self-attention through K1
+with ``causal=False``, and the decoder's cross-attention through K1 with
+``causal=False`` (T > 1) or through K2 over the slot's cross cache (T = 1),
+which is padded to a whole number of pages; its context length is F.
+
+``kv_append="defer"``, ``moe_impl="a2a"`` and the training loss raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -67,12 +77,11 @@ from .config import ModelConfig
 
 PAGE_SIZE = 16     # K2's view of a slot: S / PAGE_SIZE consecutive pages
 
+ATTN_KINDS = ("attn", "local_attn")
+RECURRENT_KINDS = ("ssd", "rglru")
+
 _ROADMAP = {
-    "local_attn": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
     "defer": "ROADMAP Queue A item 9 (deferred KV append)",
-    "rglru": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
-    "mixed": "ROADMAP Queue A item 11 (RG-LRU and mixed layer patterns)",
-    "encoder": "ROADMAP Queue A item 12 (Whisper encoder-decoder)",
     "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
     "train": "ROADMAP Queue A item 13 (training)",
 }
@@ -86,13 +95,9 @@ def _unported(what: str) -> NotImplementedError:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any part of ``cfg`` the port does not run yet."""
     for kind in cfg.layer_pattern:
-        if kind not in ("attn", "ssd"):
-            raise _unported(kind)
-    if len(set(cfg.layer_pattern)) > 1:
-        raise _unported("mixed")
-    if cfg.encoder is not None:
-        raise _unported("encoder")
-    if cfg.kv_append != "inline":
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.kv_append != "inline" and not cfg.is_enc_dec:   # enc-dec keeps inline
         raise _unported("defer")
     if cfg.moe is not None and cfg.moe_impl != "ragged":
         raise _unported("a2a")
@@ -105,13 +110,19 @@ def check_supported(cfg: ModelConfig) -> None:
 def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
                  device=None, lead=()) -> Dict:
     """One block's parameters; ``lead=(L,)`` stacks L blocks on axis 0.  An
-    SSD block has one pre-norm and no MLP; an MoE config's attention block
-    has ``moe`` where a dense one has ``mlp``."""
+    SSD block has one pre-norm and no MLP; an RG-LRU block has the
+    recurrence where an attention block has ``attn``; an MoE config's
+    attention block has ``moe`` where a dense one has ``mlp``."""
     if kind == "ssd":
         return {"norm1": L.norm_params(cfg, dtype, device, lead),
                 "ssd": L.ssd_params(cfg, generator, dtype, device, lead)}
-    if kind != "attn":
-        raise _unported(kind)
+    if kind == "rglru":
+        return {"norm1": L.norm_params(cfg, dtype, device, lead),
+                "rglru": L.rglru_params(cfg, generator, dtype, device, lead),
+                "norm2": L.norm_params(cfg, dtype, device, lead),
+                "mlp": L.mlp_params(cfg, generator, dtype, device, lead=lead)}
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     p = {
         "norm1": L.norm_params(cfg, dtype, device, lead),
         "attn": L.attn_params(cfg, generator, dtype, device, lead),
@@ -127,18 +138,24 @@ def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                 device=None, lead=()) -> Dict:
     """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0.
-    SSD states are fp32 whatever ``dtype`` is, and take no ``cache_size``."""
+    SSD and RG-LRU states are fp32 whatever ``dtype`` is, and take no
+    ``cache_size``."""
+    f32 = dict(dtype=torch.float32, device=device)
     if kind == "ssd":
         ssm = cfg.ssm
         lead = tuple(lead) + (batch,)
-        f32 = dict(dtype=torch.float32, device=device)
         return {"state": torch.zeros(lead + (ssm.num_heads(cfg.d_model), ssm.state_dim,
                                              ssm.head_dim), **f32),
                 "conv": torch.zeros(lead + (ssm.conv_width - 1,
                                             ssm.d_inner(cfg.d_model) + 2 * ssm.state_dim),
                                     **f32)}
-    if kind != "attn":
-        raise _unported(kind)
+    if kind == "rglru":
+        rg = cfg.rglru
+        lead = tuple(lead) + (batch,)
+        return {"state": torch.zeros(lead + (rg.lru_width,), **f32),
+                "conv": torch.zeros(lead + (rg.conv_width - 1, rg.lru_width), **f32)}
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     shape = tuple(lead) + (batch, cache_size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -155,22 +172,30 @@ class CacheStep:
     rows: Optional[torch.Tensor] = None          # (n,) cache rows decoded
     block_tables: Optional[torch.Tensor] = None  # (n, S / PAGE_SIZE) int32
     context_lens: Optional[torch.Tensor] = None  # (n,) int32
+    cross_tables: Optional[torch.Tensor] = None  # (n, F_pad / PAGE_SIZE) int32, enc-dec
+    cross_lens: Optional[torch.Tensor] = None    # (n,) int32: F, enc-dec
 
 
 def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optional[Dict],
-              *, step: CacheStep, force: Optional[str] = None):
+              *, step: CacheStep, force: Optional[str] = None,
+              cross: Optional[Tuple[Dict, Dict]] = None):
     """One residual block over its layer's cache (updated in place).
 
     x: (n, T, d); positions: (n, T); cache: {"k", "v": (B, S, Hkv, D),
-    "kv_pos": (B, S)} or {"state": (B, H, N, P), "conv": (B, K-1, W)}.
+    "kv_pos": (B, S)} or {"state", "conv"} of an SSD or RG-LRU layer.
+    ``cross`` = (the layer's cross-attention params, {"k", "v": (B, F_pad,
+    Hkv, D)} and the frame count "frames"), for an enc-dec decoder layer.
     Returns y (n, T, d)."""
-    if kind not in ("attn", "ssd"):
-        raise _unported(kind)
     if cache is None:
         raise _unported("train")
     h = L.apply_norm(cfg, x, p["norm1"])
     if kind == "ssd":
-        return x + _ssd_mixer(cfg, p["ssd"], h, cache, step, force)
+        return x + _recurrent_mixer(cfg, kind, p["ssd"], h, cache, step, force)
+    if kind == "rglru":
+        x = x + _recurrent_mixer(cfg, kind, p["rglru"], h, cache, step, force)
+        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     q, k_new, v_new = L.attn_qkv(cfg, p["attn"], h, positions)
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
@@ -188,40 +213,94 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
         k_c[rows, pos] = k_new[:, 0].to(k_c.dtype)
         v_c[rows, pos] = v_new[:, 0].to(v_c.dtype)
         kv_pos[rows, pos] = pos.to(kv_pos.dtype)
-        page_shape = (-1, PAGE_SIZE) + tuple(k_c.shape[2:])
-        ctx = ops.paged_attention(
-            q[:, 0].contiguous(), k_c.view(page_shape), v_c.view(page_shape),
-            step.block_tables, step.context_lens, window=window, force=force)[:, None]
+        ctx = _paged(q, k_c, v_c, step.block_tables, step.context_lens, window, force)
     x = x + L.attn_out(p["attn"], ctx.to(x.dtype))
+    if cross is not None:
+        x = x + _cross_attention(cfg, *cross, x, step, force)
     h2 = L.apply_norm(cfg, x, p["norm2"])
     if cfg.moe is not None:
         return x + L.moe(cfg, p["moe"], h2, force=force)[0]
     return x + L.mlp(cfg, p["mlp"], h2)
 
 
-def _ssd_mixer(cfg: ModelConfig, p: Dict, h, cache: Dict, step: CacheStep,
-               force: Optional[str]):
-    """The SSD mixer over its layer's states, which it updates in place:
-    every row for a prefill, only ``step.rows`` for a decode."""
+def _paged(q, k_c, v_c, tables, lens, window, force):
+    """K2 over a slot cache (B, S, Hkv, D) read as pages; q: (n, 1, Hq, D)."""
+    page_shape = (-1, PAGE_SIZE) + tuple(k_c.shape[2:])
+    return ops.paged_attention(q[:, 0].contiguous(), k_c.view(page_shape),
+                               v_c.view(page_shape), tables, lens, window=window,
+                               force=force)[:, None]
+
+
+def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
+                     force: Optional[str]):
+    """The decoder's cross-attention over the encoder's K/V, as the
+    reference's: a norm, the query projection (no bias, no RoPE), attention
+    over every one of the F frames, the output projection.  A prefill (all
+    rows of the cache) runs K1 with ``causal=False``; a decode (``step.rows``)
+    runs K2 over those rows' cross cache, F keys each."""
+    hx = L.apply_norm(cfg, x, cp["norm"])
+    k_c = kv["k"]
+    qx = L._proj_heads(hx, cp["attn"]["wq"]).to(k_c.dtype)
     if step.rows is None:
-        y, state, conv = L.ssd_prefill(cfg, p, h, cache["state"], cache["conv"],
-                                       force=force)
+        F = kv["frames"]
+        ctx = ops.flash_attention(qx, k_c[:, :F], kv["v"][:, :F], causal=False, force=force)
+    else:
+        ctx = _paged(qx, k_c, kv["v"], step.cross_tables, step.cross_lens, None, force)
+    return L.attn_out(cp["attn"], ctx.to(x.dtype))
+
+
+def _recurrent_mixer(cfg: ModelConfig, kind: str, p: Dict, h, cache: Dict,
+                     step: CacheStep, force: Optional[str]):
+    """The SSD or RG-LRU mixer over its layer's states, which it updates in
+    place: every row for a prefill, only ``step.rows`` for a decode."""
+    if step.rows is None:
+        if kind == "ssd":
+            y, state, conv = L.ssd_prefill(cfg, p, h, cache["state"], cache["conv"],
+                                           force=force)
+        else:
+            y, state, conv = L.rglru(cfg, p, h, cache["state"], cache["conv"])
         cache["state"].copy_(state)
         cache["conv"].copy_(conv)
     else:
         rows = step.rows
-        y, state, conv = L.ssd_decode_step(cfg, p, h, cache["state"][rows],
-                                           cache["conv"][rows])
+        step_fn = L.ssd_decode_step if kind == "ssd" else L.rglru_step
+        y, state, conv = step_fn(cfg, p, h, cache["state"][rows], cache["conv"][rows])
         cache["state"][rows] = state
         cache["conv"][rows] = conv.to(cache["conv"].dtype)
     return y
 
 
 def _layer(tree, i: int):
-    """The i-th layer's view of a tree of stacked (L, ...) tensors."""
+    """The i-th layer's view of a tree of stacked (L, ...) tensors, or the
+    i-th entry of a per-layer list."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _page_tables(rows, S: int, batch: int, device):
+    """Block tables (n, S / PAGE_SIZE) of the listed cache rows of S
+    positions each, the rows' pages being consecutive in the cache."""
+    tables = torch.arange(batch * S // PAGE_SIZE, dtype=torch.int32,
+                          device=device).view(batch, S // PAGE_SIZE)
+    return tables[rows].contiguous()
+
+
+def _prefill_start(cache, k, T: int) -> int:
+    """The one ``cache_len`` all rows share, checked against the attention
+    cache ``k`` (.., B, S, Hkv, D), which must hold T more positions."""
+    starts = set(cache["cache_len"].tolist())
+    if len(starts) != 1:
+        raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
+                         f"got {sorted(starts)}")
+    start = starts.pop()
+    S = k.shape[-3]
+    if start + T > S:
+        raise ValueError(f"prefill to position {start + T} overflows the "
+                         f"cache of {S} positions")
+    return start
 
 
 # ==========================================================================
@@ -229,12 +308,16 @@ def _layer(tree, i: int):
 # ==========================================================================
 
 class TransformerLM:
-    """Decoder LM over a uniform ``attn`` or ``ssd`` layer pattern."""
+    """Decoder LM over any layer pattern: stacked (L, ...) blocks for a
+    uniform one, per-layer lists for a mixed one (RecurrentGemma)."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
-        self.uniform = cfg.layer_pattern[0]
+        kinds = set(cfg.layer_pattern)
+        self.uniform: Optional[str] = cfg.layer_pattern[0] if len(kinds) == 1 else None
+        self.has_attn = bool(kinds & set(ATTN_KINDS))
+        self.recurrent = bool(kinds & set(RECURRENT_KINDS))
 
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
@@ -253,8 +336,12 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["unembed"] = L.dense_init((cfg.d_model, cfg.vocab_size), generator,
                                              dtype=dtype, device=device)
-        params["blocks"] = block_params(cfg, self.uniform, generator, dtype, device,
-                                        lead=(cfg.num_layers,))
+        if self.uniform:
+            params["blocks"] = block_params(cfg, self.uniform, generator, dtype, device,
+                                            lead=(cfg.num_layers,))
+        else:
+            params["blocks"] = [block_params(cfg, kind, generator, dtype, device)
+                                for kind in cfg.layer_pattern]
         return params
 
     # -------------------------------------------------------------- embed --
@@ -275,11 +362,20 @@ class TransformerLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return x @ w
 
+    def _attn_cache(self, cache) -> Dict:
+        """The cache leaves of the attention layers: the stacked ones, or
+        the first attention layer's of a mixed stack (all share one S)."""
+        layers = cache["layers"]
+        if isinstance(layers, dict):
+            return layers
+        return layers[self.cfg.layer_pattern.index(
+            next(k for k in self.cfg.layer_pattern if k in ATTN_KINDS))]
+
     # --------------------------------------------------------------- body --
     def _run(self, params, x, positions, cache, step: CacheStep, force):
         cfg = self.cfg
-        for i in range(cfg.num_layers):
-            x = run_block(cfg, self.uniform, _layer(params["blocks"], i), x, positions,
+        for i, kind in enumerate(cfg.layer_pattern):
+            x = run_block(cfg, kind, _layer(params["blocks"], i), x, positions,
                           _layer(cache["layers"], i), step=step, force=force)
         x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
         return self._unembed(params, x)[:, 0, :]
@@ -288,15 +384,21 @@ class TransformerLM:
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
                    device=None) -> Dict[str, Any]:
         """An empty cache of ``batch`` rows of ``cache_size`` positions, a
-        multiple of PAGE_SIZE for attention (``cuda`` unless ``device`` says
-        otherwise).  SSD rows hold a state of fixed size and no positions."""
-        if self.uniform == "attn" and cache_size % PAGE_SIZE:
+        multiple of PAGE_SIZE where there is attention (``cuda`` unless
+        ``device`` says otherwise).  Recurrent rows hold a state of fixed
+        size and no positions."""
+        if self.has_attn and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         device = resolve_device(device)
         cfg = self.cfg
-        return {"layers": block_cache(cfg, self.uniform, batch, cache_size, dtype,
-                                      device, lead=(cfg.num_layers,)),
+        if self.uniform:
+            layers = block_cache(cfg, self.uniform, batch, cache_size, dtype, device,
+                                 lead=(cfg.num_layers,))
+        else:
+            layers = [block_cache(cfg, kind, batch, cache_size, dtype, device)
+                      for kind in cfg.layer_pattern]
+        return {"layers": layers,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
     def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
@@ -311,20 +413,12 @@ class TransformerLM:
         if T == 1 and "frontend_embeds" not in inputs:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
-        if self.uniform == "ssd":
+        if not self.has_attn:
             # each row goes on from its own state; positions play no part
             logits = self._run(params, x, None, cache, CacheStep(), force)
             cache["cache_len"] += T
             return logits, cache
-        starts = set(cache["cache_len"].tolist())
-        if len(starts) != 1:
-            raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
-                             f"got {sorted(starts)}")
-        start = starts.pop()
-        S = cache["layers"]["k"].shape[2]
-        if start + T > S:
-            raise ValueError(f"prefill to position {start + T} overflows the "
-                             f"cache of {S} positions")
+        start = _prefill_start(cache, self._attn_cache(cache)["k"], T)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
         logits = self._run(params, x, positions, cache, CacheStep(start=start), force)
         cache["cache_len"] += T
@@ -343,22 +437,176 @@ class TransformerLM:
         (n, V)."""
         rows = torch.as_tensor(slots, device=tokens.device).long()
         positions = cache["cache_len"][rows].long()[:, None]
-        if self.uniform == "ssd":
-            step = CacheStep(rows=rows)
-        else:
-            kv = cache["layers"]["k"]
-            B, S = kv.shape[1], kv.shape[2]
-            tables = torch.arange(B * S // PAGE_SIZE, dtype=torch.int32,
-                                  device=tokens.device).view(B, S // PAGE_SIZE)
-            step = CacheStep(rows=rows, block_tables=tables[rows].contiguous(),
-                             context_lens=(positions[:, 0] + 1).int())
+        step = CacheStep(rows=rows)
+        if self.has_attn:
+            kv = self._attn_cache(cache)["k"]
+            step.block_tables = _page_tables(rows, kv.shape[-3], kv.shape[-4], tokens.device)
+            step.context_lens = (positions[:, 0] + 1).int()
         x = params["embed"][tokens]
         logits = self._run(params, x, positions, cache, step, force)
         cache["cache_len"][rows] += 1
         return logits
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM:
+# ==========================================================================
+# encoder-decoder (whisper)
+# ==========================================================================
+
+class EncDecLM:
+    """Whisper-style encoder-decoder, as the reference's ``EncDecLM``.  The
+    audio conv frontend is a stub there too: ``prefill`` may take frame
+    embeddings (B, F, d), which the encoder turns into every decoder layer's
+    cross-attention K/V in the cache; without them the decoder attends over
+    the cache's cross K/V as they stand (zeros in a fresh cache)."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.encoder is None:
+            raise ValueError(f"{cfg.arch_id} has no encoder")
+        check_supported(cfg)
+        self.cfg = cfg.replace(kv_append="inline")      # enc-dec keeps inline
+        self.has_attn, self.recurrent = True, False
+
+    # ------------------------------------------------------------- params --
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype=torch.float32, device=None) -> Dict[str, Any]:
+        """Random parameters on ``generator``'s device (``cuda`` when no
+        generator is given: a fresh one seeded with 0), in the reference's
+        tree: stacked encoder, decoder and cross-attention layers."""
+        if generator is None:
+            generator = torch.Generator(resolve_device(device)).manual_seed(0)
+        device = generator.device
+        cfg = self.cfg
+        kw = dict(dtype=dtype, device=device)
+        return {
+            "embed": L.embed_init((cfg.vocab_size, cfg.d_model), generator, **kw),
+            "pos_embed": L.embed_init((cfg.max_seq_len, cfg.d_model), generator, **kw),
+            "encoder": block_params(cfg, "attn", generator, dtype, device,
+                                    lead=(cfg.encoder.num_layers,)),
+            "decoder": block_params(cfg, "attn", generator, dtype, device,
+                                    lead=(cfg.num_layers,)),
+            "cross": {"norm": L.norm_params(cfg, dtype, device, lead=(cfg.num_layers,)),
+                      "attn": L.attn_params(cfg, generator, dtype, device,
+                                            lead=(cfg.num_layers,))},
+            "enc_final_norm": L.norm_params(cfg, dtype, device),
+            "final_norm": L.norm_params(cfg, dtype, device),
+        }
+
+    # ------------------------------------------------------------ encoder --
+    def encode(self, params, frame_embeds, *, force: Optional[str] = None):
+        """(B, F, d) frame embeddings -> encoder states (B, F, d): pre-norm
+        blocks of bidirectional self-attention (K1, ``causal=False``) and
+        MLP, then the final norm."""
+        cfg = self.cfg
+        x = frame_embeds
+        B, F = x.shape[:2]
+        positions = torch.arange(F, device=x.device).expand(B, F)
+        enc = params["encoder"]
+        for i in range(cfg.encoder.num_layers):
+            p = _layer(enc, i)
+            hn = L.apply_norm(cfg, x, p["norm1"])
+            q, k, v = L.attn_qkv(cfg, p["attn"], hn, positions)
+            ctx = ops.flash_attention(q, k, v, causal=False, force=force)
+            x = x + L.attn_out(p["attn"], ctx.to(x.dtype))
+            x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
+        return L.apply_norm(cfg, x, params["enc_final_norm"])
+
+    def _cross_kv(self, params, enc_out):
+        """Every decoder layer's cross-attention K and V of the encoder
+        states: two (L, B, F, Hkv, D) tensors."""
+        cp = params["cross"]["attn"]
+        ks = [L._proj_heads(enc_out, cp["wk"][i]) for i in range(self.cfg.num_layers)]
+        vs = [L._proj_heads(enc_out, cp["wv"][i]) for i in range(self.cfg.num_layers)]
+        return torch.stack(ks), torch.stack(vs)
+
+    # ----------------------------------------------------------- serving --
+    def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
+                   device=None, *, enc_frames: Optional[int] = None) -> Dict[str, Any]:
+        """The decoder's self-attention cache, as :class:`TransformerLM`'s,
+        and the cross-attention K/V of ``enc_frames`` frames (the encoder's
+        ``max_source_positions`` by default) a row, padded to a whole number
+        of K2's pages: ``cross_k``/``cross_v`` (L, B, F_pad, Hkv, D), zeros."""
+        if cache_size % PAGE_SIZE:
+            raise ValueError(f"cache_size {cache_size} must be a multiple of "
+                             f"the page size {PAGE_SIZE}")
+        device = resolve_device(device)
+        cfg = self.cfg
+        F = enc_frames or cfg.encoder.max_source_positions
+        F_pad = -(-F // PAGE_SIZE) * PAGE_SIZE
+        xk = torch.zeros((cfg.num_layers, batch, F_pad, cfg.num_kv_heads, cfg.head_dim),
+                         dtype=dtype, device=device)
+        return {"layers": block_cache(cfg, "attn", batch, cache_size, dtype, device,
+                                      lead=(cfg.num_layers,)),
+                "cross_k": xk, "cross_v": torch.zeros_like(xk), "cross_frames": F,
+                "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def _decoder(self, params, tokens, positions, cache, step: CacheStep, force):
+        cfg = self.cfg
+        pos = torch.clamp(positions, 0, cfg.max_seq_len - 1)
+        x = params["embed"][tokens] + params["pos_embed"][pos]
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i],
+                  "frames": cache["cross_frames"]}
+            x = run_block(cfg, "attn", _layer(params["decoder"], i), x, positions,
+                          _layer(cache["layers"], i), step=step, force=force,
+                          cross=(_layer(params["cross"], i), kv))
+        x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
+        return (x @ params["embed"].T)[:, 0, :]
+
+    def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
+        """The encoder over ``inputs["frontend_embeds"]`` (B, F, d) where
+        given, its cross K/V written into every row of the cache, then the
+        decoder over the T tokens at cache_len + arange(T) (in place);
+        returns (last-position logits (B, V), the same cache)."""
+        extra = set(inputs) - {"tokens", "frontend_embeds"}
+        if extra:
+            raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
+                             "always follow the cache length")
+        tokens = inputs["tokens"]
+        B, T = tokens.shape
+        if "frontend_embeds" in inputs:
+            fe = inputs["frontend_embeds"]
+            if fe.shape[1] != cache["cross_frames"]:
+                raise ValueError(f"{fe.shape[1]} frames for a cache of "
+                                 f"{cache['cross_frames']}")
+            ck, cv = self._cross_kv(params, self.encode(params, fe.to(params["embed"].dtype),
+                                                        force=force))
+            F = fe.shape[1]
+            cache["cross_k"][:, :, :F] = ck.to(cache["cross_k"].dtype)
+            cache["cross_v"][:, :, :F] = cv.to(cache["cross_v"].dtype)
+        if T == 1:
+            rows = torch.arange(B, device=tokens.device)
+            return self.decode_slots(params, cache, tokens, rows, force=force), cache
+        start = _prefill_start(cache, cache["layers"]["k"], T)
+        positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
+        logits = self._decoder(params, tokens, positions, cache, CacheStep(start=start), force)
+        cache["cache_len"] += T
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens, *, force: Optional[str] = None):
+        """tokens: (B, 1) -> (logits (B, V), the same cache, updated)."""
+        return self.prefill(params, {"tokens": tokens}, cache, force=force)
+
+    def decode_slots(self, params, cache, tokens, slots, *,
+                     force: Optional[str] = None):
+        """As :meth:`TransformerLM.decode_slots`; the cross-attention reads
+        the listed rows' cross K/V through K2, F keys each."""
+        rows = torch.as_tensor(slots, device=tokens.device).long()
+        positions = cache["cache_len"][rows].long()[:, None]
+        kv, xk = cache["layers"]["k"], cache["cross_k"]
+        n = rows.shape[0]
+        step = CacheStep(
+            rows=rows,
+            block_tables=_page_tables(rows, kv.shape[-3], kv.shape[-4], tokens.device),
+            context_lens=(positions[:, 0] + 1).int(),
+            cross_tables=_page_tables(rows, xk.shape[-3], xk.shape[-4], tokens.device),
+            cross_lens=torch.full((n,), cache["cross_frames"], dtype=torch.int32,
+                                  device=tokens.device))
+        logits = self._decoder(params, tokens, positions, cache, step, force)
+        cache["cache_len"][rows] += 1
+        return logits
+
+
+def build_model(cfg: ModelConfig):
     if cfg.is_enc_dec:
-        raise _unported("encoder")
+        return EncDecLM(cfg)
     return TransformerLM(cfg)

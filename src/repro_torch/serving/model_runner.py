@@ -16,7 +16,8 @@ the reference's (``tests/test_torch_package.py`` holds them to it), so a
 real step's ``BatchSpec`` equals the emulator's for the same batch.
 
 The real runner does not copy four faults of the reference runner
-(``repro.serving.model_runner.RealModelRunner``):
+(``repro.serving.model_runner.RealModelRunner``), and serves two paths that
+the reference's raises on or gets wrong:
 
 * F1 — a padded final prefill chunk returned the logits of a pad token.
   Here every prefill chunk runs at its exact length: eager PyTorch has no
@@ -28,8 +29,18 @@ The real runner does not copy four faults of the reference runner
   the slots that decode this step are read and written
   (``TransformerLM.decode_slots``).
 * F4 — a prefix-cache hit prefilled from ``cached_prefix_len`` into an empty
-  slot.  Here that raises ``NotImplementedError``: loading the cached
-  prefix's KV into the slot is ROADMAP Queue A item F4.
+  slot.  Here the runner keeps the KV of the blocks the prefix cache holds
+  (:meth:`RealModelRunner.attach_prefix_cache`) and copies a hit's blocks
+  into the new slot before its prefill goes on.  A model with recurrent
+  layers (SSD, RG-LRU) still raises on a hit: the prefix cache holds no
+  state (ROADMAP Queue A item F4).
+* P — a resumed preemption re-prefills only its prompt
+  (``Request.reset_for_recompute`` keeps the generated tokens), and the
+  engine then appends one more output token.  Here the final prompt chunk
+  carries the generated tokens after it, so the slot holds the prompt and
+  every generated token again and the token returned is the one an
+  unpreempted run would have produced next.  ``batch_spec_of`` (a copy of the
+  reference's) does not count those tokens.
 """
 
 from __future__ import annotations
@@ -179,12 +190,21 @@ class RealModelRunner:
     """Executes the PyTorch model — ground truth for fidelity runs.
 
     A shared slot cache holds ``max_seqs`` rows of ``max_len`` positions (a
-    multiple of the model's page size), or of recurrent state for an SSM, and
-    is updated in place.  A step runs each prefill chunk on its own slot
-    (batch 1, exact length: flash attention, or the SSD scan from the slot's
-    carried state), then one decode over the slots that decode (paged
-    attention, or the SSD step), then waits for the device; that wall time is
-    the step's real duration.
+    multiple of the model's page size), of recurrent state, or both (a mixed
+    stack), and an enc-dec model's cross K/V; it is updated in place.  A
+    step runs each prefill chunk on its own slot (batch 1, exact length:
+    flash attention, or the recurrence from the slot's carried state), then
+    one decode over the slots that decode (paged attention, or the recurrent
+    step), then waits for the device; that wall time is the step's real
+    duration.
+
+    With prefix caching on, :meth:`attach_prefix_cache` gives the runner the
+    engine's block manager and a KV store of ``num_blocks`` blocks a layer,
+    indexed by the engine's block ids.  When a request's prompt is complete,
+    the KV of its full prompt blocks goes from its slot to the store at its
+    table's ids, the blocks the prefix cache then inserts (and pins, so that
+    no other request takes them before they are evicted); a hit copies its
+    blocks' KV from the store into the new slot.
     """
 
     def __init__(self, model, params, *, max_seqs: int, max_len: int,
@@ -200,6 +220,25 @@ class RealModelRunner:
         self._free_slots = list(range(max_seqs))[::-1]
         self._slot_len = [0] * max_seqs          # tokens in each slot, host copy
         self.samples: List[tuple] = []       # (BatchSpec, seconds) for fitting
+        self.block_manager = None            # the engine's, with prefix caching on
+        self._store: Optional[Dict[str, torch.Tensor]] = None   # prefix blocks' KV
+        # set to {} to keep the logits (on the device) that each produced
+        # token was picked from, by request id, in order: two runs of the
+        # same requests can then be held against each other where they part
+        self.logits: Optional[Dict[int, List[torch.Tensor]]] = None
+
+    def attach_prefix_cache(self, block_manager) -> None:
+        """Serve prefix-cache hits: keep the KV of the engine's blocks, K and
+        V of (L, num_blocks, block_size, Hkv, D) in the cache's type (2 GiB
+        for llama3_8b at 1024 blocks of 16 positions).  A model with
+        recurrent layers gets no store, and a hit raises."""
+        self.block_manager = block_manager
+        if self.model.recurrent:
+            return
+        k = self.cache["layers"]["k"]
+        shape = (k.shape[0], block_manager.num_blocks, block_manager.block_size) + k.shape[3:]
+        self._store = {"k": torch.empty(shape, dtype=k.dtype, device=self.device),
+                       "v": torch.empty(shape, dtype=k.dtype, device=self.device)}
 
     # ------------------------------------------------------------ warmup --
     def warmup(self, prefill_tokens: int) -> None:
@@ -222,21 +261,74 @@ class RealModelRunner:
     def _slot_view(self, slot: int):
         """Batch-1 view of one slot of the shared cache (writes go through)."""
         layers = self.cache["layers"]
-        return {"layers": {k: v[:, slot:slot + 1] for k, v in layers.items()},
-                "cache_len": self.cache["cache_len"][slot:slot + 1]}
+        if isinstance(layers, list):
+            view = [{k: v[slot:slot + 1] for k, v in leaves.items()} for leaves in layers]
+        else:
+            view = {k: v[:, slot:slot + 1] for k, v in layers.items()}
+        out = dict(self.cache, layers=view, cache_len=self.cache["cache_len"][slot:slot + 1])
+        for key in ("cross_k", "cross_v"):
+            if key in out:
+                out[key] = out[key][:, slot:slot + 1]
+        return out
 
     def _reset_slot(self, slot: int) -> None:
         """Empty a slot for a new request.  Attention KV is masked by its
-        position tags; an SSM slot's state and conv state are the context
-        itself, so they are zeroed, or the request would inherit them."""
+        position tags; a recurrent slot's state and conv state are the
+        context itself, and an enc-dec slot's cross K/V the audio, so they
+        are zeroed, or the request would inherit them."""
         layers = self.cache["layers"]
-        if "kv_pos" in layers:
-            layers["kv_pos"][:, slot] = -1
-        else:
-            layers["state"][:, slot] = 0
-            layers["conv"][:, slot] = 0
+        mixed = isinstance(layers, list)           # per-layer (B, ...) leaves
+        row = slot if mixed else (slice(None), slot)
+        for leaves in layers if mixed else [layers]:
+            if "kv_pos" in leaves:
+                leaves["kv_pos"][row] = -1
+            else:
+                leaves["state"][row] = 0
+                leaves["conv"][row] = 0
+        for key in ("cross_k", "cross_v"):
+            if key in self.cache:
+                self.cache[key][:, slot] = 0
         self.cache["cache_len"][slot] = 0
         self._slot_len[slot] = 0
+
+    # ------------------------------------------------------- prefix cache --
+    def _load_prefix(self, req, slot: int, start: int) -> None:
+        """A prefix-cache hit: the KV of the request's first ``start //
+        block_size`` blocks, from the store into positions 0 .. start − 1 of
+        its (empty) slot."""
+        if self._store is None:
+            why = ("the model has recurrent layers, whose state the prefix cache "
+                   "does not hold" if self.model.recurrent else
+                   "the runner holds no prefix KV (attach_prefix_cache was not called)")
+            raise NotImplementedError(
+                f"request {req.request_id}: a prefix-cache hit of {start} tokens, but "
+                f"{why} (ROADMAP Queue A item F4)")
+        bs = self.block_manager.block_size
+        ids = self.block_manager.block_tables[req.request_id][:start // bs]
+        ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
+        layers = self.cache["layers"]
+        for key in ("k", "v"):
+            blocks = self._store[key][:, ids_t]                  # (L, n, bs, Hkv, D)
+            layers[key][:, slot, :start] = blocks.flatten(1, 2)
+        layers["kv_pos"][:, slot, :start] = torch.arange(start, dtype=torch.int32,
+                                                         device=self.device)
+        self.cache["cache_len"][slot] = start
+        self._slot_len[slot] = start
+
+    def _save_prefix(self, req, slot: int) -> None:
+        """The KV of a completed prompt's full blocks, from its slot into the
+        store at its block table's ids; blocks that came from a hit are
+        there already."""
+        bs = self.block_manager.block_size
+        first, n_full = req.cached_prefix_len // bs, req.prompt_len // bs
+        if n_full <= first:
+            return
+        ids = self.block_manager.block_tables[req.request_id][first:n_full]
+        ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
+        layers = self.cache["layers"]
+        for key in ("k", "v"):
+            rows = layers[key][:, slot, first * bs:n_full * bs]
+            self._store[key][:, ids_t] = rows.unflatten(1, (n_full - first, bs))
 
     # ------------------------------------------------------------ running --
     def execute(self, out: SchedulerOutput) -> Dict[int, int]:
@@ -252,26 +344,32 @@ class RealModelRunner:
             start = req.num_prefilled
             slot = self._slot_of.get(req.request_id)
             if slot is None:
-                if start > 0:
+                if req.kv_migrated:
                     raise NotImplementedError(
-                        f"request {req.request_id} starts prefill at position "
-                        f"{start} (a prefix-cache hit) in an empty slot; the "
-                        "cached prefix's KV is not loaded yet (ROADMAP Queue A "
-                        "item F4, real prefix-KV sharing)")
+                        f"request {req.request_id} arrives with migrated KV, which "
+                        "the real runner does not take")
                 slot = self._free_slots.pop()
                 self._slot_of[req.request_id] = slot
                 self._reset_slot(slot)
+                if start > 0:
+                    self._load_prefix(req, slot, start)          # F4
             if start != self._slot_len[slot]:
                 raise RuntimeError(
                     f"request {req.request_id}: prefill from {start} but its slot "
                     f"holds {self._slot_len[slot]} tokens")
             chunk = list(req.prompt_tokens[start:start + s.num_new_tokens])
+            final = start + len(chunk) >= req.prompt_len
+            if final:
+                chunk += req.output_tokens        # a resumed preemption replays them (P)
             toks = torch.tensor([chunk], dtype=torch.long, device=self.device)
             logits, _ = self.model.prefill(self.params, {"tokens": toks},
                                            self._slot_view(slot))
             self._slot_len[slot] = start + len(chunk)
-            if start + len(chunk) >= req.prompt_len:
+            if final:
                 picked[req.request_id] = torch.argmax(logits[0])
+                self._keep(req.request_id, logits[0])
+                if self._store is not None:
+                    self._save_prefix(req, slot)
 
         # ---- one decode over the decoding slots only (F2, F3) ----
         if decodes:
@@ -281,11 +379,9 @@ class RealModelRunner:
                 slot = self._slot_of[req.request_id]
                 p = req.num_prefilled + req.num_generated - 1
                 if p != self._slot_len[slot]:
-                    raise NotImplementedError(
+                    raise RuntimeError(
                         f"request {req.request_id} decodes at position {p} but its "
-                        f"slot holds {self._slot_len[slot]} tokens (a resumed "
-                        "preemption replays only the prompt; ROADMAP Queue A "
-                        "item P)")
+                        f"slot holds {self._slot_len[slot]} tokens")
                 if p >= self.max_len:
                     raise ValueError(f"request {req.request_id} outgrows max_len "
                                      f"{self.max_len}")
@@ -300,6 +396,7 @@ class RealModelRunner:
             for i, s in enumerate(decodes):
                 self._slot_len[slots[i]] += 1
                 picked[s.request.request_id] = torch.argmax(logits[i])
+                self._keep(s.request.request_id, logits[i])
 
         self._sync()
         dt = time.monotonic() - t0
@@ -307,6 +404,10 @@ class RealModelRunner:
         ids = list(picked)
         values = torch.stack([picked[i] for i in ids]).tolist() if ids else []
         return dict(zip(ids, values))
+
+    def _keep(self, request_id: int, row) -> None:
+        if self.logits is not None:
+            self.logits.setdefault(request_id, []).append(row)
 
     def release(self, request_id: int) -> None:
         slot = self._slot_of.pop(request_id, None)

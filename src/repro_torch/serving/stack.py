@@ -80,8 +80,10 @@ def build_stack(
     analytical model of ``engine_cfg.chip``.
 
     ``mode="real"``: the engine runs ``model`` with ``params`` on ``device``
-    (``cuda`` unless it says otherwise), its slot cache in ``dtype``.  The
-    runner is warmed up before the engine is returned."""
+    (``cuda`` unless it says otherwise), its slot cache in ``dtype``.  With
+    prefix caching on, the runner gets the engine's block manager and keeps
+    the KV of the cached blocks, ``num_blocks`` of them.  The runner is
+    warmed up before the engine is returned."""
     if mode == "emulate":
         tk = Timekeeper(clock=VirtualClock(wall),
                         jitter_cooldown=jitter_cooldown)
@@ -126,6 +128,8 @@ def build_stack(
             max_len=max_len, clock=clock, device=device, dtype=dtype)
         runner.warmup(engine_cfg.max_batched_tokens)
         engine = LLMEngine(engine_cfg, runner, clock, name=name)
+        if engine_cfg.enable_prefix_caching:
+            runner.attach_prefix_cache(engine.bm)
         return ServingStack(engine, clock, runner=runner)
 
     raise ValueError(f"unknown mode {mode!r}")

@@ -200,6 +200,65 @@ def test_moe_window_model_with_kernels_matches_plain(gen):
         assert float((got - exp).abs().max() / exp.abs().max()) < 5e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,kw", [
+    (1, 512, 3072, 10, 1, 256, {"window": 2048}),   # recurrentgemma_2b's local attention
+    (1, 300, 300, 10, 1, 256, {"window": 64}), (2, 77, 190, 10, 1, 256, {}),
+    (1, 1500, 1500, 8, 8, 64, {"causal": False}),   # whisper_base's encoder
+    (1, 64, 1500, 8, 8, 64, {"causal": False})])    # and its cross-attention
+def test_flash_kernel_at_head_dim_256_and_non_causal(gen, B, T, S, Hq, Hkv, D, kw, dtype):
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    out = ops.flash_attention(q, k, v, **kw)
+    exp = ops.flash_attention(q, k, v, force="plain", **kw)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,D,window", [(10, 256, 2048), (10, 256, None), (16, 256, 100),
+                                         (32, 128, None)])
+def test_paged_kernel_at_large_groups(gen, Hq, D, window, dtype):
+    """G * D of 2560 (recurrentgemma_2b) and 4096, the most the kernel takes,
+    which opt in to more than 48 KB of shared memory."""
+    B, page, pps = 3, 16, 192
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((B * pps, page, 1, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((B * pps, page, 1, D), generator=gen, device="cuda").to(dtype)
+    tables = torch.randperm(B * pps, generator=gen, device="cuda").to(torch.int32).view(B, pps)
+    ctx = torch.tensor([3072, 2049, 700], dtype=torch.int32, device="cuda")
+    out = ops.paged_attention(q, kp, vp, tables, ctx, window=window)
+    exp = ops.paged_attention(q, kp, vp, tables, ctx, window=window, force="plain")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_base"])
+def test_rglru_and_encdec_models_with_kernels_match_plain(gen, arch):
+    """Reduced recurrentgemma_2b (RG-LRU, local attention past its window of
+    64) and whisper_base (a prefill with frames: the encoder and the
+    cross-attention through K1 non-causal; decodes through K2 over the cross
+    cache) in fp32: logits with the kernels equal the plain attention's
+    within 2e-3."""
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg)
+    params = model.init(gen, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (1, 101), generator=gen, device="cuda")
+    frames = torch.randn((1, cfg.encoder.max_source_positions, cfg.d_model), generator=gen,
+                         device="cuda") if cfg.encoder else None
+    logits = {}
+    for force in (None, "plain"):
+        cache = model.init_cache(1, 128, torch.float32)
+        first = {"tokens": toks[:, :40]}
+        if frames is not None:
+            first["frontend_embeds"] = frames
+        a, cache = model.prefill(params, first, cache, force=force)
+        b, cache = model.prefill(params, {"tokens": toks[:, 40:100]}, cache, force=force)
+        c, cache = model.decode_step(params, cache, toks[:, 100:], force=force)
+        logits[force] = (a, b, c)
+    for got, exp in zip(logits[None], logits["plain"]):
+        torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)
+
+
 def test_model_with_kernels_matches_plain(gen):
     """Reduced llama3_8b in fp32: prefill, chunked prefill and decode logits
     with the kernels equal the plain attention's within 2e-3."""

@@ -207,6 +207,14 @@ def test_plan_covers_every_tile_once_heaviest_first(B, T, S, Hq, Hkv, block_rows
 @pytest.mark.parametrize("block_rows,block_keys", TILES)
 @pytest.mark.parametrize("D", flash_mod.HEAD_DIMS)
 def test_plan_fits_shared_memory(D, block_rows, block_keys):
+    """Every tile the kernel builds fits a block's shared memory; the one
+    that would not (64 x 128 at D = 256) is refused, not launched."""
+    if flash_mod.smem_bytes(D, block_rows, block_keys) > flash_mod.SMEM_LIMIT:
+        assert (D, block_rows, block_keys) == (256, 64, 128)
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_mod.plan(1, 512, 1024, 32, 8, D, block_rows=block_rows,
+                           block_keys=block_keys)
+        return
     p = flash_mod.plan(1, 512, 1024, 32, 8, D, block_rows=block_rows, block_keys=block_keys)
     assert p.smem_bytes == flash_mod.smem_bytes(D, block_rows, block_keys)
     assert p.smem_bytes <= flash_mod.SMEM_LIMIT

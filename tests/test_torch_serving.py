@@ -10,7 +10,8 @@ prompt, then ``decode_step`` per token.  The workload has prompt lengths
 that are not multiples of 32 (F1), several output tokens per request (F2), a
 step in which one request's prefill runs beside others' decodes (F3, vllm
 policy), and a request with ``max_new_tokens=1`` whose slot must come back.
-A prefix-cache hit must raise (F4).
+A prefix-cache hit on an SSM must raise (F4); hits on attention models are
+served (``tests/test_torch_prefix_serving.py``).
 """
 
 import jax
@@ -100,17 +101,22 @@ def test_real_engine_matches_greedy_jax(setup, policy):
     assert len(stack.runner.samples) == len(stack.engine.step_log)
 
 
-def test_prefix_hit_raises(setup):
-    model, params, prompts, _ = setup
-    stack = build_stack(get_reduced_config(ARCH), _engine_cfg("vllm", True), "real",
-                        model=model, params=params, max_len=MAX_LEN,
-                        device="cpu", dtype=torch.float32)
+def test_prefix_hit_raises():
+    """A prefix-cache hit is served for an attention model
+    (``tests/test_torch_prefix_serving.py``); for reduced ``mamba2_370m`` it
+    still raises, naming ROADMAP item F4: the prefix cache holds KV blocks,
+    not an SSM's state."""
+    cfg = get_reduced_config("mamba2_370m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    stack = build_stack(cfg, _engine_cfg("vllm", True), "real", model=model, params=params,
+                        max_len=MAX_LEN, device="cpu", dtype=torch.float32)
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, 24).tolist()
     engine = stack.engine
-    first = Request(prompt_tokens=prompts[0][:16], max_new_tokens=2)
+    first = Request(prompt_tokens=prompt[:16], max_new_tokens=2)
     engine.scheduler.add_request(first)
     while not first.finished:
         engine.step()
-    engine.scheduler.add_request(
-        Request(prompt_tokens=prompts[0][:16] + prompts[1][:8], max_new_tokens=2))
-    with pytest.raises(NotImplementedError, match="prefix"):
+    engine.scheduler.add_request(Request(prompt_tokens=prompt, max_new_tokens=2))
+    with pytest.raises(NotImplementedError, match="prefix.*ROADMAP Queue A item F4"):
         engine.step()
