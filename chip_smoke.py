@@ -37,15 +37,33 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    over 3072 keys, window 2048, bf16 and fp32) and whisper_base's
    non-causal shapes (T=S=1500 and T=64 over 1500 frames, 8 heads of 64),
    each with SDPA beside it and ptxas's registers and spills at D=256, and
-   K2 at recurrentgemma_2b's decode (contexts 2049-3072, window 2048);
+   K2 at recurrentgemma_2b's decode (contexts 2049-3072, window 2048).
+   For the deferred KV append it holds K1 with ``q_offset`` and
+   ``return_lse`` and K2 with ``return_lse`` against their plain versions,
+   output and log-sum-exp (-inf in the same rows): the cache segment
+   (``q_offset = S``) with windows that empty rows or every row, cached
+   lengths off the KV tile grid, the new chunk's segment, D = 256 with
+   G = 10, fp32 and bf16; K2 with the window less one over contexts that
+   include an empty one; and times K1's cache segment at llama3_8b's chunk
+   (T = 512 over 1024 cached keys) and K2 at its decode shape, each with
+   and without the lse, back to back and in a CUDA graph;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
+4b. compares ``kv_append="defer"`` with the inline append on the same
+   weights: the logits of two 512-token prefill chunks and of 4 decodes
+   (relative 5e-2) and the caches after the write; K1 must run twice a
+   layer on the second chunk and K2 once a layer a decode;
 5. serves 8 requests (prompts of 128-1024 tokens, 32 new tokens each)
    through ``build_stack(mode="real")``, with every kernel launch count set
    to 0 just before and read just after, and checks that every request got
    its 32 tokens and that both kernels ran; it logs the (B, T, S) of every
    K1 launch and checks that K1 ran in every layer of every prefill chunk;
+5b. serves the same requests with ``kv_append="defer"`` and, beside it, with
+   the inline append (each stepped in this thread, the logits kept),
+   checks that K1 and K2 ran on the defer path and that its tokens equal
+   the inline run's, or where they part that step's logits lie within 5e-2,
+   and prints both runs' wall and device times;
 6. serves the same requests again under ``torch.profiler`` and prints the
    device time by kernel and the device's busy and idle shares;
 6b. holds real execution of llama3_8b against time-warp emulation of the
@@ -101,6 +119,10 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    one KV head, window 2048) and compares the logits of a 3072-token
    prefill (three 1024-token chunks) and of a decode at position 3072 as
    in 13; times the RG-LRU recurrence at 512 and 2048 tokens and a decode;
+15b. compares ``kv_append="defer"`` with the inline append on it as in 4b,
+   over a 3072-token prefill in 1024-token chunks (past the window: K1's
+   cache segment with ``q_offset`` and the window at D = 256) and a decode
+   at 3072 (K2 with the window less one);
 16. serves 4 requests of 3072 prompt tokens and 32 new ones (slots of
    4096) and checks that K1 ran in every local-attention layer of every
    chunk and that K2 ran;
@@ -113,11 +135,16 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    encoder;
 19. serves 8 text requests (prompts of 16-256 tokens, no frames, as the
    reference's runner) and checks that K1 ran with and without the causal
-   mask and that K2 ran.
+   mask and that K2 ran;
+20. runs the distributed control plane on the host: ``repro_torch.scenario
+   .compare`` of the ``distributed_parity`` preset on the thread, process
+   (shared memory and TCP) and DES backends, which raises unless the
+   reference's parity bar holds; it must launch no kernel and leave the
+   allocated device memory as it was.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K2 and K3, their launches summed over the serving
-runs of 5, 6c, 6d, 8, 9b, 11, 14, 16 and 19), the card's name and power
+runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3 and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -152,7 +179,14 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SERVING = dict(num=8, prompt_min=128, prompt_max=1024, new_tokens=32, seed=0)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header (``== ...``) gets the seconds since the
+    script started."""
+    if msg.startswith("== "):
+        msg = f"{msg}  [{time.monotonic() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -177,6 +211,11 @@ def probe() -> str:
         log(f"triton {triton.__version__} imports")
     except ImportError as e:
         log(f"triton does not import ({e})")
+    try:
+        import msgpack
+        log(f"msgpack {'.'.join(map(str, msgpack.version))} imports")
+    except ImportError as e:
+        log(f"msgpack does not import ({e})")
     cutlass = Path("/usr/local/cutlass/include/cutlass/cutlass.h")
     log(f"CUTLASS headers under /usr/local/cutlass/include: {cutlass.exists()}")
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -378,6 +417,156 @@ def check_paged_windows(ops, gen):
             torch.cuda.synchronize()
             assert_close(f"K2 D=256 G=10 window {window} contexts {lens} {dt}", out,
                          ops.paged_attention(q, kp, vp, bt, cl, window=window, force="plain"), dt)
+
+
+def assert_lse_close(name, lse, exp, dtype_name):
+    """lse against the plain version's: -inf (a row that sees no key) in
+    the same places, the rest within the output's tolerance."""
+    empty = torch.isinf(exp)
+    if not torch.equal(torch.isinf(lse), empty) or (lse[empty] > 0).any():
+        raise AssertionError(f"{name}: the kernel's -inf rows differ from the plain version's")
+    if not torch.isfinite(lse[~empty]).all():
+        raise AssertionError(f"{name}: lse is not finite where a row sees a key")
+    if empty.all():
+        log(f"  {name:58s} every row sees no key: -inf in both  ok")
+        return 0.0
+    return assert_close(name, lse[~empty], exp[~empty], dtype_name)
+
+
+def check_lse_grid(ops, gen):
+    """K1 with ``q_offset`` and ``return_lse`` and K2 with ``return_lse``
+    against their plain versions (out and lse): the deferred KV append's
+    segments.  K1: the cache segment (``q_offset = S``, so only the window
+    masks) with windows that leave rows empty and cached lengths s0 off the
+    KV tile grid, the new chunk's segment (``q_offset = 0``), an offset in
+    between, D = 256 with G = 10, fp32 and bf16; the default offset with the
+    lse over part of the grid of :func:`check_flash_grid`.  K2: the decode's
+    cache segment, ``context_lens = pos`` and the window less one, an empty
+    context (lse = -inf, output 0).  Returns the number of cases."""
+    from repro_torch.kernels import ref
+    n = 0
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for B, T, s0, Hq, Hkv, D, window in [
+                (1, 64, 64, 4, 2, 64, None), (1, 100, 300, 8, 2, 64, None),
+                (2, 77, 129, 16, 2, 128, 48), (1, 130, 200, 32, 8, 128, 100),
+                (1, 96, 333, 10, 1, 256, 64), (2, 33, 1000, 10, 1, 256, 2048),
+                (1, 50, 70, 6, 1, 32, 1), (1, 200, 128, 16, 2, 128, 64)]:
+            cases.append(((B, T, s0, Hq, Hkv, D), dt, {"q_offset": s0, "window": window}))
+            cases.append(((B, T, T, Hq, Hkv, D), dt, {"q_offset": 0, "window": window}))
+        cases.append(((1, 40, 200, 8, 2, 64), dt, {"q_offset": 37, "window": 30}))
+        for shape in [(1, 128, 128, 4, 4, 64), (2, 128, 256, 8, 2, 64),
+                      (1, 100, 300, 10, 1, 256), (1, 333, 1000, 4, 1, 32)]:
+            cases.append((shape, dt, {}))
+        cases.append(((1, 70, 70, 16, 2, 128), dt, {"causal": False}))
+    for shape, dt, kw in cases:
+        q, k, v = qkv(gen, *shape, getattr(torch, dt))
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        exp, exp_lse = ops.flash_attention(q, k, v, return_lse=True, force="plain", **kw)
+        torch.cuda.synchronize()
+        assert_close(f"K1 {shape} {dt} {kw} out", out, exp, dt)
+        assert_lse_close(f"K1 {shape} {dt} {kw} lse", lse, exp_lse, dt)
+        if not torch.equal(out, ops.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"K1 {shape} {dt} {kw}: the output moved with return_lse")
+        n += 1
+    part = 64
+    B, page, pps = 6, 16, 24
+    lens = [0, 1, part - 1, part + 1, 2 * part + 5, pps * page]
+    for dt in ("float32", "bfloat16"):
+        for Hq, Hkv, D in ((8, 2, 64), (32, 8, 128), (10, 1, 256)):
+            q, kp, vp, _, _ = paged_inputs(gen, B, Hq, Hkv, D, page, pps, getattr(torch, dt))
+            bt = torch.randperm(kp.shape[0], generator=gen, device="cuda")[:B * pps]
+            bt = bt.to(torch.int32).view(B, pps).contiguous()
+            cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            for window in (None, 2, page, 2 * part + 1):
+                w = None if window is None else window - 1
+                out, lse = ops.paged_attention(q, kp, vp, bt, cl, window=w, return_lse=True)
+                exp, exp_lse = ops.paged_attention(q, kp, vp, bt, cl, window=w,
+                                                   return_lse=True, force="plain")
+                split, split_lse = ref.paged_attention_split(q, kp, vp, bt, cl, window=w,
+                                                             return_lse=True)
+                torch.cuda.synchronize()
+                name = f"K2 G*D={Hq // Hkv * D} D={D} window {window} - 1 contexts {lens} {dt}"
+                if out[0].abs().max() != 0 or not torch.isinf(lse[0]).all():
+                    raise AssertionError(f"{name}: an empty context must give 0 and -inf")
+                assert_close(f"{name} out", out[1:], exp[1:], dt)
+                assert_close(f"{name} out vs plain split", out, split, dt)
+                assert_lse_close(f"{name} lse", lse, exp_lse, dt)
+                assert_lse_close(f"{name} lse vs plain split", lse, split_lse, dt)
+                if not torch.equal(out, ops.paged_attention(q, kp, vp, bt, cl, window=w)):
+                    raise AssertionError(f"{name}: the output moved with return_lse")
+                n += 1
+    log(f"  {n} cases of K1 and K2 with their log-sum-exp: ok")
+    return n
+
+
+def measure_defer_segments(ops):
+    """The deferred append's kernel calls at llama3_8b's widths, bf16.  K1's
+    cache segment of a 512-token chunk over 1024 cached keys (``q_offset =
+    1024``, no mask: every query sees every cached key) with and without the
+    lse, its plain version, and SDPA without a mask beside it; K2 at
+    :func:`measure_paged`'s decode shape with and without the lse.  Back to
+    back (``ms``) and in a CUDA graph (``graph_ms``)."""
+    B, T, S, Hq, Hkv, D = 1, 512, 1024, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = qkv(gen, B, T, S, Hq, Hkv, D, torch.bfloat16)
+    seg = lambda **kw: ops.flash_attention(q, k, v, q_offset=S, **kw)    # noqa: E731
+    out, lse = seg(return_lse=True)
+    exp, exp_lse = seg(return_lse=True, force="plain")
+    torch.cuda.synchronize()
+    err = assert_close(f"K1 cache segment {(B, T, S, Hq, Hkv, D)} q_offset={S} bfloat16", out,
+                       exp, "bfloat16")
+    lse_err = assert_lse_close("K1 cache segment lse", lse, exp_lse, "bfloat16")
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+    flops = 4 * D * Hq * B * T * S
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    k1 = {"shape": [B, T, S, Hq, Hkv, D], "q_offset": S, "max_abs_err": err,
+          "lse_max_abs_err": lse_err,
+          "ms": time_ms(lambda: seg(return_lse=True)),
+          "graph_ms": graph_ms(lambda: seg(return_lse=True)),
+          "no_lse_ms": time_ms(lambda: seg()), "no_lse_graph_ms": graph_ms(lambda: seg()),
+          "plain_ms": time_ms(lambda: seg(return_lse=True, force="plain")),
+          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+          "library_graph_ms": graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+          "bound_ms": b_ms, "bound_by": b_by}
+    log(f"K1 cache segment: with lse {k1['ms']:.4f} ms ({k1['graph_ms']:.4f} in a graph), "
+        f"without {k1['no_lse_ms']:.4f} ms ({k1['no_lse_graph_ms']:.4f}), plain "
+        f"{k1['plain_ms']:.4f} ms, SDPA without a mask {k1['library_ms']:.4f} ms "
+        f"({k1['library_graph_ms']:.4f}), bound {b_ms:.5f} ms by {b_by}")
+    Bp, page, pps = 8, 16, 128
+    qd = torch.randn((Bp, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn((Bp * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn((Bp * pps, page, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt = torch.randperm(Bp * pps, generator=gen, device="cuda").to(torch.int32).view(Bp, pps)
+    bt = bt.contiguous()
+    cl = torch.tensor([1055, 128, 999, 511, 776, 0, 299, 1023], dtype=torch.int32,
+                      device="cuda")
+    dec = lambda **kw: ops.paged_attention(qd, kp, vp, bt, cl, **kw)    # noqa: E731
+    out, lse = dec(return_lse=True)
+    exp, exp_lse = dec(return_lse=True, force="plain")
+    torch.cuda.synchronize()
+    nz = cl > 0
+    ctx = int(cl.sum())
+    nbytes = (2 * (qd.numel() + out.numel()) + 2 * 2 * ctx * Hkv * D + 4 * (bt.numel() + Bp)
+              + 4 * lse.numel())
+    d_ms, d_by = bound(4 * Hq * D * ctx, nbytes, PEAK_BF16_FLOPS)
+    k2 = {"shape": [Bp, Hq, Hkv, D, page, pps], "contexts": cl.tolist(),
+          "max_abs_err": assert_close("K2 decode cache segment out", out[nz], exp[nz],
+                                      "bfloat16"),
+          "lse_max_abs_err": assert_lse_close("K2 decode cache segment lse", lse, exp_lse,
+                                              "bfloat16"),
+          "ms": time_ms(lambda: dec(return_lse=True)),
+          "graph_ms": graph_ms(lambda: dec(return_lse=True)),
+          "no_lse_ms": time_ms(lambda: dec()), "no_lse_graph_ms": graph_ms(lambda: dec()),
+          "plain_ms": time_ms(lambda: dec(return_lse=True, force="plain")),
+          "bound_ms": d_ms, "bound_by": d_by}
+    log(f"K2 decode cache segment: with lse {k2['ms']:.4f} ms ({k2['graph_ms']:.4f} in a "
+        f"graph), without {k2['no_lse_ms']:.4f} ms ({k2['no_lse_graph_ms']:.4f}), plain "
+        f"{k2['plain_ms']:.4f} ms, bound {d_ms:.5f} ms by {d_by}")
+    return k1, k2
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -1013,6 +1202,9 @@ def main() -> int:
     kernels[1]["windowed"] = measure_paged_window(ops)
     kernels[0]["shapes"] = measure_flash_new_shapes(ops)
     kernels[1]["d256"] = measure_paged_d256(ops)
+    log("== 3 (deferred append). K1 with q_offset and its lse, K2 with its lse")
+    check_lse_grid(ops, torch.Generator(device="cuda").manual_seed(20))
+    kernels[0]["cache_segment"], kernels[1]["lse"] = measure_defer_segments(ops)
     if "--kernels-only" in sys.argv[1:]:
         log(f"--kernels-only: stopping after phase 3, {time.monotonic() - t_start:.1f} s")
         return 0
@@ -1021,8 +1213,13 @@ def main() -> int:
     log("== 4. llama3_8b, full width and depth, bf16, random weights (seed 0)")
     cfg, model, params = build_full("llama3_8b")
     check_model(model, params, cfg.vocab_size)
+    log("== 4b. llama3_8b with kv_append='defer' against the inline append")
+    deferred = check_defer_model(cfg, model, params, name="llama3_8b", prompt=1024, chunk=512,
+                                 cache=2048, decodes=4, seed=22)
     log("== 5. serving llama3_8b through build_stack(mode='real')")
     launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention")))
+    log("== 5b. serving llama3_8b with kv_append='defer', beside the inline append")
+    launches.update(serve_deferred(cfg, model, params, deferred))
     log("== 6. where the device time goes: the same serving run under torch.profiler")
     serve_path(ops, cfg, model, params, (), profile=True)
     log("== 6b. llama3_8b real against time-warp emulation of the same engine")
@@ -1071,6 +1268,9 @@ def main() -> int:
     check_window_model(cfg, model, params, name="recurrentgemma", prompt=3072, chunk=1024,
                        cache=4096, seed=13)
     time_rglru(cfg, params)
+    log("== 15b. recurrentgemma_2b with kv_append='defer' against the inline append")
+    check_defer_model(cfg, model, params, name="recurrentgemma_2b", prompt=3072, chunk=1024,
+                      cache=4096, decodes=1, seed=23)
     log("== 16. serving recurrentgemma_2b: 4 prompts of 3072 tokens, past its window")
     long_cfg = engine_config(max_num_seqs=4, max_len=4096)
     launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention"),
@@ -1093,6 +1293,10 @@ def main() -> int:
                                max_len=512, noncausal=True))
     del model, params
     torch.cuda.empty_cache()
+
+    log("== 20. the distributed control plane: compare distributed_parity on the thread, "
+        "process and DES backends")
+    control_plane()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1363,6 +1567,164 @@ def compare_runs(what, got, got_logits, ref, ref_logits, vocab):
         parted.append(i)
     log(f"{what}: {len(got) - len(parted)} of {len(got)} requests give the same tokens; "
         f"{len(parted)} part, within 5e-2 where they do")
+
+
+def check_defer_model(cfg, model, params, *, name, prompt, chunk, cache, decodes, seed):
+    """Phases 4b and 15b: ``kv_append="defer"`` against the inline append on
+    the same weights: the logits of a ``prompt``-token prefill in chunks of
+    ``chunk`` (every chunk's) and of ``decodes`` decodes after it, relative
+    5e-2 as :func:`check_model`, and the caches after the last write.  On the
+    defer path K1 runs twice a layer for every chunk after the first (the
+    cached keys with ``q_offset``, then the chunk's own) and K2 once a layer
+    a decode (the cached keys; the new token's own is merged on the host
+    side of the kernels); the counts are set to 0 just before that run and
+    read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import build_model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt + decodes), generator=gen, device="cuda")
+    deferred = build_model(cfg.replace(kv_append="defer"))
+
+    def run(m):
+        c = m.init_cache(1, cache, torch.bfloat16, "cuda")
+        out = []
+        for a in range(0, prompt, chunk):
+            logits, c = m.prefill(params, {"tokens": toks[:, a:a + chunk]}, c)
+            out.append(logits.float())
+        for t in range(prompt, prompt + decodes):
+            logits, c = m.decode_step(params, c, toks[:, t:t + 1])
+            out.append(logits.float())
+        return out, c
+
+    with recording() as rec:
+        ops.reset_launch_counts()
+        got, got_cache = run(deferred)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    exp, exp_cache = run(model)
+    torch.cuda.synchronize()
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    chunks = -(-prompt // chunk)
+    log(f"{name} defer: K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; "
+        f"{counts['flash_attention'] / n_attn:.0f} a layer over {chunks} chunks, "
+        f"K2 {counts['paged_attention'] / n_attn:.0f} a layer over {decodes} decodes")
+    want = {"flash_attention": n_attn * (2 * chunks - 1),
+            "paged_attention": n_attn * decodes if cfg.sliding_window != 1 else 0}
+    for kernel, n in want.items():
+        if counts[kernel] != n:
+            raise AssertionError(f"{name} defer: {kernel} launched {counts[kernel]} times, "
+                                 f"not {n}")
+    steps = [f"prefill chunk {i} ({min(chunk, prompt - i * chunk)} tokens at {i * chunk})"
+             for i in range(chunks)] + [f"decode at {t}" for t in range(prompt, prompt + decodes)]
+    for what, a, b in zip(steps, got, exp):
+        if tuple(a.shape) != (1, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"{name} defer {what}: logits not finite or of the wrong shape")
+        rel = float((a - b).abs().max() / b.abs().max())
+        log(f"{name} {what}: max relative error defer vs inline {rel:.3e} "
+            f"(argmax {int(a.argmax())} vs {int(b.argmax())})")
+        if rel > 5e-2:
+            raise AssertionError(f"{name} defer {what}: defer and inline differ by {rel}")
+    worst = 0.0
+    for a, b in zip(_leaves(got_cache), _leaves(exp_cache)):
+        if a.dtype.is_floating_point:
+            worst = max(worst, float((a.float() - b.float()).abs().max() / b.float().abs().max()))
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{name} defer: positions or lengths differ after the write")
+    log(f"{name} defer: caches after the deferred write within {worst:.3e} relative of "
+        "the inline caches; positions and lengths equal")
+    if worst > 5e-2:
+        raise AssertionError(f"{name} defer: the caches differ by {worst}")
+    return deferred
+
+
+def device_ms(serve) -> float:
+    """Device time of every kernel over one ``serve()`` call (torch.profiler,
+    the device only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def serve_deferred(cfg, model, params, deferred):
+    """Phase 5b: phase 5's traffic (8 requests, 32 new tokens each) through
+    ``build_stack(mode="real")`` with ``kv_append="defer"`` and, beside it on
+    the same weights, with the inline append of phase 5, each run stepped in
+    this thread with its tokens' logits kept.  K1 and K2 must have run on the
+    defer path (counts set to 0 just before and read just after), in every
+    attention layer of every chunk; the tokens must equal the inline run's
+    or, where they part, lie within 5e-2 there (:func:`compare_runs`).  Wall
+    times come from those runs, device times from a second run of each under
+    torch.profiler.  Returns the defer run's K1 and K2 launches."""
+    from repro_torch.launch.serve import engine_config, make_requests
+
+    def reqs():
+        return make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
+                             SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
+
+    runs = {}
+    for mode, c, m in (("defer", cfg.replace(kv_append="defer"), deferred),
+                       ("inline", cfg, model)):
+        rs = reqs()
+        with recording() as rec:
+            stack, counts, wall = serve_runs(c, m, params, engine_config(), [rs])
+        dev = device_ms(lambda: serve_runs(c, m, params, engine_config(), [reqs()]))
+        runs[mode] = (rs, stack, counts, wall, dev, rec)
+        log(f"serving with kv_append={mode!r}: wall {wall:.3f} s, device {dev:.1f} ms "
+            f"({len(stack.engine.step_log)} steps); launches {counts}")
+    rs, stack, counts, wall, dev, rec = runs["defer"]
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    log(f"defer: K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+    if any(n % n_attn for n in rec.flash.values()):
+        raise AssertionError(f"defer: K1 did not run in every layer: {dict(rec.flash)}")
+    for name in ("flash_attention", "paged_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the defer serving path")
+    compare_runs("defer against inline", rs, stack.runner.logits, runs["inline"][0],
+                 runs["inline"][1].runner.logits, cfg.vocab_size)
+    log(f"defer against inline: wall {wall:.3f} s against {runs['inline'][3]:.3f} s, device "
+        f"{dev:.1f} ms against {runs['inline'][4]:.1f} ms")
+    return {name: counts[name] for name in ("flash_attention", "paged_attention")}
+
+
+def control_plane():
+    """Phase 20: the distributed control plane on the card's host, no card:
+    ``repro_torch.scenario.compare`` of the ``distributed_parity`` preset on
+    the thread, process (shared memory and TCP) and DES backends, which
+    raises ``ParityError`` unless the reference's parity bar holds.  It must
+    launch no kernel and leave the allocated device memory as it was.
+
+    The process backend spawns its replicas, and a spawned process runs the
+    parent's main module again unless it has no file: this script, which
+    imports torch.  So the script's ``__file__`` is hidden from
+    ``multiprocessing`` while the replicas start, and they import only
+    ``repro_torch``'s control plane, as under ``python -m
+    repro_torch.scenario``."""
+    from repro_torch.kernels import ops
+    from repro_torch.scenario import compare, get_preset
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    main = sys.modules["__main__"]
+    main_file = main.__dict__.pop("__file__", None)
+    t0 = time.monotonic()
+    try:
+        res = compare(get_preset("distributed_parity"),
+                      backends=("thread", "process-shm", "process-tcp", "des"), timeout=300)
+    finally:
+        if main_file is not None:
+            main.__file__ = main_file
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    for backend, r in res.results.items():
+        log(f"distributed_parity on {backend}: {r.num_requests} requests, virtual makespan "
+            f"{r.makespan_virtual} s, wall {r.wall_seconds} s")
+    log(f"compare passed in {wall:.2f} s: max TTFT error {res.max_ttft_err_s} s, TPOT "
+        f"{res.max_tpot_err_s} s against a slow step of {res.slow_step_s} s; launches {counts}")
+    if any(counts.values()) or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"the control plane touched the card: launches {counts}, "
+                             f"allocated {before} -> {torch.cuda.memory_allocated()} bytes")
 
 
 def serve_prefix_hits(cfg, model, params):

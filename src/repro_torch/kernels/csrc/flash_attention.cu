@@ -1,8 +1,14 @@
 // Causal GQA flash attention for prefill and chunked prefill (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (_flash_kernel).  Queries are the last T of S keys (bottom-right causal
-// alignment, offset S - T); an optional window keeps q_pos - kv_pos < window.
+// (_flash_kernel).  Query t sits at key position q_offset + t; the Pallas
+// kernel's alignment, the queries being the last T of S keys, is q_offset =
+// S - T, the wrapper's default.  An optional window keeps q_pos - kv_pos <
+// window.  A caller that merges two segments of keys (the deferred KV append:
+// a cached prefix, then the new chunk) passes q_offset = S for the prefix,
+// where the causal mask is vacuous and only the window applies, and asks for
+// each row's log-sum-exp of its scaled scores, lse = m + log l, in fp32
+// (B, T, Hq); a row that sees no key gets lse = -inf and output 0.
 //
 // Layout: q (B, T, Hq, D), k/v (B, S, Hkv, D), o (B, T, Hq, D); the T/S, head
 // and D dimensions are dense, the batch dimension takes any stride (the model
@@ -49,7 +55,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int seq_q, int seq_k, int num_heads, int num_kv_heads,
                  long long q_sb, long long k_sb, long long v_sb, long long o_sb,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window, int offset, float* __restrict__ lse) {
   constexpr int LD = D + 4;                       // padded fp32 row
   constexpr int NS = kBlockK / kThreadsPerRow;    // scores per thread (16)
   constexpr int NC = D / (4 * kThreadsPerRow);    // float4 chunks of acc per thread
@@ -67,7 +73,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int lane = tid & 31;
   const int row = tid / kThreadsPerRow;
   const int part = tid % kThreadsPerRow;
-  const int offset = seq_k - seq_q;
 
   const long long q_rs = static_cast<long long>(num_heads) * D;
   const long long kv_rs = static_cast<long long>(num_kv_heads) * D;
@@ -180,6 +185,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       store4(orow + 4 * (part + kThreadsPerRow * c), acc[4 * c] * inv, acc[4 * c + 1] * inv,
              acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
     }
+    if (lse != nullptr && part == 0)
+      lse[(static_cast<long long>(b) * seq_q + q0 + row) * num_heads + h] =
+          l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
@@ -627,7 +635,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        int batch, int seq_q, int seq_k, int num_heads, int num_kv_heads,
                        int pack_log2, int q_tiles, long long o_sb, float scale_log2, int causal,
-                       int window) {
+                       int window, int offset, float* __restrict__ lse) {
   using C = Tile<D, BK, NWG>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -653,8 +661,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * positions;
   const int head0 = hk * group + (hg << pack_log2);
 
-  // the KV tiles it sees
-  const int offset = seq_k - seq_q;
+  // the KV tiles it sees: none when the window ends before the keys do (a
+  // segment of cached keys whose queries all lie past the window)
   const int q_lo = q0 + offset;
   const int q_hi = min(q0 + positions, seq_q) - 1 + offset;
   int k_begin = 0;
@@ -664,7 +672,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (window > 0) k_begin = max(0, q_lo - window + 1);
   }
   const int kt_begin = k_begin / BK;
-  const int n_tiles = (k_end + BK - 1) / BK - kt_begin;
+  const int n_tiles = k_begin < k_end ? (k_end + BK - 1) / BK - kt_begin : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -683,7 +691,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == NWG) {
     // ---- producer: one thread keeps the ring full ----
     if constexpr (NWG == 2) setmaxnreg_dec<24>();
-    if (threadIdx.x == 128 * NWG) {
+    if (threadIdx.x == 128 * NWG && n_tiles > 0) {
       mbar_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
       for (int sl = 0; sl < C::kSlabs; ++sl)
@@ -730,6 +738,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float s[BK / 2];
     uint32_t p[BK / 16][4];
 
+    if (n_tiles > 0) {
     mbar_wait(bar_q, 0);
     // the first tile: S, then its softmax (nothing to rescale yet)
     mbar_wait(&full_k[0], 0);
@@ -779,8 +788,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     pv_issue<D, BK, NWG>(acc, p, v_addr + last * C::kKVBytes);
     wgmma_wait<0>();
     reg_fence(acc);
+    }
 
-    // epilogue: normalise by l and write bf16 in the packed order
+    // epilogue: normalise by l and write bf16 in the packed order, and the
+    // log-sum-exp (m and l are in the log2 domain) unpacked to (b, t, head)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -795,6 +806,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
         }
+        if (lse != nullptr && t == 0)
+          lse[(static_cast<long long>(b) * seq_q + pos) * num_heads + head] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -INFINITY;
       }
     }
   }
@@ -807,8 +821,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <typename T, int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Tq,
                        int Sk, int Hq, int Hkv, long long q_sb, long long k_sb, long long v_sb,
-                       long long o_sb, float scale, int causal, int window,
-                       cudaStream_t stream) {
+                       long long o_sb, float scale, int causal, int window, int offset,
+                       float* lse, cudaStream_t stream) {
   dim3 grid((Tq + kBlockQ - 1) / kBlockQ, Hq, B);
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -816,7 +830,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window);
+      static_cast<T*>(o), Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
+      offset, lse);
   return cudaGetLastError();
 }
 
@@ -869,7 +884,8 @@ int encode_map(CUtensorMap* map, const void* base, int D, int heads, int n, int 
 template <int D, int BK, int NWG>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Tq, int Sk,
                 int Hq, int Hkv, long long q_sb, long long k_sb, long long v_sb, long long o_sb,
-                float scale, int causal, int window, int pack_log2, cudaStream_t stream) {
+                float scale, int causal, int window, int offset, float* lse, int pack_log2,
+                cudaStream_t stream) {
   using C = Tile<D, BK, NWG>;
   const int positions = C::kRows >> pack_log2;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -888,7 +904,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   flash_fwd_wgmma_kernel<D, BK, NWG><<<static_cast<unsigned>(blocks), C::kThreads,
                                        C::kSmemBytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Tq, Sk, Hq, Hkv, pack_log2, q_tiles,
-      o_sb, scale * 1.4426950408889634f, causal, window);  // exp(x) = exp2(x * log2 e)
+      o_sb, scale * 1.4426950408889634f, causal, window, offset,  // exp(x) = exp2(x log2 e)
+      lse);
   return cudaGetLastError();
 }
 
@@ -900,45 +917,52 @@ template <int D>
 int launch_bf16_tiles(int block_rows, int block_keys, const void* q, const void* k,
                       const void* v, void* o, int B, int Tq, int Sk, int Hq, int Hkv,
                       long long q_sb, long long k_sb, long long v_sb, long long o_sb, float scale,
-                      int causal, int window, int pack_log2, cudaStream_t stream) {
+                      int causal, int window, int offset, float* lse, int pack_log2,
+                      cudaStream_t stream) {
   if (block_rows == 64 && block_keys == 64)
     return launch_bf16<D, 64, 1>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale,
-                                 causal, window, pack_log2, stream);
+                                 causal, window, offset, lse, pack_log2, stream);
   if constexpr (wgmma_smem_bytes(D, 128, 1) <= kSmemLimit) {
     if (block_rows == 64 && block_keys == 128)
       return launch_bf16<D, 128, 1>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb,
-                                    scale, causal, window, pack_log2, stream);
+                                    scale, causal, window, offset, lse, pack_log2, stream);
   }
   if (block_rows == 128 && block_keys == 64)
     return launch_bf16<D, 64, 2>(q, k, v, o, B, Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale,
-                                 causal, window, pack_log2, stream);
+                                 causal, window, offset, lse, pack_log2, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// fp32 inputs.  Strides are in elements; window <= 0 means no window.
+// fp32 inputs.  Strides are in elements; window <= 0 means no window; query
+// t sits at key position q_offset + t; lse is null or (B, T, Hq) fp32.
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                        int B, int T, int S, int Hq, int Hkv, int D,
                                        long long q_sb, long long k_sb, long long v_sb,
                                        long long o_sb, float scale, int causal, int window,
-                                       void* stream) {
+                                       int q_offset, void* lse, void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
       return repro_torch::launch_f32<float, 32>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                o_sb, scale, causal, window, st);
+                                                o_sb, scale, causal, window, q_offset,
+                                                lse_f, st);
     case 64:
       return repro_torch::launch_f32<float, 64>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                o_sb, scale, causal, window, st);
+                                                o_sb, scale, causal, window, q_offset,
+                                                lse_f, st);
     case 128:
       return repro_torch::launch_f32<float, 128>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                 o_sb, scale, causal, window, st);
+                                                 o_sb, scale, causal, window, q_offset,
+                                                lse_f, st);
     case 256:
       return repro_torch::launch_f32<float, 256>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                 o_sb, scale, causal, window, st);
+                                                 o_sb, scale, causal, window, q_offset,
+                                                lse_f, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -946,35 +970,36 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 
 // bf16 inputs, with the wrapper's plan: block_rows query rows a block and
 // block_keys keys a KV tile (64 x 64, 64 x 128 or 128 x 64; not 64 x 128 at
-// D = 256), 2^pack_log2
-// query heads packed into a tile.  Every batch stride (elements) must be a multiple of 8
-// and every base 16-byte aligned, as TMA requires.  Returns a cudaError_t,
+// D = 256), 2^pack_log2 query heads packed into a tile; q_offset and lse as
+// for fp32.  Every batch stride (elements) must be a multiple of 8 and every
+// base 16-byte aligned, as TMA requires.  Returns a cudaError_t,
 // 1000 + the CUresult of a tensor map the driver refused, or 3000 when the
 // driver lacks cuTensorMapEncodeTiled.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int B, int T, int S, int Hq, int Hkv, int D,
                                         long long q_sb, long long k_sb, long long v_sb,
                                         long long o_sb, float scale, int causal, int window,
-                                        int block_rows, int block_keys, int pack_log2,
-                                        void* stream) {
+                                        int q_offset, void* lse, int block_rows, int block_keys,
+                                        int pack_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (D) {
     case 32:
       return repro_torch::launch_bf16_tiles<32>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
                                                Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
-                                               pack_log2, st);
+                                               q_offset, lse_f, pack_log2, st);
     case 64:
       return repro_torch::launch_bf16_tiles<64>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
                                                Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
-                                               pack_log2, st);
+                                               q_offset, lse_f, pack_log2, st);
     case 128:
       return repro_torch::launch_bf16_tiles<128>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
                                                 Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
-                                                pack_log2, st);
+                                                q_offset, lse_f, pack_log2, st);
     case 256:
       return repro_torch::launch_bf16_tiles<256>(block_rows, block_keys, q, k, v, o, B, T, S, Hq,
                                                 Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
-                                                pack_log2, st);
+                                                q_offset, lse_f, pack_log2, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -38,6 +38,10 @@
 // 2. paged_fwd_merge: one block of D threads per (query head, sequence)
 //    combines the partitions exactly, o = sum exp(m_i - M) acc_i /
 //    sum exp(m_i - M) l_i over the non-empty ones; an empty context gives 0.
+//    On request it also stores each row's log-sum-exp of its scaled scores,
+//    lse = M + log sum exp(m_i - M) l_i, in fp32 (B, Hq), -inf for an empty
+//    context: a caller that merges this attention with another segment of
+//    keys (the deferred KV append's new token) needs it.
 #include "common.cuh"
 
 #include <math.h>
@@ -276,7 +280,7 @@ paged_fwd_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
 template <typename T>
 __global__ void paged_fwd_merge(const float* __restrict__ m_in, const float* __restrict__ l_in,
                                 const float* __restrict__ acc_in, T* __restrict__ o,
-                                int num_heads, int num_parts, int D) {
+                                float* __restrict__ lse, int num_heads, int num_parts, int D) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
@@ -295,12 +299,14 @@ __global__ void paged_fwd_merge(const float* __restrict__ m_in, const float* __r
     }
   }
   store1(o + (static_cast<long long>(b) * num_heads + h) * D + d, den > 0.f ? num / den : 0.f);
+  if (lse != nullptr && d == 0)
+    lse[static_cast<long long>(b) * num_heads + h] = den > 0.f ? M + logf(den) : -INFINITY;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
-                   const int* ctx, float* m, float* l, float* acc, void* o, int B, int Hq,
-                   int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
+                   const int* ctx, float* m, float* l, float* acc, void* o, float* lse, int B,
+                   int Hq, int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
                    float scale, cudaStream_t stream) {
   // the most any group and page size take stays within what a block may
   // have; a group whose rows take more than the 48 KB a block gets by
@@ -318,28 +324,28 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
       m, l, acc, Hq, Hkv, page_size, pages_per_seq, window, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_fwd_merge<T><<<dim3(Hq, B), D, 0, stream>>>(m, l, acc, static_cast<T*>(o), Hq,
+  paged_fwd_merge<T><<<dim3(Hq, B), D, 0, stream>>>(m, l, acc, static_cast<T*>(o), lse, Hq,
                                                    num_parts, D);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, const int* tables,
-                       const int* ctx, float* m, float* l, float* acc, void* o, int B, int Hq,
-                       int Hkv, int page_size, int pages_per_seq, int num_parts, int window,
-                       float scale, cudaStream_t stream) {
+                       const int* ctx, float* m, float* l, float* acc, void* o, float* lse,
+                       int B, int Hq, int Hkv, int page_size, int pages_per_seq, int num_parts,
+                       int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
+      return launch<T, 32>(q, kp, vp, tables, ctx, m, l, acc, o, lse, B, Hq, Hkv, page_size,
                            pages_per_seq, num_parts, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
+      return launch<T, 64>(q, kp, vp, tables, ctx, m, l, acc, o, lse, B, Hq, Hkv, page_size,
                            pages_per_seq, num_parts, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
+      return launch<T, 128>(q, kp, vp, tables, ctx, m, l, acc, o, lse, B, Hq, Hkv, page_size,
                             pages_per_seq, num_parts, window, scale, stream);
     case 256:
-      return launch<T, 256>(q, kp, vp, tables, ctx, m, l, acc, o, B, Hq, Hkv, page_size,
+      return launch<T, 256>(q, kp, vp, tables, ctx, m, l, acc, o, lse, B, Hq, Hkv, page_size,
                             pages_per_seq, num_parts, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -352,14 +358,16 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, con
 // m_part, l_part: (B, Hq, num_parts) fp32 scratch; acc_part: (B, Hq,
 // num_parts, D) fp32 scratch, with num_parts = max(1, ceil(pages_per_seq *
 // page_size / 64)); the page size divides 64 and Hq / Hkv * D <= 4096.
-// window: the sliding window in keys, or 0 for none.  dtype: 0 = float32,
-// 1 = bfloat16.  Two launches on `stream`.  Returns a cudaError_t (0 on
+// window: the sliding window in keys, or 0 for none.  lse: null, or (B, Hq)
+// fp32 for each row's log-sum-exp.  dtype: 0 = float32, 1 = bfloat16.  Two
+// launches on `stream`.  Returns a cudaError_t (0 on
 // success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                    const void* block_tables, const void* context_lens,
-                                   void* m_part, void* l_part, void* acc_part, void* o, int B,
-                                   int Hq, int Hkv, int D, int page_size, int pages_per_seq,
-                                   int window, float scale, int dtype, void* stream) {
+                                   void* m_part, void* l_part, void* acc_part, void* o,
+                                   void* lse, int B, int Hq, int Hkv, int D, int page_size,
+                                   int pages_per_seq, int window, float scale, int dtype,
+                                   void* stream) {
   using repro_torch::kMaxGroupElems;
   using repro_torch::kMinPage;
   using repro_torch::kPartition;
@@ -376,15 +384,16 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
   float* m = static_cast<float*>(m_part);
   float* l = static_cast<float*>(l_part);
   float* acc = static_cast<float*>(acc_part);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0) {
-    return repro_torch::dispatch_d<float>(D, q, k_pages, v_pages, tables, ctx, m, l, acc, o, B,
-                                          Hq, Hkv, page_size, pages_per_seq, num_parts, window,
-                                          scale, st);
+    return repro_torch::dispatch_d<float>(D, q, k_pages, v_pages, tables, ctx, m, l, acc, o,
+                                          lse_f, B, Hq, Hkv, page_size, pages_per_seq, num_parts,
+                                          window, scale, st);
   }
   if (dtype == 1) {
     return repro_torch::dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, ctx, m, l,
-                                                  acc, o, B, Hq, Hkv, page_size, pages_per_seq,
-                                                  num_parts, window, scale, st);
+                                                  acc, o, lse_f, B, Hq, Hkv, page_size,
+                                                  pages_per_seq, num_parts, window, scale, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -3,7 +3,13 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (``_flash_kernel``): causal GQA attention whose queries are the last T of S
 keys, with an optional sliding window, fp32 running max/sum/accumulator and
-a default scale of 1/sqrt(D).
+a default scale of 1/sqrt(D).  Beyond the Pallas kernel, the queries may sit
+anywhere: query t at key position ``q_offset + t`` (``S - T`` by default),
+and the kernel returns each row's log-sum-exp on request.  The deferred KV
+append attends over a cached prefix and the new chunk as two such segments
+and merges them (``repro_torch.models.layers.attention_merge2``): the prefix
+with ``q_offset = S``, where the causal mask is vacuous and only the window
+masks.
 
 On the card the work is bound by operations (at the llama3_8b prefill
 shape, about 500 FLOPs per byte moved), and only ``wgmma`` reaches the
@@ -128,10 +134,13 @@ def block_coords(p: FlashPlan, B: int, Hkv: int, index: int) -> Tuple[int, int, 
 
 
 def kv_tile_range(q0: int, positions: int, T: int, S: int, block_keys: int,
-                  causal: bool, window: Optional[int]) -> Tuple[int, int]:
-    """[first, end) of the KV tiles that query positions q0 .. q0 +
-    positions - 1 (clipped to T) can see, as the kernel walks them."""
-    offset = S - T
+                  causal: bool, window: Optional[int],
+                  q_offset: Optional[int] = None) -> Tuple[int, int]:
+    """[first, end) of the KV tiles that query rows q0 .. q0 + positions - 1
+    (clipped to T; row t at key position ``q_offset + t``, ``S - T`` by
+    default) can see, as the kernel walks them; empty when the window
+    starts at or past S."""
+    offset = S - T if q_offset is None else q_offset
     q_lo = q0 + offset
     q_hi = min(q0 + positions, T) - 1 + offset
     k_begin, k_end = 0, S
@@ -139,13 +148,15 @@ def kv_tile_range(q0: int, positions: int, T: int, S: int, block_keys: int,
         k_end = min(S, q_hi + 1)
         if window is not None:
             k_begin = max(0, q_lo - window + 1)
+    if k_begin >= k_end:
+        return k_begin // block_keys, k_begin // block_keys
     return k_begin // block_keys, -(-k_end // block_keys)
 
 
 def tile_needs_mask(k0: int, block_keys: int, S: int, q_lo: int, q_hi: int,
                     causal: bool, window: Optional[int]) -> bool:
     """Whether KV tile [k0, k0 + block_keys) must be masked for query
-    positions [q_lo, q_hi] (the offset S - T included): when S's end, the
+    positions [q_lo, q_hi] (the query offset included): when S's end, the
     causal diagonal or the window's start crosses it.  The kernel's
     ``tile_needs_mask`` is the same predicate; other tiles skip the mask."""
     if k0 + block_keys > S:
@@ -174,7 +185,7 @@ def tma_batch_stride(name: str, x: torch.Tensor) -> int:
 def _kernels():
     lib = _build.load("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    head = [p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ctypes.c_float, i, i]
+    head = [p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ctypes.c_float, i, i, i, p]
     f32, bf16 = lib.flash_attention_fwd_f32, lib.flash_attention_fwd_bf16
     f32.argtypes = head + [p]
     bf16.argtypes = head + [i, i, i, p]
@@ -194,12 +205,18 @@ def _check_inner_dense(name: str, x: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D) -> (B, T, Hq, D) in q's type.
+                    softmax_scale: Optional[float] = None, q_offset: Optional[int] = None,
+                    return_lse: bool = False):
+    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D) -> (B, T, Hq, D) in q's type,
+    and with ``return_lse`` also the fp32 log-sum-exp of each row's scaled
+    scores (B, T, Hq).  Query t sits at key position ``q_offset + t``
+    (default S - T: the queries are the last T of the S keys).  A row that
+    sees no key gives 0 and an lse of -inf.
 
     CUDA tensors only: fp32 or bf16, D in {32, 64, 128, 256}, Hq a multiple of
-    Hkv, S >= T when causal; bf16 batch strides a multiple of 16 bytes.
-    Launches on the current stream without synchronising."""
+    Hkv, S >= T when causal without a ``q_offset``, ``q_offset`` >= 0; bf16
+    batch strides a multiple of 16 bytes.  Launches on the current stream
+    without synchronising."""
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
@@ -221,9 +238,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"flash_attention: {Hq} query heads over {Hkv} KV heads")
-    if T < 1 or S < 1 or (causal and S < T):
+    if T < 1 or S < 1 or (causal and q_offset is None and S < T):
         raise ValueError(f"flash_attention: needs 1 <= T <= S when causal, "
                          f"got T={T}, S={S}")
+    if q_offset is not None and not 0 <= q_offset < 2**31 - T:
+        raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
+    offset = S - T if q_offset is None else q_offset
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if B > 65535 or Hq > 65535:
@@ -231,6 +251,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = softmax_scale or 1.0 / math.sqrt(D)
     win = window if (causal and window is not None) else 0
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, T, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lse_ptr = lse.data_ptr() if return_lse else None
     f32, bf16 = _kernels()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.bfloat16:
@@ -238,11 +261,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = plan(B, T, S, Hq, Hkv, D)
         err = bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, T, S, Hq, Hkv, D, *strides, out.stride(0), scale, int(causal), win,
-                   p.block_rows, p.block_keys, p.pack.bit_length() - 1, stream)
+                   offset, lse_ptr, p.block_rows, p.block_keys, p.pack.bit_length() - 1, stream)
     else:
         err = f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, T, S, Hq, Hkv, D, q.stride(0), k.stride(0), v.stride(0),
-                  out.stride(0), scale, int(causal), win, stream)
+                  out.stride(0), scale, int(causal), win, offset, lse_ptr, stream)
     if err == 3000:
         raise RuntimeError("flash_attention: the driver has no cuTensorMapEncodeTiled")
     if err >= 1000:
@@ -251,4 +274,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention: launch failed with CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -26,24 +26,22 @@ def _use_kernel(x, force: Optional[str]) -> bool:
     return force is None and x.device.type == "cuda"
 
 
-def flash_attention(q, k, v, *, causal=True, window=None,
-                    softmax_scale=None, force: Optional[str] = None):
+def flash_attention(q, k, v, *, causal=True, window=None, softmax_scale=None,
+                    q_offset=None, return_lse=False, force: Optional[str] = None):
+    kw = dict(causal=causal, window=window, softmax_scale=softmax_scale,
+              q_offset=q_offset, return_lse=return_lse)
     if _use_kernel(q, force):
-        return _flash.flash_attention(
-            q, k, v, causal=causal, window=window, softmax_scale=softmax_scale)
-    return ref.flash_attention_ref(
-        q, k, v, causal=causal, window=window, softmax_scale=softmax_scale)
+        return _flash.flash_attention(q, k, v, **kw)
+    return ref.flash_attention_ref(q, k, v, **kw)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    window=None, softmax_scale=None, force: Optional[str] = None):
+                    window=None, softmax_scale=None, return_lse=False,
+                    force: Optional[str] = None):
+    kw = dict(window=window, softmax_scale=softmax_scale, return_lse=return_lse)
     if _use_kernel(q, force):
-        return _paged.paged_attention(
-            q, k_pages, v_pages, block_tables, context_lens,
-            window=window, softmax_scale=softmax_scale)
-    return ref.paged_attention_ref(
-        q, k_pages, v_pages, block_tables, context_lens,
-        window=window, softmax_scale=softmax_scale)
+        return _paged.paged_attention(q, k_pages, v_pages, block_tables, context_lens, **kw)
+    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, **kw)
 
 
 def ssd_scan(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None,

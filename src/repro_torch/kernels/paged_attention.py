@@ -7,7 +7,8 @@ together, pages at or past ``context_len`` are skipped and positions past it
 are masked inside the last page.  Beyond the Pallas kernel it takes a
 sliding ``window``: keys before ``context_len - window`` are skipped by
 whole partitions and masked inside the partition that holds the window's
-start.
+start; and on request it returns each row's log-sum-exp, which the
+deferred KV append needs to merge the cached keys with the new token's.
 
 On the card the work is bound by bytes: each step reads every K/V byte of
 every context once and does two FLOPs per byte.  The kernel splits each
@@ -66,7 +67,7 @@ def scratch_shapes(B: int, Hq: int, D: int, num_parts: int):
 def _kernel():
     fn = _build.load("paged_attention").paged_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,7 +75,7 @@ def _kernel():
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                     block_tables: torch.Tensor, context_lens: torch.Tensor, *,
                     window: Optional[int] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+                    softmax_scale: Optional[float] = None, return_lse: bool = False):
     """Decode attention over a paged KV pool.
 
     q:            (B, Hq, D)
@@ -83,7 +84,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     context_lens: (B,) int32
     window:       None, or a sliding window of at least 1 key: keys at
                   positions < context_len - window are masked
-    returns       (B, Hq, D) in q's type
+    returns       (B, Hq, D) in q's type, 0 for an empty context; with
+                  ``return_lse`` also the fp32 log-sum-exp of each row's
+                  scaled scores (B, Hq), -inf for an empty context
 
     CUDA tensors only, all dense: fp32 or bf16, D in {32, 64, 128, 256}, page
     size in {8, 16, 32}, Hq a multiple of Hkv.  Launches on the current
@@ -129,8 +132,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
             raise ValueError(f"paged_attention: {name} must be 16-byte aligned")
     scale = softmax_scale or 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     pps = block_tables.shape[1]
     num_parts = plan(pps, page_size)
     # the three partials in one allocation, m then l then acc (fp32)
@@ -143,9 +147,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(), m_ptr, l_ptr, acc_ptr,
-             out.data_ptr(), B, Hq, Hkv, D, page_size,
+             out.data_ptr(), lse.data_ptr() if return_lse else None, B, Hq, Hkv, D, page_size,
              pps, window or 0, scale, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention: launch failed with CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

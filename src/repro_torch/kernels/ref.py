@@ -30,8 +30,15 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
-                        softmax_scale: Optional[float] = None):
-    """q: (B,T,Hq,D); k,v: (B,S,Hkv,D) -> (B,T,Hq,D).  fp32 softmax."""
+                        softmax_scale: Optional[float] = None,
+                        q_offset: Optional[int] = None, return_lse: bool = False):
+    """q: (B,T,Hq,D); k,v: (B,S,Hkv,D) -> (B,T,Hq,D).  fp32 softmax.
+
+    Query t sits at key position ``q_offset + t``; by default the queries
+    are the last T of the S keys (``q_offset = S - T``).  A row that sees
+    no key (a window that ends before the keys do) gives 0.  With
+    ``return_lse`` it also returns the fp32 log-sum-exp of each row's
+    scaled scores (B, T, Hq), -inf for a row that sees no key."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -42,21 +49,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     kv_pos = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
     if causal:
-        # queries are the *last* T positions of the S-long stream
-        offset = S - T
+        offset = S - T if q_offset is None else q_offset
         mask &= kv_pos <= q_pos + offset
         if window is not None:
             mask &= (q_pos + offset) - kv_pos < window
-    scores = torch.where(mask[None, None, None], scores,
+    seen = mask.any(dim=-1)[:, None]                                   # (T, 1)
+    masked = torch.where(mask[None, None, None], scores,
                          torch.tensor(NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(masked, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype), v)
-    return out.reshape(B, T, Hq, D)
+    out = torch.where(seen[None, :, :, None, None], out, 0).reshape(B, T, Hq, D)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(mask[None, None, None], scores, -torch.inf), dim=-1)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, T, Hq)
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                           softmax_scale: Optional[float] = None, block_rows: int = 128,
-                          block_keys: int = 64):
+                          block_keys: int = 64, q_offset: Optional[int] = None,
+                          return_lse: bool = False):
     """K1's bf16 kernel in plain PyTorch, tile by tile (shapes as
     :func:`flash_attention_ref`; returns q's type).
 
@@ -67,18 +79,22 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
     them; only a tile for which ``tile_needs_mask`` holds is masked.  The
     online softmax runs in the log2 domain in fp32 (scores from fp32
     products), P is rounded to the input type before P @ V and the row sums
-    take P before rounding; a row that sees no key gives 0."""
+    take P before rounding; a row that sees no key gives 0.  ``q_offset``
+    and ``return_lse`` as :func:`flash_attention_ref`'s; the lse is
+    (m + log2 l) / log2 e of the log2-domain statistics, unpacked from the
+    tile rows to (B, T, Hq)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     p = flash_mod.plan(B, T, S, Hq, Hkv, D, block_rows=block_rows, block_keys=block_keys)
     scale_log2 = (softmax_scale or 1.0 / math.sqrt(D)) * math.log2(math.e)
-    offset = S - T
+    offset = S - T if q_offset is None else q_offset
     bk = block_keys
     pad = (-S) % bk
     kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)   # (B, Hkv, S + pad, D)
     vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
     qf = q.float().reshape(B, T, Hkv, p.groups, p.pack, D)
     out = torch.zeros((B, T, Hkv, p.groups, p.pack, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, T, Hkv, p.groups, p.pack), -math.inf, device=q.device)
     for qt in range(p.q_tiles):
         q0 = qt * p.positions
         n = min(p.positions, T - q0)          # rows past T are zeros the kernel never stores
@@ -88,7 +104,8 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
         m = torch.full(rows.shape[:-1], -math.inf, device=q.device)
         l = torch.zeros(rows.shape[:-1], device=q.device)
         acc = torch.zeros(rows.shape, device=q.device)
-        first, end = flash_mod.kv_tile_range(q0, p.positions, T, S, bk, causal, window)
+        first, end = flash_mod.kv_tile_range(q0, p.positions, T, S, bk, causal, window,
+                                             offset)
         for kt in range(first, end):
             k0 = kt * bk
             s = torch.einsum("bhgrd,bhkd->bhgrk", rows, kf[:, :, k0:k0 + bk]) * scale_log2
@@ -110,7 +127,11 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
             m = m_new
         o = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
         out[:, q0:q0 + n] = o.reshape(B, Hkv, p.groups, n, p.pack, D).permute(0, 3, 1, 2, 4, 5)
-    return out.reshape(B, T, Hq, D).to(q.dtype)
+        row_lse = torch.where(l > 0, (m + torch.log2(torch.where(l > 0, l, 1.0))) * math.log(2),
+                              -math.inf)
+        lse[:, q0:q0 + n] = row_lse.reshape(B, Hkv, p.groups, n, p.pack).permute(0, 3, 1, 2, 4)
+    out = out.reshape(B, T, Hq, D).to(q.dtype)
+    return (out, lse.reshape(B, T, Hq)) if return_lse else out
 
 
 def _window_start(context_lens, window: Optional[int]):
@@ -123,7 +144,7 @@ def _window_start(context_lens, window: Optional[int]):
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
                         window: Optional[int] = None,
-                        softmax_scale: Optional[float] = None):
+                        softmax_scale: Optional[float] = None, return_lse: bool = False):
     """Decode attention against a paged KV pool.
 
     q:            (B, Hq, D)      — one query token per sequence
@@ -133,7 +154,10 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     window:       keys at positions < context_len − window are masked (the
                   Pallas kernel has no window; this is the dense attention's
                   ``causal_mask(window=)`` for a query at context_len − 1)
-    returns       (B, Hq, D)
+    returns       (B, Hq, D) (the mean of V for an empty context, as the
+                  JAX package's); with ``return_lse`` also the fp32
+                  log-sum-exp of each row's scaled scores (B, Hq), -inf for
+                  an empty context
     """
     B, Hq, D = q.shape
     P, page_size, Hkv, _ = k_pages.shape
@@ -152,16 +176,19 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     lens = context_lens.to(q.device).long()
     pos = torch.arange(S, device=q.device)[None, :]
     valid = (pos < lens[:, None]) & (pos >= _window_start(lens, window)[:, None])
-    scores = torch.where(valid[:, None, None, :], scores,
+    masked = torch.where(valid[:, None, None, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", probs.to(v.dtype), v)
-    return out.reshape(B, Hq, D)
+    probs = torch.softmax(masked, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs.to(v.dtype), v).reshape(B, Hq, D)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid[:, None, None, :], scores, -torch.inf), dim=-1)
+    return out, lse.reshape(B, Hq)
 
 
 def paged_attention_split(q, k_pages, v_pages, block_tables, context_lens, *,
                           window: Optional[int] = None, partition: int = PARTITION,
-                          softmax_scale: Optional[float] = None):
+                          softmax_scale: Optional[float] = None, return_lse: bool = False):
     """K2's algorithm in plain PyTorch: split each context into partitions of
     ``partition`` keys (a multiple of the page size; their number comes from
     ``pages_per_seq``, not from the lengths), take each partition's softmax
@@ -171,11 +198,19 @@ def paged_attention_split(q, k_pages, v_pages, block_tables, context_lens, *,
     ``context_len − window`` is empty, and the one that holds the window's
     start masks the keys before it.  An empty context gives 0 (as the Pallas
     kernel does; ``paged_attention_ref`` gives the mean of V there).  Shapes
-    as :func:`paged_attention_ref`; returns (B, Hq, D) in q's type."""
+    as :func:`paged_attention_ref`; returns (B, Hq, D) in q's type, and with
+    ``return_lse`` the merge's lse = M + log Σ exp(m_i − M)·l_i (B, Hq),
+    -inf for an empty context."""
     m, l, acc = paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens,
                                          window=window, partition=partition,
                                          softmax_scale=softmax_scale)
-    return paged_attention_merge(m, l, acc).to(q.dtype)
+    out = paged_attention_merge(m, l, acc).to(q.dtype)
+    if not return_lse:
+        return out
+    M = m.amax(dim=-1)
+    M0 = torch.where(torch.isinf(M), 0.0, M)
+    den = (torch.where(torch.isinf(m), 0.0, torch.exp(m - M0[..., None])) * l).sum(dim=-1)
+    return out, torch.where(den > 0, M0 + torch.log(torch.where(den > 0, den, 1.0)), -torch.inf)
 
 
 def paged_attention_partials(q, k_pages, v_pages, block_tables, context_lens, *,

@@ -12,7 +12,10 @@ D head_dim, d = d_model, F = d_ff; for SSD, H heads of P channels, state N.
 
 :func:`attention`, :func:`causal_mask` and :func:`full_mask` are the
 reference's dense, mask-based attention, kept for layer-level parity tests; the model attends
-over its cache through :mod:`repro_torch.kernels.ops`.  :func:`ssd_prefill`
+over its cache through :mod:`repro_torch.kernels.ops`.  The deferred KV
+append attends over two segments of keys, the cache and the new chunk, each
+through a kernel that also returns its log-sum-exp (:func:`attention_partial`:
+K1), and merges them exactly (:func:`attention_merge2`).  :func:`ssd_prefill`
 runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
 :func:`ssd_decode_step` has no kernel in the reference and stays plain
 PyTorch.  :func:`moe` is the reference's dropless MoE; its two grouped
@@ -151,6 +154,37 @@ def attention(q, k, v, mask, *, softmax_scale: Optional[float] = None,
     probs = probs.to(scores_dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype), v)
     return out.reshape(B, T, Hq, D)
+
+
+def attention_partial(q, k, v, *, q_offset: Optional[int] = None,
+                      window: Optional[int] = None, force: Optional[str] = None):
+    """One segment of keys for an online-softmax merge, through K1 (its plain
+    version on the CPU): query t at key position ``q_offset + t`` (``S - T``
+    by default), causal, with the optional window.  Returns (out (B,T,Hq,D)
+    in q's type, normalised over the segment; lse (B,T,Hq) fp32, the
+    log-sum-exp of each row's scaled scores, -inf where a row sees no key).
+
+    The reference's ``attention_partial`` returns the unnormalised sum, the
+    row max and the row sum (acc, m, l); out = acc / l and lse = m + log l
+    carry the same information, and are what a flash kernel produces."""
+    return ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset,
+                               return_lse=True, force=force)
+
+
+def attention_merge2(seg_a, seg_b, out_dtype):
+    """Exact two-segment online-softmax combine of (out, lse) pairs: each
+    segment weighs exp(lse - max lse), and out = Σ w·out / Σ w.  A segment
+    that saw no key (lse = -inf) weighs 0; a row that neither saw gives 0."""
+    out_a, lse_a = seg_a
+    out_b, lse_b = seg_b
+    m = torch.maximum(lse_a, lse_b)
+    m = torch.where(torch.isinf(m), 0.0, m)                  # both empty
+    wa = torch.exp(lse_a - m)
+    wb = torch.exp(lse_b - m)
+    num = out_a.float() * wa[..., None] + out_b.float() * wb[..., None]
+    den = wa + wb
+    den = torch.where(den == 0.0, 1.0, den)
+    return (num / den[..., None]).to(out_dtype)
 
 
 def causal_mask(q_pos, kv_pos, window: Optional[int] = None):

@@ -58,14 +58,33 @@ with ``causal=False``, and the decoder's cross-attention through K1 with
 ``causal=False`` (T > 1) or through K2 over the slot's cross cache (T = 1),
 which is padded to a whole number of pages; its context length is F.
 
-``kv_append="defer"``, ``moe_impl="a2a"`` and the training loss raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``kv_append="defer"`` (the reference's ``_apply_deferred_append``) leaves
+the cache unwritten while the layers run.  Each attention layer attends over
+two segments and merges them exactly (:func:`layers.attention_merge2`):
+
+* prefill: the cached keys ``k[:, :s0]`` through K1 with ``q_offset = s0``
+  (the causal mask is vacuous there, the window is not), skipped for the
+  first chunk; and the new chunk's own keys through K1, causal from 0;
+* decode: the cached keys through K2 with ``context_lens = pos`` and the
+  window less one (the new token is not in the cache; skipped at a window of
+  1), and the new token's own key, whose output is its value and whose
+  log-sum-exp is its one scaled score.
+
+After the last layer a uniform stack writes every layer's new K/V and
+``kv_pos`` into the (L, B, S, ...) cache in one ``index_put_``; a mixed
+stack (RecurrentGemma) writes each layer's right after it, as the
+reference's unrolled stack does.  The encoder-decoder keeps the inline
+append, as the reference's ``EncDecLM`` does.
+
+``moe_impl="a2a"`` and the training loss raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -81,7 +100,6 @@ ATTN_KINDS = ("attn", "local_attn")
 RECURRENT_KINDS = ("ssd", "rglru")
 
 _ROADMAP = {
-    "defer": "ROADMAP Queue A item 9 (deferred KV append)",
     "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
     "train": "ROADMAP Queue A item 13 (training)",
 }
@@ -97,8 +115,8 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.kv_append != "inline" and not cfg.is_enc_dec:   # enc-dec keeps inline
-        raise _unported("defer")
+    if cfg.kv_append not in ("inline", "defer"):
+        raise ValueError(f"unknown kv_append {cfg.kv_append!r}")
     if cfg.moe is not None and cfg.moe_impl != "ragged":
         raise _unported("a2a")
 
@@ -178,14 +196,16 @@ class CacheStep:
 
 def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optional[Dict],
               *, step: CacheStep, force: Optional[str] = None,
-              cross: Optional[Tuple[Dict, Dict]] = None):
+              cross: Optional[Tuple[Dict, Dict]] = None, deferred: Optional[List] = None):
     """One residual block over its layer's cache (updated in place).
 
     x: (n, T, d); positions: (n, T); cache: {"k", "v": (B, S, Hkv, D),
     "kv_pos": (B, S)} or {"state", "conv"} of an SSD or RG-LRU layer.
     ``cross`` = (the layer's cross-attention params, {"k", "v": (B, F_pad,
     Hkv, D)} and the frame count "frames"), for an enc-dec decoder layer.
-    Returns y (n, T, d)."""
+    With ``deferred`` (a list; ``kv_append="defer"``) an attention block
+    reads the cache without writing it and appends its new (k, v) to the
+    list instead.  Returns y (n, T, d)."""
     if cache is None:
         raise _unported("train")
     h = L.apply_norm(cfg, x, p["norm1"])
@@ -201,7 +221,14 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     q = q.to(k_c.dtype)
     T = positions.shape[1]
     window = cfg.sliding_window
-    if step.start is not None:
+    if deferred is not None:
+        k_new, v_new = k_new.to(k_c.dtype), v_new.to(v_c.dtype)
+        deferred.append((k_new, v_new))
+        if step.start is not None:
+            ctx = _deferred_prefill(q, k_new, v_new, k_c, v_c, step.start, window, force)
+        else:
+            ctx = _deferred_decode(q, k_new, v_new, k_c, v_c, step, window, force)
+    elif step.start is not None:
         s0, s1 = step.start, step.start + T
         k_c[:, s0:s1] = k_new.to(k_c.dtype)
         v_c[:, s0:s1] = v_new.to(v_c.dtype)
@@ -223,12 +250,63 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     return x + L.mlp(cfg, p["mlp"], h2)
 
 
-def _paged(q, k_c, v_c, tables, lens, window, force):
-    """K2 over a slot cache (B, S, Hkv, D) read as pages; q: (n, 1, Hq, D)."""
+def _paged(q, k_c, v_c, tables, lens, window, force, return_lse=False):
+    """K2 over a slot cache (B, S, Hkv, D) read as pages; q: (n, 1, Hq, D).
+    Returns (n, 1, Hq, D), and with ``return_lse`` the lse (n, 1, Hq)."""
     page_shape = (-1, PAGE_SIZE) + tuple(k_c.shape[2:])
-    return ops.paged_attention(q[:, 0].contiguous(), k_c.view(page_shape),
-                               v_c.view(page_shape), tables, lens, window=window,
-                               force=force)[:, None]
+    res = ops.paged_attention(q[:, 0].contiguous(), k_c.view(page_shape),
+                              v_c.view(page_shape), tables, lens, window=window,
+                              return_lse=return_lse, force=force)
+    if return_lse:
+        return res[0][:, None], res[1][:, None]
+    return res[:, None]
+
+
+def _deferred_prefill(q, k_new, v_new, k_c, v_c, s0: int, window, force):
+    """Attention of a prefill chunk at s0 over [cache[:s0] ‖ the chunk]
+    without writing the cache: two K1 segments and their merge."""
+    seg_new = L.attention_partial(q, k_new, v_new, window=window, force=force)
+    if s0 == 0 or window == 1:          # no cached key is visible
+        return seg_new[0]
+    seg_cache = L.attention_partial(q, k_c[:, :s0], v_c[:, :s0], q_offset=s0,
+                                    window=window, force=force)
+    return L.attention_merge2(seg_cache, seg_new, q.dtype)
+
+
+def _deferred_decode(q, k_new, v_new, k_c, v_c, step: CacheStep, window, force):
+    """Attention of one decoded token at pos over [cache[:pos] ‖ itself]
+    without writing the cache: K2 over the cache (``step.context_lens`` is
+    pos in defer mode; the window less one, since the token itself is one of
+    the ``window`` keys it sees) and the token's own key, merged."""
+    G = q.shape[2] // k_new.shape[2]
+    k_self = k_new.repeat_interleave(G, dim=2)                     # (n, 1, Hq, D)
+    seg_self = (v_new.repeat_interleave(G, dim=2).to(q.dtype),
+                (q.float() * k_self.float()).sum(-1) / math.sqrt(q.shape[-1]))
+    if window == 1:
+        return seg_self[0]
+    seg_cache = _paged(q, k_c, v_c, step.block_tables, step.context_lens,
+                       None if window is None else window - 1, force, return_lse=True)
+    return L.attention_merge2(seg_cache, seg_self, q.dtype)
+
+
+def _apply_deferred_append(layers: Dict, new_kv: List, positions, step: CacheStep) -> None:
+    """Write deferred new K/V into the cache in place, one ``index_put_`` a
+    leaf: ``layers`` is a stacked (L, B, S, ...) cache and ``new_kv`` the L
+    layers' (k, v) in order, or one layer's cache and its one (k, v).
+    positions: (n, T); the rows are ``step.rows`` on a decode, else all."""
+    k, v, kv_pos = layers["k"], layers["v"], layers["kv_pos"]
+    rows = (step.rows if step.rows is not None
+            else torch.arange(positions.shape[0], device=positions.device))[:, None]
+    idx = (rows, positions.long())
+    if k.dim() == 5:                                               # (L, B, S, Hkv, D)
+        idx = (slice(None),) + idx
+        k_new = torch.stack([kv[0] for kv in new_kv])
+        v_new = torch.stack([kv[1] for kv in new_kv])
+    else:
+        (k_new, v_new), = new_kv
+    k[idx] = k_new
+    v[idx] = v_new
+    kv_pos[idx] = positions.to(kv_pos.dtype)
 
 
 def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
@@ -374,9 +452,18 @@ class TransformerLM:
     # --------------------------------------------------------------- body --
     def _run(self, params, x, positions, cache, step: CacheStep, force):
         cfg = self.cfg
+        deferred = [] if cfg.kv_append == "defer" and positions is not None else None
         for i, kind in enumerate(cfg.layer_pattern):
-            x = run_block(cfg, kind, _layer(params["blocks"], i), x, positions,
-                          _layer(cache["layers"], i), step=step, force=force)
+            cache_l = _layer(cache["layers"], i)
+            x = run_block(cfg, kind, _layer(params["blocks"], i), x, positions, cache_l,
+                          step=step, force=force, deferred=deferred)
+            if deferred and not self.uniform:
+                # a mixed stack writes each layer's right away, as the
+                # reference's unrolled stack does
+                _apply_deferred_append(cache_l, [deferred.pop()], positions, step)
+        if deferred:
+            # a uniform stack: every layer's new K/V in one write a leaf
+            _apply_deferred_append(cache["layers"], deferred, positions, step)
         x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
         return self._unembed(params, x)[:, 0, :]
 
@@ -441,7 +528,10 @@ class TransformerLM:
         if self.has_attn:
             kv = self._attn_cache(cache)["k"]
             step.block_tables = _page_tables(rows, kv.shape[-3], kv.shape[-4], tokens.device)
-            step.context_lens = (positions[:, 0] + 1).int()
+            # the keys K2 reads: the token's own is in the cache only when
+            # it is written before the attention (inline)
+            step.context_lens = (positions[:, 0]
+                                 + int(self.cfg.kv_append == "inline")).int()
         x = params["embed"][tokens]
         logits = self._run(params, x, positions, cache, step, force)
         cache["cache_len"][rows] += 1

@@ -6,14 +6,17 @@ benchmark runner) is reused bit for bit.  The emulated modes are those of
 ``repro.serving.stack.build_stack``: they touch no device and allocate no
 tensor, so they run on a machine with no card.  ``mode="real"`` runs the
 PyTorch model on ``device`` (``cuda`` unless it says otherwise).
+
+The module imports no ``torch`` (nor does ``core/device.py`` until a device
+is resolved): the copies of the control plane (``cluster``, ``scenario``)
+reach :func:`default_predictor` here, and their replica processes must not
+load it.  Only ``mode="real"`` imports it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
-
-import torch
 
 from repro_torch.core.client import LocalTransport, TimeJumpClient
 from repro_torch.core.clock import VirtualClock, WallSource
@@ -26,8 +29,7 @@ from repro_torch.core.timekeeper import Timekeeper
 from repro_torch.models.config import ModelConfig
 
 from .engine import LLMEngine
-from .model_runner import (RealModelRunner, SleepModelRunner,
-                           TimeWarpModelRunner)
+from .model_runner import SleepModelRunner, TimeWarpModelRunner
 from .scheduler import EngineConfig
 from .workers import WorkerGroup
 
@@ -71,7 +73,7 @@ def build_stack(
     use_worker_group: bool = True,
     wall: Optional[WallSource] = None,
     device=None,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype=None,
     name: str = "engine",
 ) -> ServingStack:
     """``wall`` injects a deterministic wall source into the emulated modes
@@ -80,7 +82,8 @@ def build_stack(
     analytical model of ``engine_cfg.chip``.
 
     ``mode="real"``: the engine runs ``model`` with ``params`` on ``device``
-    (``cuda`` unless it says otherwise), its slot cache in ``dtype``.  With
+    (``cuda`` unless it says otherwise), its slot cache in ``dtype`` (bf16
+    unless it says otherwise).  With
     prefix caching on, the runner gets the engine's block manager and keeps
     the KV of the cached blocks, ``num_blocks`` of them.  The runner is
     warmed up before the engine is returned."""
@@ -120,12 +123,16 @@ def build_stack(
     if mode == "real":
         if model is None or params is None:
             raise ValueError("real mode needs a model and its params")
+        import torch
+
+        from .real_runner import RealModelRunner
         device = resolve_device(device)
         clock = VirtualClock()
         runner = RealModelRunner(
             model, params,
             max_seqs=max_seqs or engine_cfg.max_num_seqs,
-            max_len=max_len, clock=clock, device=device, dtype=dtype)
+            max_len=max_len, clock=clock, device=device,
+            dtype=torch.bfloat16 if dtype is None else dtype)
         runner.warmup(engine_cfg.max_batched_tokens)
         engine = LLMEngine(engine_cfg, runner, clock, name=name)
         if engine_cfg.enable_prefix_caching:

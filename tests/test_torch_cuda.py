@@ -238,8 +238,9 @@ def test_rglru_and_encdec_models_with_kernels_match_plain(gen, arch):
     64) and whisper_base (a prefill with frames: the encoder and the
     cross-attention through K1 non-causal; decodes through K2 over the cross
     cache) in fp32: logits with the kernels equal the plain attention's
-    within 2e-3."""
-    cfg = get_reduced_config(arch)
+    within 2e-3.  At head_dim 32: the reduced configs' 16 is below the
+    kernels' smallest, and K1 raises on it."""
+    cfg = get_reduced_config(arch).replace(head_dim=32, d_model=128)
     model = build_model(cfg)
     params = model.init(gen, torch.float32)
     toks = torch.randint(0, cfg.vocab_size, (1, 101), generator=gen, device="cuda")
@@ -351,5 +352,77 @@ def test_mamba2_with_kernel_matches_plain(gen):
         c, cache = model.decode_step(params, cache, toks[:, 61:], force=force)
         assert ops.launch_counts()["ssd_scan"] == (0 if force else 2 * cfg.num_layers)
         logits[force] = (a, b, c, cache["layers"]["state"].clone())
+    for got, exp in zip(logits[None], logits["plain"]):
+        torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,q_offset,window", [
+    (1, 64, 64, 4, 2, 64, 64, None),         # the cache segment: no mask at all
+    (2, 77, 129, 16, 2, 128, 129, 48),       # s0 off the KV tile grid, rows past the window
+    (1, 96, 333, 10, 1, 256, 333, 64),       # recurrentgemma_2b's heads
+    (1, 50, 70, 6, 1, 32, 70, 1),            # every row sees no key
+    (1, 100, 100, 8, 2, 64, 0, 20),          # the new chunk's own segment
+    (1, 40, 200, 8, 2, 64, 37, 30),          # an offset in between
+    (1, 128, 256, 8, 2, 64, None, None)])    # the default offset, with the lse
+def test_flash_kernel_segment_matches_plain(gen, B, T, S, Hq, Hkv, D, q_offset, window, dtype):
+    """K1 with ``q_offset`` and ``return_lse``, the deferred append's
+    segments, against the plain version: out and lse, -inf in the same rows."""
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    kw = dict(q_offset=q_offset, window=window, return_lse=True)
+    out, lse = ops.flash_attention(q, k, v, **kw)
+    exp, exp_lse = ops.flash_attention(q, k, v, force="plain", **kw)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    assert torch.equal(torch.isinf(lse), torch.isinf(exp_lse))
+    seen = ~torch.isinf(exp_lse)
+    torch.testing.assert_close(lse[seen], exp_lse[seen], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 1, 16, 129])
+def test_paged_kernel_lse_matches_plain(gen, dtype, window):
+    """K2 with ``return_lse`` over contexts that include an empty one (0 and
+    -inf there), with the deferred decode's window less one."""
+    B, Hq, Hkv, D, page, pps = 6, 8, 2, 64, 16, 24
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((B * pps, page, Hkv, D), generator=gen, device="cuda").to(dtype)
+    tables = torch.randperm(B * pps, generator=gen, device="cuda").int().view(B, pps)
+    ctx = torch.tensor([0, 1, 63, 65, 133, 384], dtype=torch.int32, device="cuda")
+    out, lse = ops.paged_attention(q, kp, vp, tables, ctx, window=window, return_lse=True)
+    exp, exp_lse = ops.paged_attention(q, kp, vp, tables, ctx, window=window,
+                                       return_lse=True, force="plain")
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (out[0] == 0).all() and torch.isinf(lse[0]).all()
+    torch.testing.assert_close(out[1:].float(), exp[1:].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse[1:], exp_lse[1:], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "recurrentgemma_2b"])
+def test_defer_model_with_kernels_matches_plain(gen, arch):
+    """Reduced models (head_dim 32, which the kernels take) with
+    ``kv_append="defer"`` in fp32: two prefill chunks and two decodes with
+    K1 and K2 against the plain attention (2e-3), K1 twice a layer on the
+    second chunk."""
+    cfg = get_reduced_config(arch).replace(kv_append="defer", head_dim=32, d_model=128)
+    model = build_model(cfg)
+    params = model.init(gen, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device="cuda")
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    logits = {}
+    for force in (None, "plain"):
+        cache = model.init_cache(2, 64, torch.float32)
+        ops.reset_launch_counts()
+        out = [model.prefill(params, {"tokens": toks[:, :16]}, cache, force=force)[0],
+               model.prefill(params, {"tokens": toks[:, 16:38]}, cache, force=force)[0]]
+        out += [model.decode_step(params, cache, toks[:, t:t + 1], force=force)[0]
+                for t in (38, 39)]
+        if force is None:
+            assert ops.launch_counts()["flash_attention"] == 3 * n_attn
+            assert ops.launch_counts()["paged_attention"] == 2 * n_attn
+        logits[force] = out
     for got, exp in zip(logits[None], logits["plain"]):
         torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)

@@ -190,7 +190,7 @@ def test_real_vs_emulated_rehearsal_on_the_cpu(capsys):
 # Left out: test_emulation_accelerates and test_emulate_matches_sleep_
 # distributions compare against the real wall (its speed-up and the sleep
 # baseline's wall-clock timeline); the disaggregated cluster and the DES
-# baseline are not ported (ROADMAP Queue A item D).
+# baseline are held in tests/test_torch_cluster.py and test_torch_cluster_parity.py.
 
 def _system_run(policy="vllm", batch_s=4e-3, n=40, qps=20.0, jitter_cooldown=0.0,
                 prefix_caching=True, **wl):

@@ -76,19 +76,16 @@ def test_unported_config_names_its_roadmap_item(arch):
     """The two configs that raised until RG-LRU and the encoder-decoder were
     ported now build, at full size and reduced, the reduced one with the
     config's parameter count (``chip_smoke.py`` counts the full ones on the
-    card).  What the port still lacks names its ROADMAP item: the deferred
-    KV append on RecurrentGemma (item 9); Whisper keeps the inline append, as
-    the reference's ``EncDecLM`` does."""
+    card).  The deferred KV append (ROADMAP item 9) builds too: RecurrentGemma
+    keeps it (``tests/test_torch_kv_defer.py`` holds it to the JAX model);
+    Whisper keeps the inline append, as the reference's ``EncDecLM`` does."""
     assert build_model(get_config(arch)).cfg.arch_id == arch
     cfg = get_reduced_config(arch)
     params = build_model(cfg).init(torch.Generator().manual_seed(0), torch.float32, "cpu")
     assert sum(t.numel() for t in _leaves(params)) == cfg.param_count()
     deferred = get_reduced_config(arch).replace(kv_append="defer")
-    if arch == "whisper_base":
-        assert build_model(deferred).cfg.kv_append == "inline"
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-            build_model(deferred)
+    expected = "inline" if arch == "whisper_base" else "defer"
+    assert build_model(deferred).cfg.kv_append == expected
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
@@ -245,8 +242,8 @@ def test_unported_paths_raise():
     cfg = get_reduced_config("llama3_8b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
         build_model(get_reduced_config("mixtral_8x7b").replace(moe_impl="a2a"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(kv_append="defer"))
+    with pytest.raises(ValueError, match="kv_append"):
+        build_model(cfg.replace(kv_append="later"))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
     cache = model.init_cache(2, 32, torch.float32, "cpu")

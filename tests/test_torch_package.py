@@ -54,6 +54,29 @@ COPIES = [
     "serving/engine.py",
     "serving/workers.py",
     "serving/benchmark.py",
+    # the distributed control plane, in the order each needs the last
+    "core/transport.py",
+    "core/shm_transport.py",
+    "cluster/router.py",
+    "cluster/tiers.py",
+    "cluster/faults.py",
+    "cluster/autoscaler.py",
+    "cluster/cluster.py",
+    "cluster/process_backend.py",
+    "cluster/__init__.py",
+    "serving/disagg.py",
+    "des/simulator.py",
+    "scenario/spec.py",
+    "scenario/presets.py",
+    "scenario/sweep.py",
+    "scenario/runner.py",
+    "scenario/__init__.py",
+    "scenario/__main__.py",
+    "fleet/spec.py",
+    "fleet/router.py",
+    "fleet/metrics.py",
+    "fleet/runner.py",
+    "fleet/__init__.py",
 ]
 
 # copies inside a module the port rewrites in part: (module, top-level name)
@@ -90,9 +113,18 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(res.stdout.strip().splitlines()[-1]) >= 20   # every module was imported
 
 
-@pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix() for p in
-                                        [*(SRC / "repro_torch").rglob("*.py"),
-                                         REPO / "chip_smoke.py"]))
+PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in
+                    [*(SRC / "repro_torch").rglob("*.py"), REPO / "chip_smoke.py"])
+
+
+@pytest.mark.parametrize("sub", ["cluster", "des", "scenario", "fleet"])
+def test_import_guard_walks_the_control_plane(sub):
+    """The walk of every file below covers each subpackage of the control
+    plane, lazy imports inside functions included."""
+    assert any(p.startswith(f"src/repro_torch/{sub}/") for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
 def test_no_import_statement_names_jax_or_reference(path):
     """Also lazy imports inside functions, which the guard cannot reach."""
     tree = ast.parse((REPO / path).read_text())
@@ -106,6 +138,30 @@ def test_no_import_statement_names_jax_or_reference(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+NO_TORCH = """
+import sys
+import repro_torch.cluster, repro_torch.des.simulator, repro_torch.fleet, repro_torch.scenario
+from repro_torch.scenario import get_preset, run
+for backend in ("thread", "des"):
+    assert run(get_preset("distributed_parity"), backend).num_requests > 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+def test_control_plane_runs_without_torch():
+    """The emulator's control plane runs with no torch loaded, as the
+    reference's runs with no JAX: importing the cluster, the DES, the
+    scenarios and the fleets and running a scenario on the thread and DES
+    backends leaves ``torch`` out of ``sys.modules``.  The process
+    backend's replicas import the same modules."""
+    res = subprocess.run(
+        [sys.executable, "-c", NO_TORCH], cwd=REPO, capture_output=True, text=True,
+        env={"PYTHONPATH": str(SRC), "PYTHONDONTWRITEBYTECODE": "1",
+             "JAX_PLATFORMS": "cpu"}, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def _normalised(text: str):
