@@ -47,6 +47,14 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    include an empty one; and times K1's cache segment at llama3_8b's chunk
    (T = 512 over 1024 cached keys) and K2 at its decode shape, each with
    and without the lse, back to back and in a CUDA graph;
+3e. holds K1's gradient kernel (``csrc/flash_attention_bwd.cu``, through
+   ``ops.flash_attention``'s autograd) against autograd through the plain
+   version on the same values in fp32, each gradient within 1e-3 (fp32) or
+   2e-2 (bf16) of the largest reference entry: fp32 and bf16, D 32-256,
+   causal, windowed and non-causal, T 1, 37, 512, 1500 with G 1, 8, 10, and
+   whisper's cross-attention (448 queries over 1500 frames); and times it at
+   qwen2_5_3b's training shape (B=4, T=S=512, 16 query and 2 KV heads of
+   128) against its bound, autograd's plain backward and SDPA's backward;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -140,14 +148,24 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    .compare`` of the ``distributed_parity`` preset on the thread, process
    (shared memory and TCP) and DES backends, which raises unless the
    reference's parity bar holds; it must launch no kernel and leave the
-   allocated device memory as it was.
+   allocated device memory as it was;
+21. trains qwen2_5_3b at full size in fp32 (3,085,938,688 parameters)
+   through the training CLI's code (``repro_torch.launch.train``), batch 8
+   of 512 tokens in 2 microbatches, remat: step 1 through the kernels and
+   through the plain attention on the same batch (loss 1e-4, gradient norm
+   1e-2), then 8 steps (finite losses, parameters moved, K1 144 launches a
+   step and K1-bwd 72), step ms, tokens/s, peak memory, and one more step
+   under torch.profiler (device busy share, K1 and K1-bwd shares);
+21b. restarts on the card: qwen2_5_3b at full width cut to 2 layers, 4
+   steps straight against 2, a save, a restore into fresh tensors and 2
+   more, bit for bit (the checkpoint in a temporary directory).
 
 Each model is freed before the next is built.  It prints one JSON
-``kernels`` line (K1, K2 and K3, their launches summed over the serving
-runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19), the card's name and power
-limit, and
+``kernels`` line (K1, K1-bwd, K2 and K3; launches summed over the serving
+runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19 and phase 21's 8 training
+steps), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
-phase 3 and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
+phase 3e and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
 """
 
@@ -158,6 +176,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1085,6 +1104,153 @@ def measure_ssd(ops):
 
 
 # -------------------------------------------------------------------------
+# 3e. K1's gradient kernel against autograd through the plain version
+# -------------------------------------------------------------------------
+
+# Tolerances of K1-bwd, against the largest entry of the reference gradient:
+# fp32 1e-3, since the kernel's fp32 sums run over up to 1500 keys and 10
+# query heads of a group in another order than the plain version's products,
+# and each dS = P (dP - delta) subtracts two sums of that size; bf16 2e-2, the
+# bf16 tolerance of every kernel here: the kernel computes in fp32 but reads
+# K1's bf16-rounded output for delta and rounds its own results to bf16.
+BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def flash_grads(ops, q, k, v, dout, force=None, **kw):
+    """(out, dq, dk, dv) of ``ops.flash_attention`` under ``dout``."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, force=force, **kw)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+def check_flash_bwd_point(ops, gen, B, T, S, Hq, Hkv, D, dtype, causal=True, window=None):
+    """K1's gradient through ``ops.flash_attention`` (K1 forward and K1-bwd)
+    against autograd through the plain version on the same values in fp32,
+    each of dq, dk, dv within ``BWD_TOL`` of the largest entry of the three.
+    Returns the largest error relative to that entry."""
+    dt = getattr(torch, dtype)
+    q, k, v = qkv(gen, B, T, S, Hq, Hkv, D, dt)
+    dout = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window)
+    got = flash_grads(ops, q, k, v, dout, **kw)
+    exp = flash_grads(ops, q.float(), k.float(), v.float(), dout.float(), force="plain", **kw)
+    torch.cuda.synchronize()
+    largest = max(float(e.abs().max()) for e in exp[1:])     # dq and dk are 0 at S = 1
+    worst_abs = 0.0
+    for name, g, e in zip(("dq", "dk", "dv"), got[1:], exp[1:]):
+        if g.dtype != dt or not torch.isfinite(g).all():
+            raise AssertionError(f"K1-bwd {name}: {g.dtype}, or not finite")
+        worst_abs = max(worst_abs, float((g.float() - e).abs().max()))
+    worst = worst_abs / largest
+    what = f"K1-bwd {(B, T, S, Hq, Hkv, D)} {dtype} causal={causal} window={window}"
+    ok = worst <= BWD_TOL[dtype]
+    log(f"  {what:70s} max err / max |grad| {worst:.3e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: {worst} of the largest gradient, over {BWD_TOL[dtype]}")
+    return worst, worst_abs
+
+
+def check_flash_bwd_grid(ops):
+    """Phase 3e: fp32 and bf16; D 32, 64, 128, 256; causal, windowed and
+    non-causal; T 1, 37, 512, 1500 with G 1, 8, 10 and 1; and whisper's
+    cross-attention, 448 queries over 1500 frames without the mask."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        for D in (32, 64, 128, 256):
+            for T, Hq, Hkv in ((1, 2, 2), (37, 16, 2), (512, 10, 1), (1500, 4, 4)):
+                for causal, window, S in ((True, None, T), (True, max(1, T // 3), T),
+                                          (False, None, T + 13)):
+                    worst[dtype] = max(worst[dtype], check_flash_bwd_point(
+                        ops, gen, 1, T, S, Hq, Hkv, D, dtype, causal, window)[0])
+                    n += 1
+        worst[dtype] = max(worst[dtype], check_flash_bwd_point(
+            ops, gen, 2, 448, 1500, 8, 8, 64, dtype, causal=False)[0])
+        n += 1
+    log(f"K1-bwd: {n} cases, worst error over the largest gradient entry: {worst}")
+    return worst
+
+
+def measure_flash_bwd(ops):
+    """K1-bwd at qwen2_5_3b's training shape (a microbatch of 4 sequences of
+    512 tokens, 16 query heads over 2 KV heads of 128, causal) in fp32 and
+    bf16: the kernel (back to back, in a CUDA graph), autograd's backward
+    through the plain version, SDPA's backward (its forward and backward
+    less its forward, KV heads repeated and laid out (B, H, S, D) first, the
+    causal mask as ``is_causal``), and the bound: five products of
+    2 T S_eff D a (batch, head) over the peak of the inputs' type, against
+    reading q, k, v, out, dout and lse once and writing dq, dk, dv once."""
+    from repro_torch.kernels import flash_attention_bwd as bwd_mod
+    B, T, S, Hq, Hkv, D = 4, 512, 512, 16, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v = qkv(gen, B, T, S, Hq, Hkv, D, dt)
+        dout = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dt)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True)
+        err, err_abs = check_flash_bwd_point(ops, gen, B, T, S, Hq, Hkv, D, dtype)
+
+        def kern():
+            return bwd_mod.flash_attention_bwd(q, k, v, out, dout, lse)
+        ms, g_ms = time_ms(kern), graph_ms(kern)
+        qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+        plain_out = ops.flash_attention(qp, kp, vp, force="plain")
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, (qp, kp, vp), dout,
+                                                       retain_graph=True), iters=5)
+        del plain_out
+        G = Hq // Hkv
+        qh = q.transpose(1, 2).contiguous().requires_grad_()
+        kh = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        vh = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        doh = dout.transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), doh)
+        fwd_ms, fb_ms = time_ms(sdpa_fwd), time_ms(sdpa_fwd_bwd)
+        fwd_g, fb_g = graph_ms(sdpa_fwd), graph_ms(sdpa_fwd_bwd)
+        k1_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+        k1_g = graph_ms(lambda: ops.flash_attention(q, k, v))
+        log(f"K1 forward at that shape, {dtype}: {k1_ms:.4f} ms ({k1_g:.4f} in a graph), "
+            f"SDPA forward {fwd_ms:.4f} ms ({fwd_g:.4f} in a graph)")
+        pairs = flash_pairs(T, S, True, None)
+        flops = 5 * 2 * pairs * D * Hq * B
+        # q, out and dout read, dq written; k, v read, dk, dv written; lse read.
+        nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+            + 4 * lse.numel()
+        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+        b_ms, b_by = bound(flops, nbytes, peak)
+        launch = pass_ms(kern, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+        log(f"K1-bwd qwen2_5_3b {(B, T, S, Hq, Hkv, D)} {dtype}: kernel {ms:.4f} ms "
+            f"({g_ms:.4f} in a graph; device time per launch {launch}), plain backward "
+            f"{plain_ms:.4f} ms, SDPA backward {fb_ms - fwd_ms:.4f} ms ({fb_g - fwd_g:.4f} in a "
+            f"graph; forward {fwd_ms:.4f}, forward and backward {fb_ms:.4f}), bound "
+            f"{b_ms:.5f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        res[dtype] = {"max_err_rel": err, "max_abs_err": err_abs, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                      "library_ms": fb_ms - fwd_ms, "library_graph_ms": fb_g - fwd_g,
+                      "bound_ms": b_ms, "bound_by": b_by, "launch_ms": launch,
+                      "k1_forward_ms": k1_ms, "k1_forward_graph_ms": k1_g,
+                      "sdpa_forward_ms": fwd_ms, "sdpa_forward_graph_ms": fwd_g}
+        del qh, kh, vh
+    f32 = res["float32"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:109",
+            "gradient_of": "K1; the reference differentiates its jnp attention with XLA "
+                           "(src/repro/models/transformer.py:133-136)",
+            "max_abs_err": f32["max_abs_err"], "max_err_rel": f32["max_err_rel"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"], "graph_ms": f32["graph_ms"],
+            "shape": [B, T, S, Hq, Hkv, D], "dtype": "float32",
+            "forward": {k: f32[k] for k in ("k1_forward_ms", "k1_forward_graph_ms",
+                                            "sdpa_forward_ms", "sdpa_forward_graph_ms")},
+            "bfloat16": res["bfloat16"]}
+
+
+# -------------------------------------------------------------------------
 # 4. and 7. model checks
 # -------------------------------------------------------------------------
 
@@ -1205,8 +1371,11 @@ def main() -> int:
     log("== 3 (deferred append). K1 with q_offset and its lse, K2 with its lse")
     check_lse_grid(ops, torch.Generator(device="cuda").manual_seed(20))
     kernels[0]["cache_segment"], kernels[1]["lse"] = measure_defer_segments(ops)
+    log("== 3e. K1's gradient kernel against autograd through the plain version")
+    check_flash_bwd_grid(ops)
+    kernels.insert(1, measure_flash_bwd(ops))
     if "--kernels-only" in sys.argv[1:]:
-        log(f"--kernels-only: stopping after phase 3, {time.monotonic() - t_start:.1f} s")
+        log(f"--kernels-only: stopping after phase 3e, {time.monotonic() - t_start:.1f} s")
         return 0
     launches = collections.Counter()      # summed over every serving path
 
@@ -1297,6 +1466,13 @@ def main() -> int:
     log("== 20. the distributed control plane: compare distributed_parity on the thread, "
         "process and DES backends")
     control_plane()
+
+    log("== 21. training qwen2_5_3b at full size in fp32 through K1 and K1-bwd")
+    launches.update(train_qwen(ops))
+    torch.cuda.empty_cache()
+    log("== 21b. restart on the card: qwen2_5_3b at full width, 2 layers, bit for bit")
+    restart_qwen()
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2026,6 +2202,185 @@ def profile_serving(serve, ranges=()) -> None:
             f"\"other\" {groups['other'] - scan_ms:.2f} ms")
     for ms, n, name in sorted(kernels, reverse=True)[:10]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
+
+
+def train_qwen(ops):
+    """Phase 21: qwen2_5_3b at full size in fp32 (3,085,938,688 parameters),
+    trained through the training CLI's own code (``repro_torch.launch.train``:
+    ``setup`` and ``run``) at ``--batch 8 --seq 512 --microbatches 2`` with
+    remat.  Step 1 first, without an update, through the kernels and through
+    ``force="plain"`` on the same batch: loss within 1e-4 and the gradients'
+    global norm within 1e-2 (relative).  Then 8 steps: every loss finite,
+    the parameters moved, K1 36 x 2 x 2 launches a step (the remat runs each
+    forward again) and K1-bwd 36 x 2; step ms, tokens/s, peak allocated
+    memory, and one more step under torch.profiler.  Returns the 8 steps'
+    launch counts."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.optim import global_norm, tree_leaves, value_and_grad
+    args = train_cli.parse_args(["--arch", "qwen2_5_3b", "--full-config", "--steps", "8",
+                                 "--batch", "8", "--seq", "512", "--microbatches", "2",
+                                 "--log-every", "1"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    cfg, model, params = train_cli.setup(args)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"initialised {n_params:,} fp32 parameters in {time.monotonic() - t0:.1f} s")
+    if n_params != 3_085_938_688 or n_params != cfg.param_count():
+        raise AssertionError(f"qwen2_5_3b has {n_params} parameters")
+    n_layers = cfg.num_layers
+    batch = next(train_cli.data_stream(cfg.vocab_size, args.batch, args.seq, seed=1234,
+                                       start_step=0))
+    step1 = {}
+    for force in (None, "plain"):
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        loss, _, grads = value_and_grad(model, params, batch, microbatches=2, force=force)
+        norm = float(global_norm(grads))
+        step1[force] = (float(loss), norm, ops.launch_counts(), time.monotonic() - t0)
+        log(f"step 1 {'kernels' if force is None else 'plain'}: loss {step1[force][0]:.6f}, "
+            f"gradient norm {norm:.6f}, {step1[force][3]:.2f} s, launches {step1[force][2]}")
+        if force is None:      # the first layer's query projection, to compare
+            wq_grad = grads["blocks"]["attn"]["wq"][0].clone()
+        del grads
+    (l_k, n_k, c_k, _), (l_p, n_p, c_p, _) = step1[None], step1["plain"]
+    wq_plain = params["blocks"]["attn"]["wq"].grad[0]
+    wq_err = float((wq_grad - wq_plain).abs().max()) / float(wq_plain.abs().max())
+    log(f"step 1: layer 0's wq gradient through the kernels is {wq_err:.3e} of its largest "
+        f"entry from the plain one's")
+    if abs(l_k - l_p) > 1e-4 * abs(l_p) or abs(n_k - n_p) > 1e-2 * abs(n_p) or wq_err > 1e-3:
+        raise AssertionError(f"step 1: kernels loss {l_k}, norm {n_k}; plain {l_p}, {n_p}; "
+                             f"wq gradient {wq_err} apart")
+    if (c_k["flash_attention"], c_k["flash_attention_bwd"]) != (4 * n_layers, 2 * n_layers) \
+            or c_p["flash_attention"] or c_p["flash_attention_bwd"]:
+        raise AssertionError(f"step 1 launches: kernels {c_k}, plain {c_p}")
+    log(f"step 1 agrees: loss {abs(l_k - l_p) / abs(l_p):.3e}, gradient norm "
+        f"{abs(n_k - n_p) / abs(n_p):.3e} apart (relative)")
+
+    def sample(p):
+        return [p["embed"][:4].detach().clone(), p["blocks"]["attn"]["wq"][0, :4].detach().clone(),
+                p["blocks"]["mlp"]["wo"][-1, :4].detach().clone()]
+    before = sample(params)
+    ops.reset_launch_counts()
+    out = train_cli.run(args, cfg, model, params)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    params, opt = out["params"], out["opt"]
+    losses = [h["loss"] for h in out["history"]]
+    moved = [float((a - b).abs().max()) for a, b in zip(sample(params), before)]
+    expect = (8 * 4 * n_layers, 8 * 2 * n_layers)
+    log(f"8 steps: losses {losses}, parameters moved by {moved}, launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or not all(m > 0 for m in moved):
+        raise AssertionError(f"training: losses {losses}, moved {moved}")
+    if (counts["flash_attention"], counts["flash_attention_bwd"]) != expect:
+        raise AssertionError(f"K1 and K1-bwd launched {counts}, expected {expect}")
+    secs = sorted(h["seconds"] for h in out["history"][1:])
+    step_s = secs[len(secs) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train step (median of steps 2-8): {step_s * 1e3:.1f} ms, "
+        f"{args.batch * args.seq / step_s:,.0f} tokens/s; steps {[round(h['seconds'] * 1e3, 1) for h in out['history']]} ms; "
+        f"peak allocated {peak / 2**30:.2f} GiB; allocated now "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    profile_training(model, params, opt, cfg, args)
+    return counts
+
+
+def profile_training(model, params, opt, cfg, args):
+    """One more train step (step 9) under torch.profiler: the device's busy
+    share of the step's wall time and the shares of device time of K1, K1-bwd,
+    the matrix products and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.optim import OptimizerConfig, make_train_step
+    step_fn = make_train_step(model, OptimizerConfig(lr=args.lr, warmup_steps=20,
+                                                     total_steps=args.steps),
+                              microbatches=args.microbatches)
+    batch = next(train_cli.data_stream(cfg.vocab_size, args.batch, args.seq, seed=1234,
+                                       start_step=8))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    groups = {"K1 (flash_fwd)": 0.0, "K1-bwd (flash_bwd)": 0.0, "matrix products": 0.0,
+              "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "self_device_time_total", 0) / 1e3
+        if ms <= 0:
+            continue
+        kernels.append((ms, evt.count, evt.key))
+        low = evt.key.lower()
+        if "flash_fwd" in evt.key:
+            groups["K1 (flash_fwd)"] += ms
+        elif "flash_bwd" in evt.key:
+            groups["K1-bwd (flash_bwd)"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
+            groups["matrix products"] += ms
+        else:
+            groups["other"] += ms
+    total = sum(groups.values())
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time in a train step")
+    log(f"train step under the profiler: wall {wall_ms:.1f} ms, device busy {total:.1f} ms "
+        f"({100 * total / wall_ms:.1f}%), idle {100 * (1 - total / wall_ms):.1f}%")
+    for g, ms in groups.items():
+        log(f"  {g:22s} {ms:9.2f} ms  {100 * ms / total:5.1f}% of device time")
+    for ms, n, name in sorted(kernels, reverse=True)[:8]:
+        log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
+
+
+def restart_qwen():
+    """Phase 21b: qwen2_5_3b at full width cut to 2 layers, fp32, batch 8 of
+    512 tokens in 2 microbatches: 4 steps straight against 2 steps, a save,
+    a restore into fresh tensors and 2 more, every parameter and moment bit
+    for bit; the checkpoint in a temporary directory, deleted after."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import data_stream
+    from repro_torch.models.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.models.optim import (OptimizerConfig, init_adamw, make_train_step,
+                                         tree_leaves)
+    from repro_torch.models.transformer import build_model
+    cfg = get_config("qwen2_5_3b").replace(num_layers=2, layer_pattern=None)
+    model = build_model(cfg)
+    step_fn = make_train_step(model, OptimizerConfig(warmup_steps=2, total_steps=10),
+                              microbatches=2)
+
+    def fresh():
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.float32)
+        return params, init_adamw(params)
+
+    def run(params, opt, start, stop):
+        stream = data_stream(cfg.vocab_size, 8, 512, seed=7, start_step=start)
+        for _ in range(start, stop):
+            params, opt, metrics = step_fn(params, opt, next(stream))
+        return params, opt, float(metrics["loss"])
+
+    t0 = time.monotonic()
+    p_ref, o_ref, loss_ref = run(*fresh(), 0, 4)
+    p_half, o_half, _ = run(*fresh(), 0, 2)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        path = save_checkpoint(ckpt_dir, 2, p_half, o_half, extra={"loss": 1.0})
+        size = path.stat().st_size
+        if latest_step(ckpt_dir) != 2:
+            raise AssertionError("latest_step did not find step 2")
+        del p_half, o_half
+        p_new, o_new, meta = restore_checkpoint(ckpt_dir, 2, *fresh())
+    p_out, o_out, loss_out = run(p_new, o_new, 2, 4)
+    pairs = list(zip(tree_leaves(p_ref), tree_leaves(p_out))) + list(
+        zip(tree_leaves([o_ref.mu, o_ref.nu]), tree_leaves([o_out.mu, o_out.nu])))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    log(f"restart: {same} of {len(pairs)} parameter and moment tensors bit-identical, steps "
+        f"{int(o_ref.step)} and {int(o_out.step)}, loss {loss_ref} and {loss_out}; checkpoint "
+        f"{size / 2**30:.2f} GiB; {time.monotonic() - t0:.1f} s")
+    if same != len(pairs) or int(o_out.step) != 4 or loss_out != loss_ref \
+            or meta["step"] != 2:
+        raise AssertionError("the restarted run is not bit-identical to the straight one")
 
 
 def _widen(tree):

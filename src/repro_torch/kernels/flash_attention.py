@@ -153,6 +153,25 @@ def kv_tile_range(q0: int, positions: int, T: int, S: int, block_keys: int,
     return k_begin // block_keys, -(-k_end // block_keys)
 
 
+def q_tile_range(k0: int, block_keys: int, T: int, S: int, block_q: int, causal: bool,
+                 window: Optional[int], q_offset: Optional[int] = None) -> Tuple[int, int]:
+    """[first, end) of the query tiles of ``block_q`` rows that see a key of
+    the tile [k0, k0 + block_keys) (clipped to S): the inverse of
+    :func:`kv_tile_range`, as the backward's dK/dV kernel walks them.  Query
+    t sits at key position ``q_offset + t`` (``S - T`` by default) and sees
+    key j when j <= it, and it - j < ``window``, under the causal mask."""
+    offset = S - T if q_offset is None else q_offset
+    k_last = min(k0 + block_keys, S) - 1
+    t_lo, t_hi = 0, T - 1
+    if causal:
+        t_lo = max(0, k0 - offset)
+        if window is not None:
+            t_hi = min(t_hi, k_last + window - 1 - offset)
+    if t_lo > t_hi:
+        return t_lo // block_q, t_lo // block_q
+    return t_lo // block_q, t_hi // block_q + 1
+
+
 def tile_needs_mask(k0: int, block_keys: int, S: int, q_lo: int, q_hi: int,
                     causal: bool, window: Optional[int]) -> bool:
     """Whether KV tile [k0, k0 + block_keys) must be masked for query

@@ -10,8 +10,9 @@ when a caller asks for them (``force="plain"``), to hold the CUDA kernels
 against them.  ``flash_attention_tiled``, ``paged_attention_split`` and
 ``ssd_scan_two_pass`` spell out the CUDA kernels' own decompositions (K1's
 packed tiles and edge-masked KV walk, K2's split and merge, K3's two passes)
-in plain PyTorch for the tests and ``chip_smoke.py``; no model path calls
-them.
+in plain PyTorch for the tests and ``chip_smoke.py``, and
+``flash_attention_bwd_tiled`` the tiles of K1's gradient kernel; no model
+path calls them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flash_attention as flash_mod
+from . import flash_attention_bwd as bwd_mod
 from .paged_attention import PARTITION
 
 NEG_INF = -1e30
@@ -132,6 +134,76 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
         lse[:, q0:q0 + n] = row_lse.reshape(B, Hkv, p.groups, n, p.pack).permute(0, 3, 1, 2, 4)
     out = out.reshape(B, T, Hq, D).to(q.dtype)
     return (out, lse.reshape(B, T, Hq)) if return_lse else out
+
+
+def flash_attention_bwd_tiled(q, k, v, out, dout, lse, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              softmax_scale: Optional[float] = None,
+                              q_offset: Optional[int] = None):
+    """K1's gradient kernel in plain PyTorch, tile by tile: (dq, dk, dv) of
+    ``out`` = flash_attention(q, k, v, ...) under ``dout``, from the fp32
+    ``lse`` (B, T, Hq) the forward returned; shapes and masks as
+    :func:`flash_attention_ref`'s.  Returns fp32.
+
+    As ``csrc/flash_attention_bwd.cu`` computes it: Q is staged times the
+    scale; delta = rowsum(dO ∘ O); each key tile of ``BLOCK_K`` keys walks
+    the query tiles of ``BLOCK_Q`` rows that see it
+    (``flash_attention.q_tile_range``) and accumulates dV += Pᵀ·dO and
+    dK += dSᵀ·Q·scale, with P = exp(Q·Kᵀ·scale − lse) (0 where masked or
+    where the row saw no key) and dS = P ∘ (dO·Vᵀ − delta), the G query
+    heads of a KV head summed; each query tile walks the key tiles it sees
+    (``kv_tile_range``) for dQ += dS·K·scale."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale or 1.0 / math.sqrt(D)
+    offset = S - T if q_offset is None else q_offset
+    bq, bk = bwd_mod.BLOCK_Q, bwd_mod.BLOCK_K
+    qs = q.float() * scale
+    do = dout.float()
+    kf = k.float().repeat_interleave(G, dim=2)                       # (B, S, Hq, D)
+    vf = v.float().repeat_interleave(G, dim=2)
+    delta = (do * out.float()).sum(-1).permute(0, 2, 1)              # (B, Hq, T)
+    lse = lse.float().permute(0, 2, 1)
+
+    def tile(t0, k0):
+        """P and dS (B, Hq, rows, keys) of query rows t0.. against keys k0.."""
+        t1, k1 = min(t0 + bq, T), min(k0 + bk, S)
+        qpos = offset + torch.arange(t0, t1, device=q.device)[:, None]
+        key = torch.arange(k0, k1, device=q.device)[None, :]
+        ok = torch.ones((t1 - t0, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = key <= qpos
+            if window is not None:
+                ok = ok & (qpos - key < window)
+        s = torch.einsum("bthd,bshd->bhts", qs[:, t0:t1], kf[:, k0:k1])
+        row_lse = lse[:, :, t0:t1, None]
+        p = torch.where(ok & (row_lse > -math.inf), torch.exp(s - row_lse), 0.0)
+        dp = torch.einsum("bthd,bshd->bhts", do[:, t0:t1], vf[:, k0:k1])
+        return p, p * (dp - delta[:, :, t0:t1, None])
+
+    dk = torch.zeros((B, S, Hkv, D), device=q.device)
+    dv = torch.zeros((B, S, Hkv, D), device=q.device)
+    for k0 in range(0, S, bk):
+        k1 = min(k0 + bk, S)
+        dk_h = torch.zeros((B, k1 - k0, Hq, D), device=q.device)
+        dv_h = torch.zeros((B, k1 - k0, Hq, D), device=q.device)
+        first, end = flash_mod.q_tile_range(k0, bk, T, S, bq, causal, window, offset)
+        for qt in range(first, end):
+            t0, t1 = qt * bq, min(qt * bq + bq, T)
+            p, ds = tile(t0, k0)
+            dv_h += torch.einsum("bhts,bthd->bshd", p, do[:, t0:t1])
+            dk_h += torch.einsum("bhts,bthd->bshd", ds, qs[:, t0:t1])
+        dk[:, k0:k1] = dk_h.view(B, k1 - k0, Hkv, G, D).sum(3)
+        dv[:, k0:k1] = dv_h.view(B, k1 - k0, Hkv, G, D).sum(3)
+    dq = torch.zeros((B, T, Hq, D), device=q.device)
+    for t0 in range(0, T, bq):
+        first, end = flash_mod.kv_tile_range(t0, bq, T, S, bk, causal, window, offset)
+        for kt in range(first, end):
+            k0 = kt * bk
+            _, ds = tile(t0, k0)
+            dq[:, t0:t0 + bq] += torch.einsum("bhts,bshd->bthd", ds, kf[:, k0:k0 + bk])
+    return dq * scale, dk, dv
 
 
 def _window_start(context_lens, window: Optional[int]):

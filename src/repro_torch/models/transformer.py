@@ -76,8 +76,16 @@ stack (RecurrentGemma) writes each layer's right after it, as the
 reference's unrolled stack does.  The encoder-decoder keeps the inline
 append, as the reference's ``EncDecLM`` does.
 
-``moe_impl="a2a"`` and the training loss raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Training (``train_loss``, as the reference's) runs every block without a
+cache (:func:`_train_block`, which :func:`run_block` also runs given
+``cache=None``): attention over the T positions of the batch through
+``ops.flash_attention``, causal from 0 with the config's window (no mask
+for the encoder and the cross-attention), which on the card is K1 forward
+and K1's gradient kernel backward; SSD, RG-LRU and MoE blocks as in a
+prefill from a zero state.  ``remat`` wraps each block in
+``torch.utils.checkpoint``.  On the CPU every architecture trains; on the
+card an SSD block refuses to (K3 has no gradient kernel yet), naming its
+ROADMAP item, and so does ``moe_impl="a2a"`` anywhere.
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
@@ -101,7 +110,7 @@ RECURRENT_KINDS = ("ssd", "rglru")
 
 _ROADMAP = {
     "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
-    "train": "ROADMAP Queue A item 13 (training)",
+    "train": "ROADMAP Queue A item 13b (K3's backward kernel: training SSD layers on the card)",
 }
 
 
@@ -205,9 +214,12 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     Hkv, D)} and the frame count "frames"), for an enc-dec decoder layer.
     With ``deferred`` (a list; ``kv_append="defer"``) an attention block
     reads the cache without writing it and appends its new (k, v) to the
-    list instead.  Returns y (n, T, d)."""
+    list instead.  Returns y (n, T, d).
+
+    ``cache=None`` is training, :func:`_train_block` without its MoE
+    auxiliary loss (``step`` is then ignored)."""
     if cache is None:
-        raise _unported("train")
+        return _train_block(cfg, kind, p, x, positions, force, cross)[0]
     h = L.apply_norm(cfg, x, p["norm1"])
     if kind == "ssd":
         return x + _recurrent_mixer(cfg, kind, p["ssd"], h, cache, step, force)
@@ -248,6 +260,64 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     if cfg.moe is not None:
         return x + L.moe(cfg, p["moe"], h2, force=force)[0]
     return x + L.mlp(cfg, p["mlp"], h2)
+
+
+def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Optional[str],
+                 cross: Optional[Tuple[Dict, Tuple]]):
+    """A block without a cache, the reference's ``cache is None`` branch:
+    it attends over the batch's own T positions (causal, the config's
+    window) through ``ops.flash_attention`` and writes nothing; ``cross``
+    is (the cross-attention params, the encoder's (k, v) (B, F, Hkv, D)),
+    over which the decoder attends without a mask.  Returns (y, the MoE
+    block's ``moe_aux_loss`` or None).  An SSD block refuses to train on the
+    card: K3 has no gradient kernel yet."""
+    h = L.apply_norm(cfg, x, p["norm1"])
+    if kind == "ssd":
+        if ops._use_kernel(h, force):
+            raise _unported("train")
+        return x + L.ssd_prefill(cfg, p["ssd"], h, force=force)[0], None
+    if kind == "rglru":
+        x = x + L.rglru(cfg, p["rglru"], h)[0]
+        return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"])), None
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
+    ctx = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, force=force)
+    x = x + L.attn_out(p["attn"], ctx)
+    if cross is not None:
+        cp, (ek, ev) = cross
+        qx = L._proj_heads(L.apply_norm(cfg, x, cp["norm"]), cp["attn"]["wq"])
+        x = x + L.attn_out(cp["attn"], ops.flash_attention(qx, ek, ev, causal=False,
+                                                           force=force))
+    h2 = L.apply_norm(cfg, x, p["norm2"])
+    if cfg.moe is None:
+        return x + L.mlp(cfg, p["mlp"], h2), None
+    y, moe_aux = L.moe(cfg, p["moe"], h2, force=force)
+    return x + y, moe_aux["moe_aux_loss"]
+
+
+def _train_stack(cfg: ModelConfig, kinds, blocks, x, positions, *, remat: bool,
+                 force: Optional[str], crosses=None):
+    """Run the blocks ``blocks`` (stacked (L, ...) leaves or a per-layer
+    list) of kinds ``kinds`` without a cache; with ``remat`` each block runs
+    under ``torch.utils.checkpoint``, which keeps only its input and runs it
+    again in the backward.  ``crosses`` gives each decoder layer its
+    ``cross`` argument.  Returns (x, aux summed over the layers)."""
+    aux: Dict[str, Any] = {}
+    for i, kind in enumerate(kinds):
+        cross = None if crosses is None else crosses[i]
+
+        def block(h, p_l, cross=cross, kind=kind):
+            return _train_block(cfg, kind, p_l, h, positions, force, cross)
+
+        p_l = _layer(blocks, i)
+        if remat:
+            x, layer_aux = checkpoint(block, x, p_l, use_reentrant=False)
+        else:
+            x, layer_aux = block(x, p_l)
+        if layer_aux is not None:
+            aux["moe_aux_loss"] = aux.get("moe_aux_loss", 0.0) + layer_aux
+    return x, aux
 
 
 def _paged(q, k_c, v_c, tables, lens, window, force, return_lse=False):
@@ -394,6 +464,8 @@ class TransformerLM:
         self.cfg = cfg
         kinds = set(cfg.layer_pattern)
         self.uniform: Optional[str] = cfg.layer_pattern[0] if len(kinds) == 1 else None
+        # the parameter subtrees whose leaves stack the layers on axis 0
+        self.stacked = ("blocks",) if self.uniform else ()
         self.has_attn = bool(kinds & set(ATTN_KINDS))
         self.recurrent = bool(kinds & set(RECURRENT_KINDS))
 
@@ -423,10 +495,13 @@ class TransformerLM:
         return params
 
     # -------------------------------------------------------------- embed --
-    def _embed_inputs(self, params, inputs):
+    def _embed_inputs(self, params, inputs, *, train: bool = False):
         """(B, T, d): the token embeddings, after the frontend embeddings
-        (B, F, d) where the config has a frontend and the inputs carry them."""
+        (B, F, d) where the config has a frontend and the inputs carry them.
+        A training batch also carries ``labels`` and may carry ``loss_mask``."""
         allowed = {"tokens", "frontend_embeds"} if self.cfg.frontend else {"tokens"}
+        if train:
+            allowed |= {"labels", "loss_mask"}
         extra = set(inputs) - allowed
         if extra:
             raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
@@ -466,6 +541,47 @@ class TransformerLM:
             _apply_deferred_append(cache["layers"], deferred, positions, step)
         x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
         return self._unembed(params, x)[:, 0, :]
+
+    # ------------------------------------------------------------- train --
+    def train_loss(self, params, batch, *, remat: bool = True, loss_chunk: int = 512,
+                   force: Optional[str] = None):
+        """Teacher-forced cross-entropy, as the reference's ``train_loss``:
+        ``batch`` holds ``tokens`` and ``labels`` (B, T), optionally
+        ``loss_mask`` (B, T) and, for a frontend config, ``frontend_embeds``
+        (B, F, d), whose positions carry no loss.  The logits are computed
+        ``loss_chunk`` positions at a time in fp32, so that (B, T, vocab) is
+        never whole; a ragged last chunk adds exactly what the reference's
+        zero padding (mask 0) adds.  An MoE config adds 0.01 times the summed
+        ``moe_aux_loss``.  Returns (loss, metrics {"loss" (the CE alone),
+        "tokens", and "moe_aux_loss" for MoE}); ``force="plain"`` as for
+        :meth:`prefill`."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch, train=True)
+        B, T = x.shape[:2]
+        positions = torch.arange(T, device=x.device).expand(B, T)
+        x, aux = _train_stack(cfg, cfg.layer_pattern, params["blocks"], x, positions,
+                              remat=remat, force=force)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        if "frontend_embeds" in batch:
+            x = x[:, batch["frontend_embeds"].shape[1]:]      # no loss on frontend positions
+        labels = batch["labels"].long()
+        S = x.shape[1]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if mask is None
+                else mask.float())
+        total = x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, S, loss_chunk):
+            logits = self._unembed(params, x[:, c0:c0 + loss_chunk]).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, labels[:, c0:c0 + loss_chunk, None])[..., 0]
+            total = total + torch.sum(-ll * mask[:, c0:c0 + loss_chunk])
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = total / denom
+        metrics = {"loss": loss.detach(), "tokens": denom}
+        if "moe_aux_loss" in aux:
+            loss = loss + 0.01 * aux["moe_aux_loss"]
+            metrics["moe_aux_loss"] = aux["moe_aux_loss"].detach()
+        return loss, metrics
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
@@ -555,6 +671,7 @@ class EncDecLM:
         check_supported(cfg)
         self.cfg = cfg.replace(kv_append="inline")      # enc-dec keeps inline
         self.has_attn, self.recurrent = True, False
+        self.stacked = ("encoder", "decoder", "cross")
 
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
@@ -603,10 +720,46 @@ class EncDecLM:
     def _cross_kv(self, params, enc_out):
         """Every decoder layer's cross-attention K and V of the encoder
         states: two (L, B, F, Hkv, D) tensors."""
-        cp = params["cross"]["attn"]
-        ks = [L._proj_heads(enc_out, cp["wk"][i]) for i in range(self.cfg.num_layers)]
-        vs = [L._proj_heads(enc_out, cp["wv"][i]) for i in range(self.cfg.num_layers)]
+        cps = [_layer(params["cross"], i)["attn"] for i in range(self.cfg.num_layers)]
+        ks = [L._proj_heads(enc_out, cp["wk"]) for cp in cps]
+        vs = [L._proj_heads(enc_out, cp["wv"]) for cp in cps]
         return torch.stack(ks), torch.stack(vs)
+
+    # ------------------------------------------------------------- train --
+    def train_loss(self, params, batch, *, remat: bool = True, loss_chunk: int = 512,
+                   force: Optional[str] = None):
+        """The reference's enc-dec ``train_loss``: the encoder over
+        ``batch["frontend_embeds"]`` (B, F, d), every decoder layer's cross
+        K/V from it, then the decoder over ``tokens`` (B, S) at positions
+        0 .. S − 1 (token and learned position embeddings), each layer's
+        cross-attention through K1 without the causal mask; the CE of
+        ``labels`` over the whole (B, S, vocab) in fp32 (no chunking, as the
+        reference; ``loss_chunk`` is unused), with ``loss_mask`` if given.
+        ``remat`` checkpoints the decoder's blocks, as the reference does.
+        Returns (loss, {"loss", "tokens"})."""
+        cfg = self.cfg
+        extra = set(batch) - {"tokens", "labels", "loss_mask", "frontend_embeds"}
+        if extra:
+            raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
+                             "always run from 0")
+        enc_out = self.encode(params, batch["frontend_embeds"], force=force)
+        ck, cv = self._cross_kv(params, enc_out)
+        tokens, labels = batch["tokens"], batch["labels"].long()
+        B, S = tokens.shape
+        x = params["embed"][tokens] + params["pos_embed"][:S][None]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        crosses = [(_layer(params["cross"], i), (ck[i], cv[i])) for i in range(cfg.num_layers)]
+        x, _ = _train_stack(cfg, ["attn"] * cfg.num_layers, params["decoder"], x, positions,
+                            remat=remat, force=force, crosses=crosses)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        logp = torch.log_softmax((x @ params["embed"].T).float(), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if mask is None
+                else mask.float())
+        tokens_n = torch.clamp(mask.sum(), min=1.0)
+        loss = torch.sum(-ll * mask) / tokens_n
+        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,

@@ -426,3 +426,98 @@ def test_defer_model_with_kernels_matches_plain(gen, arch):
         logits[force] = out
     for got, exp in zip(logits[None], logits["plain"]):
         torch.testing.assert_close(got, exp, rtol=2e-3, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# training: K1's gradient kernel and train steps with the kernels
+# --------------------------------------------------------------------------
+
+# K1-bwd against autograd through the plain version on the same values in
+# fp32, as a share of the largest entry of dq, dk, dv: fp32 1e-3 (sums over
+# up to hundreds of keys and a group's heads in another order, and dS
+# subtracts two of them), bf16 2e-2 (K1's bf16 output enters delta, and the
+# gradients are rounded to bf16).
+BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def _grads(q, k, v, dout, force=None, **kw):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, force=force, **kw)
+    return torch.autograd.grad(out, (q, k, v), dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,kw", [
+    (4, 512, 512, 16, 2, 128, {}),                  # qwen2_5_3b's training shape
+    (1, 37, 37, 8, 1, 32, {}), (2, 100, 100, 10, 1, 256, {"window": 33}),
+    (1, 1, 1, 2, 2, 64, {}), (1, 70, 70, 4, 2, 64, {"window": 1}),
+    (2, 448, 1500, 8, 8, 64, {"causal": False}),    # whisper's cross-attention
+    (1, 64, 200, 4, 4, 32, {"q_offset": 200, "window": 40})])   # rows that see no key
+def test_flash_bwd_kernel_matches_plain(gen, B, T, S, Hq, Hkv, D, kw, dtype):
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+    dout = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+    ops.reset_launch_counts()
+    got = _grads(q, k, v, dout, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    exp = _grads(q.float(), k.float(), v.float(), dout.float(), force="plain", **kw)
+    largest = max(float(e.abs().max()) for e in exp)
+    for g, e in zip(got, exp):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert float((g.float() - e).abs().max()) <= BWD_TOL[dtype] * largest
+
+
+def _train_counts(cfg, microbatches):
+    """K1 launches and K1-bwd calls of one remat train step."""
+    if cfg.encoder is not None:            # encoder without remat; self and cross with it
+        enc, dec = cfg.encoder.num_layers, cfg.num_layers
+        return (enc + 4 * dec) * microbatches, (enc + 2 * dec) * microbatches
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    return 2 * n_attn * microbatches, n_attn * microbatches
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen3_30b_a3b", "mixtral_8x7b",
+                                  "recurrentgemma_2b", "whisper_base"])
+def test_train_step_with_kernels_matches_plain(gen, arch):
+    """Reduced dense, MoE, windowed (mixtral, window 64 over 96 tokens),
+    RecurrentGemma and Whisper models at head_dim 32 (K1 rejects the reduced
+    configs' 16) in fp32: the loss and every gradient of a remat step of two
+    microbatches through K1 and K1-bwd against the plain attention (loss
+    1e-4; each leaf within 1e-3 of its largest plain entry)."""
+    from repro_torch.models.optim import tree_leaves, value_and_grad
+    cfg = get_reduced_config(arch).replace(head_dim=32, d_model=128)
+    model = build_model(cfg)
+    params = model.init(gen, torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 96), generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 96), generator=gen, device="cuda")}
+    if cfg.encoder is not None:
+        batch["frontend_embeds"] = torch.randn((4, 150, cfg.d_model), generator=gen,
+                                               device="cuda")
+    res = {}
+    for force in (None, "plain"):
+        ops.reset_launch_counts()
+        loss, _, grads = value_and_grad(model, params, batch, microbatches=2, force=force)
+        counts = ops.launch_counts()
+        res[force] = (float(loss), [g.clone() for g in tree_leaves(grads)],
+                      (counts["flash_attention"], counts["flash_attention_bwd"]))
+    assert res[None][2] == _train_counts(cfg, 2)
+    assert res["plain"][2] == (0, 0)
+    assert res[None][0] == pytest.approx(res["plain"][0], rel=1e-4)
+    for g, e in zip(res[None][1], res["plain"][1]):
+        assert torch.isfinite(g).all()
+        assert float((g - e).abs().max()) <= 1e-3 * max(float(e.abs().max()), 1e-6)
+
+
+def test_ssd_training_raises_on_the_card(gen):
+    """K3 has no gradient kernel yet: training an SSD model on the card
+    raises, naming ROADMAP item 13b; the plain scan, asked for, trains."""
+    cfg = get_reduced_config("mamba2_370m")
+    model = build_model(cfg)
+    params = model.init(gen, torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32), generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 32), generator=gen, device="cuda")}
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        model.train_loss(params, batch)
+    loss, _ = model.train_loss(params, batch, force="plain")
+    assert torch.isfinite(loss)

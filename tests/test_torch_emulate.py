@@ -174,8 +174,8 @@ def test_real_vs_emulated_rehearsal_on_the_cpu(capsys):
     assert report["arch"] == "llama3_8b_reduced"
     for key in ("calibration", "real", "emulate_linear", "emulate_analytical"):
         assert report[key]["num_requests"] == 8
-        assert report[key]["launches"] == {"flash_attention": 0, "paged_attention": 0,
-                                           "ssd_scan": 0}
+        assert report[key]["launches"] == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                           "paged_attention": 0, "ssd_scan": 0}
     assert min(report["linear_coef"]) >= 0.0
     assert report["linear_coef"] != [0.0] * 4
     for key in ("emulate_linear", "emulate_analytical"):
