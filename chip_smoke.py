@@ -10,7 +10,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    card's name and power limit);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and prints the build seconds and ptxas's
-   register and spill counts;
+   register and spill counts, by name for K1's fp32 kernel and K1-bwd's
+   dK/dV and dQ kernels at every head dim and type;
 3. holds each kernel against its plain PyTorch version on the card, over the
    shape grids of ``tests/test_kernels.py`` and at the llama3_8b shapes (K1,
    K2) or the mamba2_370m prefill shapes (K3) (tolerance 2e-4 in fp32, 5e-4
@@ -38,6 +39,13 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    non-causal shapes (T=S=1500 and T=64 over 1500 frames, 8 heads of 64),
    each with SDPA beside it and ptxas's registers and spills at D=256, and
    K2 at recurrentgemma_2b's decode (contexts 2049-3072, window 2048).
+   It times K1 at qwen2_5_3b's training shape (B=4, T=S=512, 16 query and
+   2 KV heads of 128, causal) in fp32 and bf16 against SDPA with
+   ``is_causal``.  Every SDPA time comes with the names of the kernels SDPA
+   launched (torch.profiler), and every fp32 time with two bounds, each
+   labelled: the CUDA cores at 67 TFLOP/s and 3xTF32 on the tensor cores at
+   495 / 3 TFLOP/s, the row's bound being the latter, the arithmetic K1's
+   fp32 kernels use.
    For the deferred KV append it holds K1 with ``q_offset`` and
    ``return_lse`` and K2 with ``return_lse`` against their plain versions,
    output and log-sum-exp (-inf in the same rows): the cache segment
@@ -54,7 +62,9 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    causal, windowed and non-causal, T 1, 37, 512, 1500 with G 1, 8, 10, and
    whisper's cross-attention (448 queries over 1500 frames); and times it at
    qwen2_5_3b's training shape (B=4, T=S=512, 16 query and 2 KV heads of
-   128) against its bound, autograd's plain backward and SDPA's backward;
+   128) against its bounds, autograd's plain backward and SDPA's backward
+   (and the names of SDPA's backward kernels), with the device time of each
+   of its launches (delta, dK/dV, the sum of the partials, dQ);
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -193,6 +203,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3   # fp32 as 3xTF32: three TF32 tensor-core products
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SERVING = dict(num=8, prompt_min=128, prompt_max=1024, new_tokens=32, seed=0)
@@ -683,6 +694,53 @@ def bound(flops, nbytes, peak_flops):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bounds(flops, nbytes, dtype):
+    """(bound_ms, bound_by, labelled bounds) of an attention kernel: bf16 on
+    the tensor cores at 989 TFLOP/s; fp32 both on the CUDA cores at
+    67 TFLOP/s and as 3xTF32 on the tensor cores at 495 / 3 TFLOP/s, the
+    row's bound being the latter, the arithmetic K1's fp32 kernels use."""
+    if dtype == "bfloat16":
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        return b_ms, b_by, {"bf16_tensor_cores": [b_ms, b_by]}
+    cores = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    tf32x3 = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    return tf32x3[0], tf32x3[1], {"fp32_cuda_cores": list(cores), "3xtf32_tensor_cores": list(tf32x3)}
+
+
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches (torch.profiler),
+    so that a library time says what it is."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.key for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def new_kernel_resources():
+    """ptxas's registers and spills for K1's fp32 kernel and K1-bwd's
+    kernels at every head dim and type (from this run's build log)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_mod
+    fwd_log = _build.build_log.get("flash_attention", "")
+    bwd_log = _build.build_log.get("flash_attention_bwd", "")
+    res = {}
+    for D, bk in flash_mod.F32_KEYS.items():
+        res[f"flash_fwd_f32_kernel<{D},{bk}>"] = kernel_resources(
+            fwd_log, f"flash_fwd_f32_kernelILi{D}ELi{bk}E")
+    for tname, mangled in (("float", "f"), ("bf16", "13__nv_bfloat16")):
+        for D in flash_mod.HEAD_DIMS:
+            for kern in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+                res[f"{kern}<{tname},{D}>"] = kernel_resources(bwd_log,
+                                                               f"{kern}I{mangled}Li{D}E")
+    for name, r in res.items():
+        log(f"  ptxas {name}: {r}")
+    return res
+
+
 def measure_flash(ops):
     """K1 at the llama3_8b prefill shape: one 512-token chunk after 512
     cached tokens.  Besides the times, the device time of one launch
@@ -888,19 +946,25 @@ def measure_flash_point(ops, gen, B, T, S, Hq, Hkv, D, dtype, causal=True, windo
         mask = kj <= qi
         if window:
             mask &= qi - kj < window
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
-    library_g_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    if causal and window is None and S == T:
+        mask = None                      # the causal mask as is_causal, as training calls it
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              is_causal=causal and mask is None)
+    library_ms = time_ms(sdpa)
+    library_g_ms = graph_ms(sdpa)
+    names = cuda_kernel_names(sdpa)
     flops = 4 * D * Hq * B * flash_pairs(T, S, causal, window)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-    b_ms, b_by = bound(flops, nbytes, peak)
+    b_ms, b_by, bounds = attention_bounds(flops, nbytes, dtype)
     log(f"{what}: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms ({library_g_ms:.4f} in a graph), bound {b_ms:.5f} ms by {b_by} "
-        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        f"{library_ms:.4f} ms ({library_g_ms:.4f} in a graph; {names}), bound {b_ms:.5f} ms "
+        f"by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; {bounds})")
     return {"shape": [B, T, S, Hq, Hkv, D], "dtype": dtype, "causal": causal, "window": window,
             "max_abs_err": err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "library_graph_ms": library_g_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "bounds": bounds, "library_ms": library_ms,
+            "library_graph_ms": library_g_ms, "library_kernels": names}
 
 
 def measure_flash_new_shapes(ops):
@@ -929,7 +993,22 @@ def measure_flash_new_shapes(ops):
         res = kernel_resources(log_text, f"flash_fwd_wgmma_kernelILi256ELi{tiles[1]}"
                                          f"ELi{tiles[0] // 64}E")
         log(f"K1 bf16 D=256 tiles {tiles}: ptxas {res}")
-    log(f"K1 fp32 D=256: ptxas {kernel_resources(log_text, 'flash_fwd_kernelIfLi256E')}")
+    log(f"K1 fp32 D=256: ptxas "
+        f"{kernel_resources(log_text, f'flash_fwd_f32_kernelILi256ELi{flash_mod.F32_KEYS[256]}E')}")
+    return rows
+
+
+def measure_flash_training(ops):
+    """K1 at qwen2_5_3b's training shape (a microbatch of 4 sequences of 512
+    tokens, 16 query heads over 2 KV heads of 128, causal) in fp32, the
+    type training runs, and bf16: as :func:`measure_flash_point` (SDPA with
+    ``is_causal``), with the fp32 kernel's plan."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = [measure_flash_point(ops, gen, 4, 512, 512, 16, 2, 128, dtype)
+            for dtype in ("float32", "bfloat16")]
+    rows[0]["plan"] = flash_mod.f32_plan(4, 512, 512, 16, 2, 128)._asdict()
+    log(f"K1 fp32 at the training shape: plan {rows[0]['plan']}")
     return rows
 
 
@@ -1174,12 +1253,14 @@ def check_flash_bwd_grid(ops):
 def measure_flash_bwd(ops):
     """K1-bwd at qwen2_5_3b's training shape (a microbatch of 4 sequences of
     512 tokens, 16 query heads over 2 KV heads of 128, causal) in fp32 and
-    bf16: the kernel (back to back, in a CUDA graph), autograd's backward
-    through the plain version, SDPA's backward (its forward and backward
-    less its forward, KV heads repeated and laid out (B, H, S, D) first, the
-    causal mask as ``is_causal``), and the bound: five products of
-    2 T S_eff D a (batch, head) over the peak of the inputs' type, against
-    reading q, k, v, out, dout and lse once and writing dq, dk, dv once."""
+    bf16: the kernel (back to back, in a CUDA graph, the device time of each
+    launch), autograd's backward through the plain version, SDPA's backward
+    (its forward and backward less its forward, KV heads repeated and laid
+    out (B, H, S, D) first, the causal mask as ``is_causal``) with the names
+    of the kernels SDPA launched, and the bounds: five products of
+    2 T S_eff D a (batch, head) over the arithmetic's peak (for fp32 both the
+    CUDA cores' and 3xTF32's, labelled), against reading q, k, v, out, dout
+    and lse once and writing dq, dk, dv once."""
     from repro_torch.kernels import flash_attention_bwd as bwd_mod
     B, T, S, Hq, Hkv, D = 4, 512, 512, 16, 2, 128
     gen = torch.Generator(device="cuda").manual_seed(31)
@@ -1212,42 +1293,39 @@ def measure_flash_bwd(ops):
             return torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), doh)
         fwd_ms, fb_ms = time_ms(sdpa_fwd), time_ms(sdpa_fwd_bwd)
         fwd_g, fb_g = graph_ms(sdpa_fwd), graph_ms(sdpa_fwd_bwd)
-        k1_ms = time_ms(lambda: ops.flash_attention(q, k, v))
-        k1_g = graph_ms(lambda: ops.flash_attention(q, k, v))
-        log(f"K1 forward at that shape, {dtype}: {k1_ms:.4f} ms ({k1_g:.4f} in a graph), "
-            f"SDPA forward {fwd_ms:.4f} ms ({fwd_g:.4f} in a graph)")
+        fwd_names = set(cuda_kernel_names(sdpa_fwd))
+        bwd_names = [n for n in cuda_kernel_names(sdpa_fwd_bwd) if n not in fwd_names]
         pairs = flash_pairs(T, S, True, None)
         flops = 5 * 2 * pairs * D * Hq * B
         # q, out and dout read, dq written; k, v read, dk, dv written; lse read.
         nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
             + 4 * lse.numel()
-        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-        b_ms, b_by = bound(flops, nbytes, peak)
-        launch = pass_ms(kern, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+        b_ms, b_by, bounds = attention_bounds(flops, nbytes, dtype)
+        launch = pass_ms(kern, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce",
+                                "flash_bwd_dq"))
+        p = bwd_mod.plan(B, T, S, Hq, Hkv, D, dt)
         log(f"K1-bwd qwen2_5_3b {(B, T, S, Hq, Hkv, D)} {dtype}: kernel {ms:.4f} ms "
             f"({g_ms:.4f} in a graph; device time per launch {launch}), plain backward "
             f"{plain_ms:.4f} ms, SDPA backward {fb_ms - fwd_ms:.4f} ms ({fb_g - fwd_g:.4f} in a "
-            f"graph; forward {fwd_ms:.4f}, forward and backward {fb_ms:.4f}), bound "
-            f"{b_ms:.5f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-        res[dtype] = {"max_err_rel": err, "max_abs_err": err_abs, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-                      "library_ms": fb_ms - fwd_ms, "library_graph_ms": fb_g - fwd_g,
-                      "bound_ms": b_ms, "bound_by": b_by, "launch_ms": launch,
-                      "k1_forward_ms": k1_ms, "k1_forward_graph_ms": k1_g,
-                      "sdpa_forward_ms": fwd_ms, "sdpa_forward_graph_ms": fwd_g}
+            f"graph; forward {fwd_ms:.4f}, forward and backward {fb_ms:.4f}; its backward "
+            f"kernels {bwd_names}), bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB; {bounds}); plan {p}")
+        res[dtype] = {"max_err_rel": err, "max_abs_err": err_abs, "ms": ms, "graph_ms": g_ms,
+                      "plain_ms": plain_ms, "library_ms": fb_ms - fwd_ms,
+                      "library_graph_ms": fb_g - fwd_g, "library_kernels": bwd_names,
+                      "bound_ms": b_ms, "bound_by": b_by, "bounds": bounds,
+                      "launch_ms": launch, "blocks": [p.dkdv_blocks, p.dq_blocks]}
         del qh, kh, vh
     f32 = res["float32"]
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:109",
-            "gradient_of": "K1; the reference differentiates its jnp attention with XLA "
-                           "(src/repro/models/transformer.py:133-136)",
-            "max_abs_err": f32["max_abs_err"], "max_err_rel": f32["max_err_rel"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-            "library_ms": f32["library_ms"], "graph_ms": f32["graph_ms"],
-            "shape": [B, T, S, Hq, Hkv, D], "dtype": "float32",
-            "forward": {k: f32[k] for k in ("k1_forward_ms", "k1_forward_graph_ms",
-                                            "sdpa_forward_ms", "sdpa_forward_graph_ms")},
-            "bfloat16": res["bfloat16"]}
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:109",
+           "gradient_of": "K1; the reference differentiates its jnp attention with XLA "
+                          "(src/repro/models/transformer.py:133-136)",
+           "shape": [B, T, S, Hq, Hkv, D], "dtype": "float32"}
+    row.update(f32)
+    row["bfloat16"] = res["bfloat16"]
+    return row
 
 
 # -------------------------------------------------------------------------
@@ -1359,6 +1437,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    resources = new_kernel_resources()
 
     log("== 3. kernels against their plain versions")
     check_flash_grid(ops)
@@ -1367,6 +1446,7 @@ def main() -> int:
     kernels = [measure_flash(ops), measure_paged(ops), measure_ssd(ops)]
     kernels[1]["windowed"] = measure_paged_window(ops)
     kernels[0]["shapes"] = measure_flash_new_shapes(ops)
+    kernels[0]["training"] = measure_flash_training(ops)
     kernels[1]["d256"] = measure_paged_d256(ops)
     log("== 3 (deferred append). K1 with q_offset and its lse, K2 with its lse")
     check_lse_grid(ops, torch.Generator(device="cuda").manual_seed(20))
@@ -1374,6 +1454,7 @@ def main() -> int:
     log("== 3e. K1's gradient kernel against autograd through the plain version")
     check_flash_bwd_grid(ops)
     kernels.insert(1, measure_flash_bwd(ops))
+    kernels[1]["ptxas"] = resources      # K1's fp32 kernel and K1-bwd's, every D and type
     if "--kernels-only" in sys.argv[1:]:
         log(f"--kernels-only: stopping after phase 3e, {time.monotonic() - t_start:.1f} s")
         return 0

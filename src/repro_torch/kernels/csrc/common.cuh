@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels: 16-byte loads that widen fp32 or
-// bf16 to fp32, and stores that narrow fp32 back to the tensor's type.
+// bf16 to fp32, stores that narrow fp32 back to the tensor's type, and K1's
+// mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +74,36 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long r
 #pragma unroll
     for (int i = 0; i < E; i += 4) store4(d + i, vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
   }
+}
+
+// Whether query position qpos sees key j under K1's mask: j < seq_k and,
+// when causal, j <= qpos and qpos - j < window (window <= 0: none).
+__device__ __forceinline__ bool key_visible(int j, int qpos, int seq_k, int causal, int window) {
+  bool ok = j < seq_k;
+  if (causal) {
+    ok = ok && j <= qpos;
+    if (window > 0) ok = ok && (qpos - j) < window;
+  }
+  return ok;
+}
+
+// Whether KV tile [k0, k0 + bk) needs the mask for query positions
+// [q_lo, q_hi] (offset included): true when S's end, the causal diagonal or
+// the window's start crosses it.  Mirrored by
+// repro_torch.kernels.flash_attention.tile_needs_mask.
+__device__ __forceinline__ bool tile_needs_mask(int k0, int bk, int seq_k, int q_lo, int q_hi,
+                                                int causal, int window) {
+  if (k0 + bk > seq_k) return true;
+  if (!causal) return false;
+  if (k0 + bk - 1 > q_lo) return true;
+  return window > 0 && q_hi - k0 >= window;
+}
+
+// 2^x in one instruction (MUFU.EX2); 2^-inf = 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace repro_torch

@@ -19,177 +19,20 @@
 // 12.6 MB of inputs, about 500 operations a byte, so the card's bf16
 // tensor-core rate is the bound; only wgmma reaches it.
 //
-// Two kernels share the contract.  bf16 inputs (the model's type) take
-// flash_fwd_wgmma_kernel, the Hopper design described above it.  fp32 inputs
-// take flash_fwd_kernel, which keeps fp32 products on the CUDA cores so that
-// it matches the plain version to 2e-4.
-//
-// flash_fwd_kernel: one block per (64-row query tile, query head, batch), 256 threads,
-// four threads per query row.  The block stages the query tile once and then
-// walks 64-row KV tiles through shared memory as fp32.  Each thread scores 16
-// keys of its row, the row's four threads combine max and sum with shuffles,
-// and each thread owns a quarter of the row's fp32 accumulator (D/4 values,
-// interleaved in 16-byte chunks so that the four threads hit distinct banks).
-// Whole KV tiles past the causal edge or before the window are skipped; the
-// ragged edges of T and S are masked, never padded.
+// Two kernels share the contract, both on the tensor cores.  bf16 inputs
+// (the model's serving type) take flash_fwd_wgmma_kernel, described below.
+// fp32 inputs (training, which keeps the reference's fp32 arithmetic) take
+// flash_fwd_f32_kernel, the last kernel of this file: mma.sync on 3xTF32
+// operands (mma.cuh), which holds the plain version's 2e-4 where one TF32
+// pass would not.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda itself is not linked
 #include <math.h>
 
 namespace repro_torch {
 namespace {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kThreadsPerRow = kThreads / kBlockQ;  // 4
-
-template <int D>
-constexpr int smem_bytes() {
-  return 3 * 64 * (D + 4) * static_cast<int>(sizeof(float));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int seq_q, int seq_k, int num_heads, int num_kv_heads,
-                 long long q_sb, long long k_sb, long long v_sb, long long o_sb,
-                 float scale, int causal, int window, int offset, float* __restrict__ lse) {
-  constexpr int LD = D + 4;                       // padded fp32 row
-  constexpr int NS = kBlockK / kThreadsPerRow;    // scores per thread (16)
-  constexpr int NC = D / (4 * kThreadsPerRow);    // float4 chunks of acc per thread
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBlockQ * LD;
-  float* Vs = Ks + kBlockK * LD;
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (num_heads / num_kv_heads);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row = tid / kThreadsPerRow;
-  const int part = tid % kThreadsPerRow;
-
-  const long long q_rs = static_cast<long long>(num_heads) * D;
-  const long long kv_rs = static_cast<long long>(num_kv_heads) * D;
-  stage_rows<T, D, LD, kThreads>(Qs, q + b * q_sb + q0 * q_rs + static_cast<long long>(h) * D,
-                                 q_rs, kBlockQ, min(kBlockQ, seq_q - q0), scale);
-
-  // KV tiles this query tile can see.
-  const int q_lo = q0 + offset;
-  const int q_hi = min(q0 + kBlockQ, seq_q) - 1 + offset;
-  int k_begin = 0;
-  int k_end = seq_k;
-  if (causal) {
-    k_end = min(seq_k, q_hi + 1);
-    if (window > 0) k_begin = max(0, q_lo - window + 1);
-  }
-  k_begin = (k_begin / kBlockK) * kBlockK;
-
-  const int qpos = q0 + row + offset;
-  float acc[4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4 * NC; ++i) acc[i] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed before it is overwritten
-    const int valid = min(kBlockK, seq_k - k0);
-    stage_rows<T, D, LD, kThreads>(Ks, k + b * k_sb + k0 * kv_rs + static_cast<long long>(hk) * D,
-                                   kv_rs, kBlockK, valid, 1.f);
-    stage_rows<T, D, LD, kThreads>(Vs, v + b * v_sb + k0 * kv_rs + static_cast<long long>(hk) * D,
-                                   kv_rs, kBlockK, valid, 1.f);
-    __syncthreads();
-
-    // scores of this row against keys part, part + 4, ..., part + 60
-    float s[NS];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    const float* qr = Qs + row * LD;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + d);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + (part + kThreadsPerRow * i) * LD + d);
-        s[i] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-      }
-    }
-
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int j = k0 + part + kThreadsPerRow * i;
-      bool ok = j < seq_k;
-      if (causal) {
-        ok = ok && j <= qpos;
-        if (window > 0) ok = ok && (qpos - j) < window;
-      }
-      s[i] = ok ? s[i] : -INFINITY;
-      tmax = fmaxf(tmax, s[i]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    float alpha = 1.f;
-    float psum = 0.f;
-    if (m_new == -INFINITY) {
-      // nothing visible to this row yet: every p is 0
-#pragma unroll
-      for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    } else {
-      alpha = expf(m - m_new);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = expf(s[i] - m_new);
-        psum += s[i];
-      }
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 4 * NC; ++i) acc[i] *= alpha;
-
-    // acc += P @ V: key j's p lives in thread (j % 4) of the row, at s[j / 4]
-    const int base = lane & ~(kThreadsPerRow - 1);
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < kThreadsPerRow; ++hh) {
-        const float p = __shfl_sync(0xffffffffu, s[i], base | hh);
-        const float* vr = Vs + (hh + kThreadsPerRow * i) * LD;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * (part + kThreadsPerRow * c));
-          acc[4 * c] += p * vv.x;
-          acc[4 * c + 1] += p * vv.y;
-          acc[4 * c + 2] += p * vv.z;
-          acc[4 * c + 3] += p * vv.w;
-        }
-      }
-    }
-  }
-
-  if (q0 + row < seq_q) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully masked row gives 0
-    T* orow = o + b * o_sb + (q0 + row) * q_rs + static_cast<long long>(h) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store4(orow + 4 * (part + kThreadsPerRow * c), acc[4 * c] * inv, acc[4 * c + 1] * inv,
-             acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
-    }
-    if (lse != nullptr && part == 0)
-      lse[(static_cast<long long>(b) * seq_q + q0 + row) * num_heads + h] =
-          l > 0.f ? m + logf(l) : -INFINITY;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: TMA into a ring of shared-memory stages, both products on wgmma,
@@ -251,10 +94,6 @@ struct Tile {
                 "wgmma_smem_bytes disagrees with the tile");
   static_assert(kSmemBytes <= kSmemLimit, "more shared memory than a block may have");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -344,11 +183,6 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int NREG>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(NREG));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // d (m64n64, fp32) = A (smem) * B (smem), both K-major; d is overwritten when scale_d is 0
@@ -511,25 +345,6 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 2], const uint32_t (&p
   wgmma_commit();
 }
 
-// Whether KV tile [k0, k0 + bk) needs the mask for query positions
-// [q_lo, q_hi] (offset included): true when S's end, the causal diagonal or
-// the window's start crosses it.  Mirrored by
-// repro_torch.kernels.flash_attention.tile_needs_mask.
-__device__ __forceinline__ bool tile_needs_mask(int k0, int bk, int seq_k, int q_lo, int q_hi,
-                                                int causal, int window) {
-  if (k0 + bk > seq_k) return true;
-  if (!causal) return false;
-  if (k0 + bk - 1 > q_lo) return true;
-  return window > 0 && q_hi - k0 >= window;
-}
-
-// 2^x in one instruction (MUFU.EX2); 2^-inf = 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The online softmax of one S tile for this thread's two rows (fragment rows
 // g and g + 8), in the log2 domain and in place: scales (and, with MASK,
 // masks) the scores, updates the running max m and sum l, turns s into P and
@@ -625,7 +440,7 @@ __device__ __forceinline__ void softmax_tile(bool mask, float (&s)[BK / 2], floa
   }
 }
 
-// Same contract as flash_fwd_kernel, for bf16 (see the note above).  The
+// The contract at the top of this file, for bf16 (see the note above).  The
 // maps are 4-D (D, heads, positions, batch); q's boxes are (slab columns,
 // pack, positions, 1), k's and v's (slab columns, 1, BK, 1).
 template <int D, int BK, int NWG>
@@ -815,23 +630,236 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// fp32: 3xTF32 mma.sync, K and V through a cp.async ring
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_f32_kernel<D, BK>: one block of four warps per (64-row query
+// tile, query head, batch), the query tiles that see the most keys first
+// (blocks in the order of repro_torch.kernels.flash_attention.f32_block_coords).
+// Each warp owns 16 query rows, FlashAttention-2's layout.  The block copies
+// its Q tile once, then K and V tiles of BK keys through a two-stage
+// cp.async ring, so that the next tile loads while this one is multiplied.
+// S = Q K^T and O += P V are 3xTF32 mma.sync (mma.cuh): the scores stay in
+// registers and become P V's A operand, split into big and small like any
+// other operand.  The online softmax runs in fp32 registers in the log2
+// domain; each thread keeps its columns' share of a row's sum, and the four
+// threads of a row add theirs at the end.  KV tiles the rows cannot see are
+// skipped whole, and only a tile that an edge crosses is masked
+// (tile_needs_mask); the ragged edges of T and S arrive as zero rows.
+//
+// What bounds it: at qwen2_5_3b's training shape (B=4, T=S=512, 16 query
+// heads of 128, causal) the two products are 4.3 GFLOP on 25 MB, so the
+// arithmetic: 3xTF32 at 495 / 3 TFLOP/s.  The key tile per D (launch_f32's
+// instantiations, mirrored by repro_torch.kernels.flash_attention.F32_KEYS,
+// chosen with scripts/time_fp32_tiles.py) keeps two blocks on an SM up to
+// D = 128 (101,376 bytes at D = 128); at D = 256 one block of 199,680 bytes
+// with 32-key tiles, 218 registers and no spills.  The three TF32 products
+// of a k-step run pass by pass over a row of accumulators (mma_n), so that
+// no mma waits on the one before it.
+
+constexpr int kF32Warps = 4;
+constexpr int kF32Rows = 16 * kF32Warps;   // query rows a block
+constexpr int kF32Stages = 2;              // K/V tiles in flight
+
+// Dynamic shared memory of flash_fwd_f32_kernel<D, BK>: the Q tile and the
+// K and V rings, fp32 rows padded by Mma<float>::kPad.  Mirrored by
+// repro_torch.kernels.flash_attention.f32_smem_bytes.
+constexpr int f32_smem_bytes(int D, int BK) {
+  return (kF32Rows + 2 * kF32Stages * BK) * (D + Mma<float>::kPad) * 4;
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(32 * kF32Warps)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int batch, int seq_q,
+                     int seq_k, int num_heads, int num_kv_heads, int q_tiles, long long q_sb,
+                     long long k_sb, long long v_sb, long long o_sb, float scale_log2,
+                     int causal, int window, int offset, float* __restrict__ lse) {
+  using M = Mma<float>;
+  constexpr int LD = D + M::kPad;
+  constexpr int NT = 32 * kF32Warps;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;
+  float* Ks = Qs + kF32Rows * LD;
+  float* Vs = Ks + kF32Stages * BK * LD;
+
+  // the block's tile: the heaviest query tiles (last in T) come first
+  const int per_tile = num_heads * batch;
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int rest = static_cast<int>(blockIdx.x) % per_tile;
+  const int h = rest % num_heads;
+  const int b = rest / num_heads;
+  const int hk = h / (num_heads / num_kv_heads);
+  const int q0 = qt * kF32Rows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row0 = 16 * warp + (lane >> 2);   // fragment rows row0 and row0 + 8
+
+  const long long q_rs = static_cast<long long>(num_heads) * D;
+  const long long kv_rs = static_cast<long long>(num_kv_heads) * D;
+  const float* kb = k + b * k_sb + static_cast<long long>(hk) * D;
+  const float* vb = v + b * v_sb + static_cast<long long>(hk) * D;
+  async_rows<float, D, LD, NT>(Qs, q + b * q_sb + q0 * q_rs + static_cast<long long>(h) * D,
+                               q_rs, kF32Rows, seq_q - q0, q);
+
+  // KV tiles this query tile can see (kv_tile_range)
+  const int q_lo = q0 + offset;
+  const int q_hi = min(q0 + kF32Rows, seq_q) - 1 + offset;
+  int k_begin = 0;
+  int k_end = seq_k;
+  if (causal) {
+    k_end = min(seq_k, q_hi + 1);
+    if (window > 0) k_begin = max(0, q_lo - window + 1);
+  }
+  const int n_tiles = k_begin < k_end ? (k_end - (k_begin / BK) * BK + BK - 1) / BK : 0;
+  k_begin = (k_begin / BK) * BK;
+
+  auto load_kv = [&](int stage, int k0) {
+    async_rows<float, D, LD, NT>(Ks + stage * BK * LD, kb + k0 * kv_rs, kv_rs, BK, seq_k - k0, k);
+    async_rows<float, D, LD, NT>(Vs + stage * BK * LD, vb + k0 * kv_rs, kv_rs, BK, seq_k - k0, v);
+  };
+  if (n_tiles > 0) load_kv(0, k_begin);
+  cp_async_commit();
+
+  const int qpos[2] = {q0 + row0 + offset, q0 + row0 + 8 + offset};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};   // this thread's columns' share of each row's sum
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = k_begin + i * BK;
+    const int st = i % kF32Stages;
+    if (i + 1 < n_tiles) {
+      load_kv(st ^ 1, k0 + BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + st * BK * LD;
+    const float* Vt = Vs + st * BK * LD;
+
+    // S = Q K^T for the warp's 16 rows
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const M::A a = M::load_a(Qs + 16 * warp * LD + 8 * kk, LD, lane);
+      M::B b[BK / 8];
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb) b[nb] = M::load_b(Kt + 8 * nb * LD + 8 * kk, LD, lane);
+      mma_n<float, BK / 8>(s, a, b);
+    }
+
+    // the online softmax, in place: s becomes P
+    const bool mask = tile_needs_mask(k0, BK, seq_k, q_lo, q_hi, causal, window);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[nb][2 * r + e] * scale_log2;
+          if (mask && !key_visible(k0 + 8 * nb + 2 * t + e, qpos[r], seq_k, causal, window))
+            x = -INFINITY;
+          s[nb][2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;   // no key seen yet: every p is 0
+      alpha[r] = fast_exp2(m[r] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = fast_exp2(s[nb][2 * r + e] - m_use);
+          s[nb][2 * r + e] = p;
+          sum += p;
+        }
+      l[r] = l[r] * alpha[r] + sum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      acc[nb][0] *= alpha[0];
+      acc[nb][1] *= alpha[0];
+      acc[nb][2] *= alpha[1];
+      acc[nb][3] *= alpha[1];
+    }
+
+    // O += P V, 8 keys a step, 4 column tiles at a time
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const M::A a = M::a_from_c(s[kk]);
+#pragma unroll
+      for (int nb = 0; nb < D / 8; nb += 4) {
+        M::B b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = M::load_b_t(Vt + 8 * kk * LD + 8 * (nb + i), LD, lane);
+        mma_n<float, 4>(acc + nb, a, b);
+      }
+    }
+    __syncthreads();   // this stage is consumed before it is loaded again
+  }
+  cp_async_wait<0>();
+
+  // epilogue: each row's sum from its four threads, O / l and the lse
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int pos = q0 + row0 + 8 * r;
+    if (pos < seq_q) {
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;   // a fully masked row gives 0
+      float* orow = o + b * o_sb + pos * q_rs + static_cast<long long>(h) * D + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        store2(orow + 8 * nb, acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<long long>(b) * seq_q + pos) * num_heads + h] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+// The fp32 kernel at head dim D with KV tiles of BK keys; block_keys is the
+// wrapper's plan and must be BK.
+template <int D, int BK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Tq,
                        int Sk, int Hq, int Hkv, long long q_sb, long long k_sb, long long v_sb,
                        long long o_sb, float scale, int causal, int window, int offset,
-                       float* lse, cudaStream_t stream) {
-  dim3 grid((Tq + kBlockQ - 1) / kBlockQ, Hq, B);
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                       float* lse, int block_keys, cudaStream_t stream) {
+  if (block_keys != BK) return cudaErrorInvalidValue;
+  const int q_tiles = (Tq + kF32Rows - 1) / kF32Rows;
+  const long long blocks = static_cast<long long>(q_tiles) * Hq * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int bytes = f32_smem_bytes(D, BK);
+  static_assert(bytes <= kSmemLimit, "more shared memory than a block may have");
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Tq, Sk, Hq, Hkv, q_sb, k_sb, v_sb, o_sb, scale, causal, window,
-      offset, lse);
+  flash_fwd_f32_kernel<D, BK><<<static_cast<unsigned>(blocks), 32 * kF32Warps, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), B, Tq, Sk, Hq, Hkv, q_tiles, q_sb, k_sb, v_sb, o_sb,
+      scale * 1.4426950408889634f, causal, window, offset, lse);   // exp(x) = exp2(x log2 e)
   return cudaGetLastError();
 }
 
@@ -937,32 +965,33 @@ int launch_bf16_tiles(int block_rows, int block_keys, const void* q, const void*
 }  // namespace repro_torch
 
 // fp32 inputs.  Strides are in elements; window <= 0 means no window; query
-// t sits at key position q_offset + t; lse is null or (B, T, Hq) fp32.
+// t sits at key position q_offset + t; lse is null or (B, T, Hq) fp32;
+// block_keys is the wrapper's plan (F32_KEYS), the only tile built for D.
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                        int B, int T, int S, int Hq, int Hkv, int D,
                                        long long q_sb, long long k_sb, long long v_sb,
                                        long long o_sb, float scale, int causal, int window,
-                                       int q_offset, void* lse, void* stream) {
+                                       int q_offset, void* lse, int block_keys, void* stream) {
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return repro_torch::launch_f32<float, 32>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                o_sb, scale, causal, window, q_offset,
-                                                lse_f, st);
+      return repro_torch::launch_f32<32, 64>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
+                                             o_sb, scale, causal, window, q_offset, lse_f,
+                                             block_keys, st);
     case 64:
-      return repro_torch::launch_f32<float, 64>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                o_sb, scale, causal, window, q_offset,
-                                                lse_f, st);
+      return repro_torch::launch_f32<64, 64>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
+                                             o_sb, scale, causal, window, q_offset, lse_f,
+                                             block_keys, st);
     case 128:
-      return repro_torch::launch_f32<float, 128>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                 o_sb, scale, causal, window, q_offset,
-                                                lse_f, st);
+      return repro_torch::launch_f32<128, 32>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
+                                              o_sb, scale, causal, window, q_offset, lse_f,
+                                              block_keys, st);
     case 256:
-      return repro_torch::launch_f32<float, 256>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
-                                                 o_sb, scale, causal, window, q_offset,
-                                                lse_f, st);
+      return repro_torch::launch_f32<256, 32>(q, k, v, o, B, T, S, Hq, Hkv, q_sb, k_sb, v_sb,
+                                              o_sb, scale, causal, window, q_offset, lse_f,
+                                              block_keys, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -22,15 +22,23 @@ products on ``wgmma`` with the softmax of one tile overlapping the P·V of
 the one before.  Only KV tiles that an edge crosses are masked
 (:func:`tile_needs_mask`), and the query tiles that see the most keys start
 first.  :func:`plan` fixes the tiles, the packing and the grid on the host.
-fp32 inputs run on the CUDA cores in fp32, to match the plain version to
-2e-4.  The source is ``csrc/flash_attention.cu``.
+fp32 inputs (training keeps the reference's fp32 arithmetic) run on the
+tensor cores too, as 3xTF32 ``mma.sync``: each fp32 operand is split into a
+TF32 part and the TF32 rest, and three TF32 products come close to fp32,
+which holds the plain version's 2e-4 where one TF32 pass would not.  Each
+warp owns 16 query rows of a 64-row tile, K and V tiles come through a
+two-stage ``cp.async`` ring, and the scores stay in registers as P·V's
+operand; :func:`f32_plan` fixes its tiles and grid.  The source is
+``csrc/flash_attention.cu`` (the fragments: ``csrc/mma.cuh``).
 
 :func:`flash_attention` launches a kernel on a CUDA tensor and raises on
 what the kernels do not take; it never falls back to the plain version or
 from one kernel to the other.  The plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`, and
+:func:`repro_torch.kernels.ref.flash_attention_ref`;
 :func:`repro_torch.kernels.ref.flash_attention_tiled` spells out the bf16
-kernel's tiling and arithmetic in plain PyTorch.
+kernel's tiling and arithmetic in plain PyTorch, and
+:func:`repro_torch.kernels.ref.flash_attention_tiled_f32` the fp32 kernel's,
+with its products through :func:`repro_torch.kernels.ref.matmul_3xtf32`.
 """
 
 from __future__ import annotations
@@ -54,6 +62,13 @@ STAGES = 2                  # K/V tiles in flight: kStages in the source
 SMEM_LIMIT = 232448         # shared memory a block may have on the H100 (227 KB)
 SMS = 132                   # streaming multiprocessors of the H100
 _TMA_ALIGN = 16             # bytes: TMA's alignment of bases and strides
+
+# keys a KV tile of the fp32 kernel at each head dim, the one tile built for
+# it (launch_f32's instantiations in the source; scripts/time_fp32_tiles.py
+# times the others): two blocks an SM up to D = 128, one at D = 256
+F32_KEYS = {32: 64, 64: 64, 128: 32, 256: 32}
+F32_ROWS = 64               # query rows an fp32 block: four warps of 16
+F32_STAGES = 2              # K/V tiles in flight: kF32Stages
 
 launches = 0        # kernel launches since the last reset (plain integer)
 
@@ -119,6 +134,43 @@ def plan(B: int, T: int, S: int, Hq: int, Hkv: int, D: int, *,
     return FlashPlan(block_rows, block_keys, pack, positions, groups, q_tiles,
                      q_tiles * groups * Hkv * B, 128 * (block_rows // 64 + 1),
                      smem_bytes(D, block_rows, block_keys))
+
+
+class F32Plan(NamedTuple):
+    """How the fp32 kernel covers one call (see :func:`f32_plan`)."""
+    block_rows: int      # query rows a block (F32_ROWS)
+    block_keys: int      # keys a KV tile (F32_KEYS[D])
+    q_tiles: int         # query tiles along T
+    blocks: int          # the grid: q_tiles * Hq * B
+    threads: int         # four warps
+    smem_bytes: int      # dynamic shared memory a block
+
+
+def f32_smem_bytes(D: int, block_keys: int) -> int:
+    """Dynamic shared memory of the fp32 kernel (``f32_smem_bytes`` in the
+    source): the Q tile and the K and V rings, rows of D + 4 floats."""
+    return (F32_ROWS + 2 * F32_STAGES * block_keys) * (D + 4) * 4
+
+
+def f32_plan(B: int, T: int, S: int, Hq: int, Hkv: int, D: int) -> F32Plan:
+    """The fp32 kernel's plan for one call, from plain integers: 64 query
+    rows a block, ``F32_KEYS[D]`` keys a KV tile, one block per (query
+    tile, query head, batch) in :func:`f32_block_coords`'s order."""
+    if D not in F32_KEYS:
+        raise ValueError(f"flash_attention: head_dim {D} not in {tuple(F32_KEYS)}")
+    q_tiles = -(-T // F32_ROWS)
+    return F32Plan(F32_ROWS, F32_KEYS[D], q_tiles, q_tiles * Hq * B, 128,
+                   f32_smem_bytes(D, F32_KEYS[D]))
+
+
+def f32_block_coords(p: F32Plan, B: int, Hq: int, index: int) -> Tuple[int, int, int]:
+    """(batch, query head, query tile) of fp32 block ``index``, as the
+    kernel decodes ``blockIdx.x``: query tiles from the last (the one that
+    sees the most keys) to the first, within a tile the heads, then the
+    batch."""
+    per_tile = Hq * B
+    rest = index % per_tile
+    return rest // Hq, rest % Hq, p.q_tiles - 1 - index // per_tile
 
 
 def block_coords(p: FlashPlan, B: int, Hkv: int, index: int) -> Tuple[int, int, int, int]:
@@ -188,15 +240,17 @@ def tile_needs_mask(k0: int, block_keys: int, S: int, q_lo: int, q_hi: int,
 
 
 def tma_batch_stride(name: str, x: torch.Tensor) -> int:
-    """The batch stride (elements) the bf16 kernel's tensor map takes for
-    ``x``: TMA needs it to be a multiple of 16 bytes.  A batch of one has no
+    """The batch stride (elements) the kernels take for ``x``: the bf16
+    kernel's TMA and the fp32 kernel's 16-byte ``cp.async`` copies need it to
+    be a multiple of 16 bytes.  A batch of one has no
     stride to speak of, so it gets the dense one."""
     if x.shape[0] == 1:
         return math.prod(x.shape[1:])
     stride = x.stride(0)
     if stride <= 0 or (stride * x.element_size()) % _TMA_ALIGN:
         raise ValueError(f"flash_attention: the batch stride of {name} ({stride} elements) "
-                         f"is not a positive multiple of {_TMA_ALIGN} bytes, which TMA needs")
+                         f"is not a positive multiple of {_TMA_ALIGN} bytes, which TMA and "
+                         "cp.async need")
     return stride
 
 
@@ -206,7 +260,7 @@ def _kernels():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     head = [p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ctypes.c_float, i, i, i, p]
     f32, bf16 = lib.flash_attention_fwd_f32, lib.flash_attention_fwd_bf16
-    f32.argtypes = head + [p]
+    f32.argtypes = head + [i, p]
     bf16.argtypes = head + [i, i, i, p]
     f32.restype = bf16.restype = ctypes.c_int
     return f32, bf16
@@ -233,8 +287,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sees no key gives 0 and an lse of -inf.
 
     CUDA tensors only: fp32 or bf16, D in {32, 64, 128, 256}, Hq a multiple of
-    Hkv, S >= T when causal without a ``q_offset``, ``q_offset`` >= 0; bf16
-    batch strides a multiple of 16 bytes.  Launches on the current stream
+    Hkv, S >= T when causal without a ``q_offset``, ``q_offset`` >= 0; batch
+    strides a multiple of 16 bytes.  Launches on the current stream
     without synchronising."""
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -275,16 +329,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse_ptr = lse.data_ptr() if return_lse else None
     f32, bf16 = _kernels()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [tma_batch_stride(name, x) for name, x in (("q", q), ("k", k), ("v", v))]
     if q.dtype == torch.bfloat16:
-        strides = [tma_batch_stride(name, x) for name, x in (("q", q), ("k", k), ("v", v))]
         p = plan(B, T, S, Hq, Hkv, D)
         err = bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, T, S, Hq, Hkv, D, *strides, out.stride(0), scale, int(causal), win,
                    offset, lse_ptr, p.block_rows, p.block_keys, p.pack.bit_length() - 1, stream)
     else:
+        p = f32_plan(B, T, S, Hq, Hkv, D)
         err = f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, T, S, Hq, Hkv, D, q.stride(0), k.stride(0), v.stride(0),
-                  out.stride(0), scale, int(causal), win, offset, lse_ptr, stream)
+                  B, T, S, Hq, Hkv, D, *strides, out.stride(0), scale, int(causal), win,
+                  offset, lse_ptr, p.block_keys, stream)
     if err == 3000:
         raise RuntimeError("flash_attention: the driver has no cuTensorMapEncodeTiled")
     if err >= 1000:

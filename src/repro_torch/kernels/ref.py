@@ -10,9 +10,11 @@ when a caller asks for them (``force="plain"``), to hold the CUDA kernels
 against them.  ``flash_attention_tiled``, ``paged_attention_split`` and
 ``ssd_scan_two_pass`` spell out the CUDA kernels' own decompositions (K1's
 packed tiles and edge-masked KV walk, K2's split and merge, K3's two passes)
-in plain PyTorch for the tests and ``chip_smoke.py``, and
-``flash_attention_bwd_tiled`` the tiles of K1's gradient kernel; no model
-path calls them.
+in plain PyTorch for the tests and ``chip_smoke.py``,
+``flash_attention_tiled_f32`` and ``flash_attention_bwd_tiled`` the tiles of
+K1's fp32 kernel and of its gradient kernel, with ``matmul_3xtf32`` (and
+``tf32_round``) for the fp32 kernels' tensor-core arithmetic; no model path
+calls them.
 """
 
 from __future__ import annotations
@@ -136,74 +138,183 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: Optional[int]
     return (out, lse.reshape(B, T, Hq)) if return_lse else out
 
 
+def tf32_round(x):
+    """``x`` (fp32) rounded to TF32: to nearest, ties away from zero, at 10
+    mantissa bits, as ``cvt.rna.tf32.f32`` rounds (finite inputs).  The
+    result is an fp32 tensor whose low 13 mantissa bits are zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    # sign and magnitude: adding half of the dropped bits' unit rounds the
+    # magnitude away from zero at a tie, whatever the sign
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(a, b):
+    """One TF32 pass: ``a @ b`` with both operands rounded to TF32 and the
+    products summed in fp32 (a TF32 product is exact in fp32).  It keeps
+    about three digits; K1's kernels do not use it."""
+    return torch.matmul(tf32_round(a), tf32_round(b))
+
+
+def matmul_3xtf32(a, b):
+    """``a @ b`` (fp32) as K1's fp32 kernels compute it on the tensor cores
+    (``csrc/mma.cuh``): each operand split into big = tf32(x) and small =
+    tf32(x - big), and three TF32 products, the small terms first:
+    small_a big_b + big_a small_b + big_a big_b (small_a small_b dropped)."""
+    a, b = a.float(), b.float()
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
+            + torch.matmul(a_big, b_big))
+
+
+def _tile_mask(q0, n, k0, nk, S, offset, causal, window, device):
+    """(n, nk) bool: query rows q0.. (at key position ``offset + t``) against
+    keys k0..: the key lies before S and, under the causal mask, at or
+    before the query and within the window."""
+    qpos = offset + torch.arange(q0, q0 + n, device=device)[:, None]
+    key = torch.arange(k0, k0 + nk, device=device)[None, :]
+    ok = (key < S).expand(n, nk)
+    if causal:
+        ok = ok & (key <= qpos)
+        if window is not None:
+            ok = ok & (qpos - key < window)
+    return ok
+
+
+def flash_attention_tiled_f32(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                              softmax_scale: Optional[float] = None,
+                              q_offset: Optional[int] = None, return_lse: bool = False,
+                              matmul=None):
+    """K1's fp32 kernel in plain PyTorch, tile by tile (shapes as
+    :func:`flash_attention_ref`; returns fp32).
+
+    The tiles are ``flash_attention.f32_plan``'s: 64 query rows of one head
+    walk the KV tiles of ``F32_KEYS[D]`` keys they can see
+    (``kv_tile_range``), K and V padded with zero rows past S as the
+    ``cp.async`` ring fills them; only a tile for which ``tile_needs_mask``
+    holds is masked.  The online softmax runs in the log2 domain in fp32.
+    Both products go through ``matmul`` (the kernel's is
+    :func:`matmul_3xtf32`; the default is ``torch.matmul``)."""
+    mm = matmul or torch.matmul
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    p = flash_mod.f32_plan(B, T, S, Hq, Hkv, D)
+    bk, rows = p.block_keys, p.block_rows
+    scale_log2 = (softmax_scale or 1.0 / math.sqrt(D)) * math.log2(math.e)
+    offset = S - T if q_offset is None else q_offset
+    pad = (-S) % bk
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(G, dim=2).transpose(1, 2)
+    qf = q.float().transpose(1, 2)                                    # (B, Hq, T, D)
+    out = torch.zeros((B, Hq, T, D), device=q.device)
+    lse = torch.full((B, Hq, T), -math.inf, device=q.device)
+    for qt in range(p.q_tiles):
+        q0 = qt * rows
+        n = min(rows, T - q0)
+        m = torch.full((B, Hq, n), -math.inf, device=q.device)
+        l = torch.zeros((B, Hq, n), device=q.device)
+        acc = torch.zeros((B, Hq, n, D), device=q.device)
+        q_lo, q_hi = q0 + offset, q0 + n - 1 + offset
+        first, end = flash_mod.kv_tile_range(q0, rows, T, S, bk, causal, window, offset)
+        for kt in range(first, end):
+            k0 = kt * bk
+            s = mm(qf[:, :, q0:q0 + n], kf[:, :, k0:k0 + bk].transpose(-1, -2)) * scale_log2
+            if flash_mod.tile_needs_mask(k0, bk, S, q_lo, q_hi, causal, window):
+                ok = _tile_mask(q0, n, k0, bk, S, offset, causal, window, q.device)
+                s = torch.where(ok, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_use = torch.where(torch.isinf(m_new), 0.0, m_new)
+            alpha = torch.exp2(m - m_use)
+            pt = torch.exp2(s - m_use[..., None])
+            l = l * alpha + pt.sum(dim=-1)
+            acc = acc * alpha[..., None] + mm(pt, vf[:, :, k0:k0 + bk])
+            m = m_new
+        out[:, :, q0:q0 + n] = torch.where(l[..., None] > 0,
+                                           acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+        lse[:, :, q0:q0 + n] = torch.where(
+            l > 0, (m + torch.log2(torch.where(l > 0, l, 1.0))) * math.log(2), -math.inf)
+    out = out.transpose(1, 2)
+    return (out, lse.transpose(1, 2)) if return_lse else out
+
+
 def flash_attention_bwd_tiled(q, k, v, out, dout, lse, *, causal: bool = True,
                               window: Optional[int] = None,
                               softmax_scale: Optional[float] = None,
-                              q_offset: Optional[int] = None):
+                              q_offset: Optional[int] = None, matmul=None):
     """K1's gradient kernel in plain PyTorch, tile by tile: (dq, dk, dv) of
     ``out`` = flash_attention(q, k, v, ...) under ``dout``, from the fp32
     ``lse`` (B, T, Hq) the forward returned; shapes and masks as
     :func:`flash_attention_ref`'s.  Returns fp32.
 
-    As ``csrc/flash_attention_bwd.cu`` computes it: Q is staged times the
-    scale; delta = rowsum(dO ∘ O); each key tile of ``BLOCK_K`` keys walks
-    the query tiles of ``BLOCK_Q`` rows that see it
-    (``flash_attention.q_tile_range``) and accumulates dV += Pᵀ·dO and
-    dK += dSᵀ·Q·scale, with P = exp(Q·Kᵀ·scale − lse) (0 where masked or
-    where the row saw no key) and dS = P ∘ (dO·Vᵀ − delta), the G query
-    heads of a KV head summed; each query tile walks the key tiles it sees
-    (``kv_tile_range``) for dQ += dS·K·scale."""
+    As ``csrc/flash_attention_bwd.cu`` computes it, with the tiles of
+    ``flash_attention_bwd.plan`` for q's type: delta = rowsum(dO ∘ O); a
+    dK/dV block per (key tile, query head) walks the query tiles that see
+    its keys (``flash_attention.q_tile_range``) and accumulates
+    dV += Pᵀ·dO and dK += dSᵀ·Q, with Sᵀ = K·Qᵀ, P = exp(S·scale − lse) (0
+    where masked or where the row saw no key), dPᵀ = V·dOᵀ and
+    dS = P ∘ (dP − delta), then dK ×= scale; the G query heads' partials of
+    a KV head are summed in the order g = 0..G−1; a dQ block per 64-row
+    query tile walks the key tiles it sees (``kv_tile_range``) for
+    dQ += dS·K, times the scale.  For bf16 inputs P and dS are rounded to
+    bf16 before their products, as the kernel does.  Every product goes
+    through ``matmul`` (the fp32 kernel's is :func:`matmul_3xtf32`; the
+    default is ``torch.matmul``)."""
+    mm = matmul or torch.matmul
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
+    p = bwd_mod.plan(B, T, S, Hq, Hkv, D, q.dtype)
     scale = softmax_scale or 1.0 / math.sqrt(D)
     offset = S - T if q_offset is None else q_offset
-    bq, bk = bwd_mod.BLOCK_Q, bwd_mod.BLOCK_K
-    qs = q.float() * scale
-    do = dout.float()
-    kf = k.float().repeat_interleave(G, dim=2)                       # (B, S, Hq, D)
-    vf = v.float().repeat_interleave(G, dim=2)
-    delta = (do * out.float()).sum(-1).permute(0, 2, 1)              # (B, Hq, T)
-    lse = lse.float().permute(0, 2, 1)
+    narrow = ((lambda x: x.to(q.dtype).float()) if q.dtype != torch.float32
+              else (lambda x: x))
+    qf, dof = q.float().transpose(1, 2), dout.float().transpose(1, 2)      # (B, Hq, T, D)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)            # (B, Hq, S, D)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)          # (B, Hq, T)
+    lse = lse.float().transpose(1, 2)
 
-    def tile(t0, k0):
-        """P and dS (B, Hq, rows, keys) of query rows t0.. against keys k0.."""
-        t1, k1 = min(t0 + bq, T), min(k0 + bk, S)
-        qpos = offset + torch.arange(t0, t1, device=q.device)[:, None]
-        key = torch.arange(k0, k1, device=q.device)[None, :]
-        ok = torch.ones((t1 - t0, k1 - k0), dtype=torch.bool, device=q.device)
-        if causal:
-            ok = key <= qpos
-            if window is not None:
-                ok = ok & (qpos - key < window)
-        s = torch.einsum("bthd,bshd->bhts", qs[:, t0:t1], kf[:, k0:k1])
+    def probs(t0, t1, k0, k1):
+        """P and dP (B, Hq, t1 - t0, k1 - k0) of query rows t0.. and keys k0..,
+        computed as the kernel's (transposed) products are."""
+        ok = _tile_mask(t0, t1 - t0, k0, k1 - k0, S, offset, causal, window, q.device)
         row_lse = lse[:, :, t0:t1, None]
-        p = torch.where(ok & (row_lse > -math.inf), torch.exp(s - row_lse), 0.0)
-        dp = torch.einsum("bthd,bshd->bhts", do[:, t0:t1], vf[:, k0:k1])
-        return p, p * (dp - delta[:, :, t0:t1, None])
+        s = mm(kf[:, :, k0:k1], qf[:, :, t0:t1].transpose(-1, -2)).transpose(-1, -2)
+        pt = torch.where(ok & (row_lse > -math.inf), torch.exp(s * scale - row_lse), 0.0)
+        dp = mm(vf[:, :, k0:k1], dof[:, :, t0:t1].transpose(-1, -2)).transpose(-1, -2)
+        return pt, dp
 
     dk = torch.zeros((B, S, Hkv, D), device=q.device)
     dv = torch.zeros((B, S, Hkv, D), device=q.device)
+    bk, bq = p.block_keys, p.rows
     for k0 in range(0, S, bk):
         k1 = min(k0 + bk, S)
-        dk_h = torch.zeros((B, k1 - k0, Hq, D), device=q.device)
-        dv_h = torch.zeros((B, k1 - k0, Hq, D), device=q.device)
+        dk_h = torch.zeros((B, Hq, k1 - k0, D), device=q.device)
+        dv_h = torch.zeros((B, Hq, k1 - k0, D), device=q.device)
         first, end = flash_mod.q_tile_range(k0, bk, T, S, bq, causal, window, offset)
         for qt in range(first, end):
             t0, t1 = qt * bq, min(qt * bq + bq, T)
-            p, ds = tile(t0, k0)
-            dv_h += torch.einsum("bhts,bthd->bshd", p, do[:, t0:t1])
-            dk_h += torch.einsum("bhts,bthd->bshd", ds, qs[:, t0:t1])
-        dk[:, k0:k1] = dk_h.view(B, k1 - k0, Hkv, G, D).sum(3)
-        dv[:, k0:k1] = dv_h.view(B, k1 - k0, Hkv, G, D).sum(3)
-    dq = torch.zeros((B, T, Hq, D), device=q.device)
-    for t0 in range(0, T, bq):
-        first, end = flash_mod.kv_tile_range(t0, bq, T, S, bk, causal, window, offset)
+            pt, dp = probs(t0, t1, k0, k1)
+            ds = pt * (dp - delta[:, :, t0:t1, None])
+            dv_h += mm(narrow(pt).transpose(-1, -2), dof[:, :, t0:t1])
+            dk_h += mm(narrow(ds).transpose(-1, -2), qf[:, :, t0:t1])
+        dk_h, dv_h = (x.transpose(1, 2).reshape(B, k1 - k0, Hkv, G, D) for x in (dk_h * scale, dv_h))
+        sum_k, sum_v = dk_h[..., 0, :], dv_h[..., 0, :]
+        for g in range(1, G):                      # the partials, in the order g = 0..G-1
+            sum_k, sum_v = sum_k + dk_h[..., g, :], sum_v + dv_h[..., g, :]
+        dk[:, k0:k1], dv[:, k0:k1] = sum_k, sum_v
+    dq = torch.zeros((B, Hq, T, D), device=q.device)
+    for t0 in range(0, T, bwd_mod.DQ_ROWS):
+        t1 = min(t0 + bwd_mod.DQ_ROWS, T)
+        first, end = flash_mod.kv_tile_range(t0, bwd_mod.DQ_ROWS, T, S, p.dq_keys, causal,
+                                             window, offset)
         for kt in range(first, end):
-            k0 = kt * bk
-            _, ds = tile(t0, k0)
-            dq[:, t0:t0 + bq] += torch.einsum("bhts,bshd->bthd", ds, kf[:, k0:k0 + bk])
-    return dq * scale, dk, dv
+            k0, k1 = kt * p.dq_keys, min(kt * p.dq_keys + p.dq_keys, S)
+            pt, dp = probs(t0, t1, k0, k1)
+            ds = pt * (dp - delta[:, :, t0:t1, None])
+            dq[:, :, t0:t1] += mm(narrow(ds), kf[:, :, k0:k1])
+    return (dq * scale).transpose(1, 2), dk, dv
 
 
 def _window_start(context_lens, window: Optional[int]):

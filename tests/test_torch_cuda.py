@@ -468,6 +468,64 @@ def test_flash_bwd_kernel_matches_plain(gen, B, T, S, Hq, Hkv, D, kw, dtype):
         assert float((g.float() - e).abs().max()) <= BWD_TOL[dtype] * largest
 
 
+# K1's fp32 kernel (3xTF32 mma.sync) at the edges of its tiles: T and S off
+# 16 and off the key tiles (64, 32 at D = 128, 16 at D = 256), S = 1, G of
+# 1, 8 and 10, D = 256, whisper's 448 x 1500 cross shape, rows that see no
+# key; output and lse against the plain version at 2e-4.
+F32_EDGES = [
+    (1, 1, 1, 2, 2, 64, {}), (1, 1, 1, 8, 1, 32, {"causal": False}),
+    (2, 37, 53, 16, 2, 128, {}), (1, 65, 65, 10, 1, 256, {}),
+    (1, 100, 333, 10, 1, 256, {"window": 70}), (2, 448, 1500, 8, 8, 64, {"causal": False}),
+    (1, 17, 200, 8, 1, 32, {"window": 5}), (3, 129, 130, 8, 8, 128, {}),
+    (1, 50, 70, 10, 1, 256, {"q_offset": 70, "window": 20})]
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,kw", F32_EDGES)
+def test_flash_f32_kernel_at_tile_edges(gen, B, T, S, Hq, Hkv, D, kw):
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda")
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    exp, exp_lse = ops.flash_attention(q, k, v, return_lse=True, force="plain", **kw)
+    torch.testing.assert_close(out, exp, rtol=2e-4, atol=2e-4)
+    assert torch.equal(torch.isinf(lse), torch.isinf(exp_lse))
+    seen = ~torch.isinf(exp_lse)
+    torch.testing.assert_close(lse[seen], exp_lse[seen], rtol=2e-4, atol=2e-4)
+
+
+# K1-bwd at the edges of its tiles: T and S off 16 and off the key tiles,
+# S = 1, G of 1, 8 and 10 (partials summed when G > 1), D = 256 (two warps
+# a key group), whisper's 448 x 1500 cross shape, rows that see no key.
+BWD_EDGES = [
+    (1, 1, 1, 8, 1, 64, {}), (1, 17, 17, 10, 1, 128, {}),
+    (2, 45, 61, 8, 1, 32, {"causal": False}), (1, 70, 70, 10, 1, 256, {}),
+    (1, 33, 97, 8, 8, 64, {"window": 20}), (1, 130, 130, 16, 2, 128, {"window": 77}),
+    (2, 448, 1500, 8, 8, 64, {"causal": False}),
+    (1, 100, 300, 16, 2, 256, {"q_offset": 250, "window": 64})]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,kw", BWD_EDGES)
+def test_flash_bwd_kernel_at_tile_edges(gen, B, T, S, Hq, Hkv, D, kw, dtype):
+    test_flash_bwd_kernel_matches_plain(gen, B, T, S, Hq, Hkv, D, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_the_same_bits_every_run(gen, dtype):
+    """No atomics: the G partials are summed in a fixed order, so two runs
+    on the same inputs give the same bits."""
+    q = torch.randn((2, 200, 16, 128), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((2, 200, 2, 128), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((2, 200, 2, 128), generator=gen, device="cuda").to(dtype)
+    dout = torch.randn((2, 200, 16, 128), generator=gen, device="cuda").to(dtype)
+    first = _grads(q, k, v, dout)
+    for _ in range(3):
+        for a, b in zip(first, _grads(q, k, v, dout)):
+            assert torch.equal(a, b)
+
+
 def _train_counts(cfg, microbatches):
     """K1 launches and K1-bwd calls of one remat train step."""
     if cfg.encoder is not None:            # encoder without remat; self and cross with it

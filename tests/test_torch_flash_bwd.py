@@ -4,17 +4,20 @@
 in plain PyTorch: its tiles, the query tiles each key tile walks
 (``flash_attention.q_tile_range``), the key tiles each query tile walks
 (``kv_tile_range``), delta, P recomputed from K1's log-sum-exp, dS, and the
-G query heads of a KV head summed.  It is held against autograd through the
-plain version, ``ref.flash_attention_ref``, at 1e-5 in fp32 over causal,
-non-causal (T != S), windowed, offset masks, G in {1, 2, 8, 10}, D in
-{32, 64, 128, 256} and ragged T; the inverse tile range against brute force;
-and the wrapper's constants, checks and dispatch.  The kernel itself runs on
+G query heads' partials of a KV head summed in order.  It is held against
+autograd through the plain version, ``ref.flash_attention_ref``, at 1e-5 in
+fp32 over causal, non-causal (T != S), windowed, offset masks, G in
+{1, 2, 8, 10}, D in {32, 64, 128, 256} and ragged T; the inverse tile range
+against brute force; the plan (every block once, heaviest first, within
+the shared memory, agreeing with the source); and the wrapper's checks and
+dispatch.  ``tests/test_torch_tf32x3.py`` holds its products as 3xTF32.  The kernel itself runs on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3e).
 """
 
 import ast
 import itertools
 import math
+import operator
 from pathlib import Path
 
 import numpy as np
@@ -110,16 +113,87 @@ def test_q_tile_range_inverts_kv_tile_range(causal, window, q_offset):
                 (T, S, bq, bk, qt, kt)
 
 
+SHAPES = [(4, 512, 512, 16, 2, 128), (2, 100, 300, 16, 2, 64), (3, 1, 9, 6, 2, 32),
+          (1, 379, 379, 10, 1, 256), (1, 448, 1500, 8, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D", SHAPES)
+def test_plan_covers_every_key_tile_and_head_once_heaviest_first(B, T, S, Hq, Hkv, D, dtype):
+    """dK/dV: one block per (key tile, query head, batch), each once, the
+    longest walks (under the causal mask) first; dQ: one block per (query
+    tile, query head, batch), the tiles that see the most keys first."""
+    p = bwd_mod.plan(B, T, S, Hq, Hkv, D, dtype)
+    assert p.block_keys * p.key_tiles >= S > p.block_keys * (p.key_tiles - 1)
+    coords = [bwd_mod.dkdv_block_coords(B, Hq, i) for i in range(p.dkdv_blocks)]
+    assert sorted(coords) == sorted(itertools.product(range(B), range(Hq), range(p.key_tiles)))
+    walks = [-operator.sub(*flash_mod.q_tile_range(kt * p.block_keys, p.block_keys, T, S,
+                                                   p.rows, True, None))
+             for _, _, kt in coords]
+    assert walks == sorted(walks, reverse=True)
+    coords = [bwd_mod.dq_block_coords(p, B, Hq, i) for i in range(p.dq_blocks)]
+    assert sorted(coords) == sorted(itertools.product(range(B), range(Hq), range(p.q_tiles)))
+    walks = [-operator.sub(*flash_mod.kv_tile_range(qt * bwd_mod.DQ_ROWS, bwd_mod.DQ_ROWS, T, S,
+                                                    p.dq_keys, True, None))
+             for _, _, qt in coords]
+    assert walks == sorted(walks, reverse=True)
+    assert p.partial == (Hq != Hkv)
+    assert p.scratch_bytes == (2 * B * S * Hq * D * 4 if Hq != Hkv else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", flash_mod.HEAD_DIMS)
+def test_plan_fits_shared_memory(D, dtype):
+    """Every tile fits the 227 KB a block may have; the key tile is 64 keys
+    (32 where two warps share 16 keys) and the ring stages hold whole
+    k-steps of the type's mma (8 for TF32, 16 for bf16)."""
+    p = bwd_mod.plan(1, 512, 512, 8, 2, D, dtype)
+    assert p.dkdv_smem <= flash_mod.SMEM_LIMIT and p.dq_smem <= flash_mod.SMEM_LIMIT
+    assert (p.dkdv_smem, p.dq_smem) == bwd_mod.smem_bytes(dtype, D)
+    assert p.block_keys * p.split == 16 * bwd_mod.WARPS and D % (8 * p.split) == 0
+    k_step = 8 if dtype == torch.float32 else 16
+    assert p.rows % k_step == 0 and p.dq_keys % k_step == 0
+
+
+def test_plan_fills_the_card_at_the_training_shape():
+    """qwen2_5_3b's microbatch (B=4, T=S=512, 16 query heads over 2 of 128):
+    at least two dK/dV blocks an SM of the H100's 132, and 16.8 MB of fp32
+    partials each for dK and dV."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = bwd_mod.plan(4, 512, 512, 16, 2, 128, dtype)
+        assert p.dkdv_blocks >= 2 * flash_mod.SMS and p.dq_blocks >= 2 * flash_mod.SMS
+        assert p.partial and p.scratch_bytes == 2 * 16_777_216
+
+
+def test_plan_raises_on_unknown_tiles():
+    with pytest.raises(ValueError, match="no tiles"):
+        bwd_mod.plan(1, 8, 8, 2, 2, 96, torch.float32)
+    with pytest.raises(ValueError, match="no tiles"):
+        bwd_mod.plan(1, 8, 8, 2, 2, 64, torch.float16)
+
+
 def test_wrapper_constants_agree_with_the_source():
+    """The plan's constants are the kernel's: warps, ring stages, dQ rows,
+    the tile table and the shared-memory sums; every tile fits the 227 KB
+    a block may have."""
     source = (KERNELS / "csrc" / "flash_attention_bwd.cu").read_text()
-    assert f"constexpr int kBlockQ = {bwd_mod.BLOCK_Q};" in source
-    assert f"constexpr int kBlockK = {bwd_mod.BLOCK_K};" in source
-    # shared memory of the largest head dim: under the 227 KB a block may have
-    ld = 256 + 4
-    smem = 4 * (2 * bwd_mod.BLOCK_K * ld + 2 * bwd_mod.BLOCK_Q * ld
-                + 2 * bwd_mod.BLOCK_Q * (bwd_mod.BLOCK_K + 4) + 2 * bwd_mod.BLOCK_Q)
-    assert smem <= flash_mod.SMEM_LIMIT
-    assert "218,624 bytes" in source and smem == 218624
+    assert f"constexpr int kWarps = {bwd_mod.WARPS};" in source
+    assert f"constexpr int kStages = {bwd_mod.STAGES};" in source
+    assert "constexpr int kDqRows = 16 * kWarps;" in source and bwd_mod.DQ_ROWS == 64
+    ctype = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    for (dtype, D), (rows, split, dq_keys) in bwd_mod.TILES.items():
+        assert (f"template <> struct BwdTiles<{ctype[dtype]}, {D}> : "
+                f"TilesOf<{rows}, {split}, {dq_keys}> {{}};") in source
+    assert len(bwd_mod.TILES) == source.count("template <> struct BwdTiles<")
+    assert ("kDkdvSmem = (2 * kKeys + 2 * kStages * kRows) * kLD * sizeof(T) +\n"
+            "                                   2 * kStages * kRows * 4;") in source
+    assert ("kDqSmem = (2 * kDqRows + 2 * kStages * kDqKeys) * kLD * sizeof(T) +\n"
+            "                                 2 * kDqRows * 4;") in source
+    assert "kKeys = 16 * kWarps / Tiles::kSplit;" in source
+    # the shared memory of fp32 at D = 256: a dQ block holds 64 rows of Q and
+    # dO and two stages of 16 keys of K and V, rows of 260 floats
+    assert bwd_mod.smem_bytes(torch.float32, 256) == (133376, 200192)
+    assert max(max(bwd_mod.smem_bytes(dt, D)) for dt, D in bwd_mod.TILES) <= flash_mod.SMEM_LIMIT
 
 
 def test_wrapper_reads_no_device_value_and_has_no_fallback():

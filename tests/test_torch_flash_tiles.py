@@ -256,6 +256,50 @@ def test_plan_refuses_unknown_tiles():
 
 
 # =========================================================================
+# the fp32 kernel's plan (3xTF32 mma.sync)
+# =========================================================================
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D", [(4, 512, 512, 16, 2, 128), (2, 100, 300, 16, 2, 64),
+                                            (3, 1, 9, 6, 2, 32), (1, 379, 3072, 10, 1, 256)])
+def test_f32_plan_covers_every_tile_once_heaviest_first(B, T, S, Hq, Hkv, D):
+    p = flash_mod.f32_plan(B, T, S, Hq, Hkv, D)
+    assert p.q_tiles * p.block_rows >= T > (p.q_tiles - 1) * p.block_rows
+    coords = [flash_mod.f32_block_coords(p, B, Hq, i) for i in range(p.blocks)]
+    assert sorted(coords) == sorted(itertools.product(range(B), range(Hq), range(p.q_tiles)))
+    work = [flash_mod.kv_tile_range(qt * p.block_rows, p.block_rows, T, S, p.block_keys,
+                                    True, None)[1] for _, _, qt in coords]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("D", flash_mod.HEAD_DIMS)
+def test_f32_plan_fits_shared_memory(D):
+    """Two blocks an SM up to D = 128 (each under half the SM's 228 KB); at
+    D = 256 one, with 16-key tiles; the key tile is whole TF32 k-steps."""
+    p = flash_mod.f32_plan(1, 512, 512, 8, 2, D)
+    assert p.smem_bytes == flash_mod.f32_smem_bytes(D, p.block_keys) <= flash_mod.SMEM_LIMIT
+    assert p.block_keys % 8 == 0 and p.threads == 128 and p.block_rows == 64
+    if D <= 128:
+        assert 2 * (p.smem_bytes + 1024) <= 233472
+
+
+def test_f32_plan_agrees_with_the_source():
+    source = (KERNELS / "csrc" / "flash_attention.cu").read_text()
+    assert f"constexpr int kF32Stages = {flash_mod.F32_STAGES};" in source
+    assert "constexpr int kF32Rows = 16 * kF32Warps;" in source
+    assert "constexpr int kF32Warps = 4;" in source and flash_mod.F32_ROWS == 64
+    assert "return (kF32Rows + 2 * kF32Stages * BK) * (D + Mma<float>::kPad) * 4;" in source
+    for D, bk in flash_mod.F32_KEYS.items():
+        assert f"case {D}:\n      return repro_torch::launch_f32<{D}, {bk}>(" in source
+    assert source.count("repro_torch::launch_f32<") == len(flash_mod.F32_KEYS)
+    assert "static constexpr int kPad = 4;" in (KERNELS / "csrc" / "mma.cuh").read_text()
+
+
+def test_f32_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_mod.f32_plan(1, 64, 64, 4, 1, 96)
+
+
+# =========================================================================
 # the wrapper
 # =========================================================================
 
