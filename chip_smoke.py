@@ -11,7 +11,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and prints the build seconds and ptxas's
    register and spill counts, by name for K1's fp32 kernel and K1-bwd's
-   dK/dV and dQ kernels at every head dim and type;
+   dK/dV and dQ kernels at every head dim and type (K3-bwd's in 3f);
 3. holds each kernel against its plain PyTorch version on the card, over the
    shape grids of ``tests/test_kernels.py`` and at the llama3_8b shapes (K1,
    K2) or the mamba2_370m prefill shapes (K3) (tolerance 2e-4 in fp32, 5e-4
@@ -65,6 +65,19 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    128) against its bounds, autograd's plain backward and SDPA's backward
    (and the names of SDPA's backward kernels), with the device time of each
    of its launches (delta, dK/dV, the sum of the partials, dQ);
+3f. holds K3's gradient kernel (``csrc/ssd_scan_bwd.cu``, through
+   ``ops.ssd_scan``'s autograd: K3 forward keeping its chunk states, K3-bwd
+   backward) against the plain decomposition
+   (``ref.ssd_scan_bwd_two_pass``) and against autograd through the plain
+   scan on the same values in fp32, each gradient within 1e-4 (fp32) or
+   1e-2 (bf16) of its largest entry: T 16, 100, 512, 2048 (ragged and whole
+   chunks), N 16 and 128, P 16 and 64, with and without an initial state
+   and a final-state gradient, chunks of 128, 64 and 16, bf16 inputs; and
+   times it at mamba2_370m's training shape (B=4, T=2048, 32 heads of 64,
+   N=128) back to back and in a CUDA graph, with the device time of each
+   of its four launches, beside the plain decomposition, autograd through
+   the plain scan and K3's forward, its two fp32 bounds (``ssd_bwd_flops``) and
+   ptxas's registers and spills;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -168,14 +181,21 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    under torch.profiler (device busy share, K1 and K1-bwd shares);
 21b. restarts on the card: qwen2_5_3b at full width cut to 2 layers, 4
    steps straight against 2, a save, a restore into fresh tensors and 2
-   more, bit for bit (the checkpoint in a temporary directory).
+   more, bit for bit (the checkpoint in a temporary directory);
+22. trains mamba2_370m at full size in fp32 (368,227,840 parameters) the
+   same way, batch 8 of 2048 tokens in 2 microbatches with remat, through
+   K3 and K3-bwd: step 1 against the plain scan (loss 1e-4, gradient norm
+   1e-2, layer 0's ``w_in`` gradient 1e-3 of its largest entry), 8 steps
+   (finite losses, parameters moved, K3 192 launches a step and K3-bwd 96,
+   the plain run none), step ms, tokens/s, peak memory and a profiled step
+   (K3 and K3-bwd shares).
 
 Each model is freed before the next is built.  It prints one JSON
-``kernels`` line (K1, K1-bwd, K2 and K3; launches summed over the serving
-runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19 and phase 21's 8 training
-steps), the card's name and power limit, and
+``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
+serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19 and the 8 training
+steps of phases 21 and 22), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
-phase 3e and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
+phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
 """
 
@@ -694,11 +714,12 @@ def bound(flops, nbytes, peak_flops):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bounds(flops, nbytes, dtype):
-    """(bound_ms, bound_by, labelled bounds) of an attention kernel: bf16 on
-    the tensor cores at 989 TFLOP/s; fp32 both on the CUDA cores at
-    67 TFLOP/s and as 3xTF32 on the tensor cores at 495 / 3 TFLOP/s, the
-    row's bound being the latter, the arithmetic K1's fp32 kernels use."""
+def kernel_bounds(flops, nbytes, dtype):
+    """(bound_ms, bound_by, labelled bounds) of a kernel: bf16 on the tensor
+    cores at 989 TFLOP/s; fp32 both on the CUDA cores at 67 TFLOP/s and as
+    3xTF32 on the tensor cores at 495 / 3 TFLOP/s, the row's bound being the
+    latter (the least time fp32-accurate products take on this card, the
+    arithmetic K1's fp32 kernels use), whatever units the kernel itself uses."""
     if dtype == "bfloat16":
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         return b_ms, b_by, {"bf16_tensor_cores": [b_ms, b_by]}
@@ -957,7 +978,7 @@ def measure_flash_point(ops, gen, B, T, S, Hq, Hkv, D, dtype, causal=True, windo
     names = cuda_kernel_names(sdpa)
     flops = 4 * D * Hq * B * flash_pairs(T, S, causal, window)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by, bounds = attention_bounds(flops, nbytes, dtype)
+    b_ms, b_by, bounds = kernel_bounds(flops, nbytes, dtype)
     log(f"{what}: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms ({library_g_ms:.4f} in a graph; {names}), bound {b_ms:.5f} ms "
         f"by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; {bounds})")
@@ -1149,11 +1170,11 @@ def measure_ssd(ops):
     flops = ssd_flops(B, T, H, P, N, Q)
     nbytes = 4 * (xdt.numel() + dA.numel() + Bm.numel() + Cm.numel() + s0.numel()
                   + y.numel() + st.numel())
-    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    b_ms, b_by, bounds = kernel_bounds(flops, nbytes, "float32")
     log(f"K3 mamba2_370m: kernel {ms:.4f} ms ({g_ms:.4f} in a graph), plain {plain_ms:.4f} ms, "
         f"no library call, "
-        f"bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.4f} GFLOP at the fp32 rate, "
-        f"{nbytes / 1e6:.3f} MB); host {h_us:.1f} us a call")
+        f"bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.4f} GFLOP, "
+        f"{nbytes / 1e6:.3f} MB; {bounds}); host {h_us:.1f} us a call")
     # the ragged serving chunk (379 tokens) and long prefill budgets, each
     # from a carried state
     for T2 in (379, 2048, 8192):
@@ -1170,7 +1191,7 @@ def measure_ssd(ops):
         passes2 = pass_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2),
                           ("ssd_fwd_chunk", "ssd_fwd_scan"))
         nbytes2 = 4 * (2 * x2.numel() + a2.numel() + B2.numel() + C2.numel() + 2 * s2.numel())
-        b2_ms, b2_by = bound(ssd_flops(B, T2, H, P, N, Q), nbytes2, PEAK_FP32_FLOPS)
+        b2_ms, b2_by, _ = kernel_bounds(ssd_flops(B, T2, H, P, N, Q), nbytes2, "float32")
         log(f"K3 mamba2_370m T={T2}: kernel {ms2:.4f} ms ({g2:.4f} in a graph), "
             f"plain {plain2:.4f} ms, bound {b2_ms:.5f} ms by {b2_by}; device time per pass: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in passes2.items()))
@@ -1178,7 +1199,7 @@ def measure_ssd(ops):
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:84",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "graph_ms": g_ms,
+            "bound_by": b_by, "bounds": bounds, "library_ms": None, "graph_ms": g_ms,
             "library_graph_ms": None, "host_us": h_us}
 
 
@@ -1300,7 +1321,7 @@ def measure_flash_bwd(ops):
         # q, out and dout read, dq written; k, v read, dk, dv written; lse read.
         nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
             + 4 * lse.numel()
-        b_ms, b_by, bounds = attention_bounds(flops, nbytes, dtype)
+        b_ms, b_by, bounds = kernel_bounds(flops, nbytes, dtype)
         launch = pass_ms(kern, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce",
                                 "flash_bwd_dq"))
         p = bwd_mod.plan(B, T, S, Hq, Hkv, D, dt)
@@ -1326,6 +1347,195 @@ def measure_flash_bwd(ops):
     row.update(f32)
     row["bfloat16"] = res["bfloat16"]
     return row
+
+
+# -------------------------------------------------------------------------
+# 3f. K3's gradient kernel against the plain decomposition and autograd
+# -------------------------------------------------------------------------
+
+# Tolerances of K3-bwd, against the largest entry of each reference gradient:
+# fp32 1e-4, since the kernel sums its fp32 products over up to 128 positions
+# and 128 state rows in another order than the plain versions; bf16 1e-2,
+# since the inputs are rounded to bf16 and the gradients returned in it.
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def ssd_grads(ops, xs, s0, dy, d_final, chunk, force=None):
+    """The gradients of ``ops.ssd_scan``'s inputs (xdt, dA, Bm, Cm, and the
+    initial state where there is one) under ``dy`` and ``d_final`` (None:
+    the final state is not used)."""
+    ins = [t.detach().requires_grad_() for t in xs]
+    if s0 is not None:
+        ins.append(s0.detach().requires_grad_())
+    y, st = ops.ssd_scan(*ins[:4], chunk=chunk, initial_state=ins[4] if s0 is not None else None,
+                         force=force)
+    outs, gouts = [y], [dy]
+    if d_final is not None:
+        outs.append(st)
+        gouts.append(d_final)
+    return torch.autograd.grad(outs, ins, gouts)
+
+
+def grads_err(got, exp):
+    """Largest |got - exp| over the largest |exp|, gradient by gradient;
+    returns (worst ratio, worst absolute error)."""
+    ratio, worst_abs = 0.0, 0.0
+    for g, e in zip(got, exp):
+        if not torch.isfinite(g).all():
+            raise AssertionError("a gradient is not finite")
+        err = float((g.float() - e.float()).abs().max())
+        ratio = max(ratio, err / max(float(e.abs().max()), 1e-30))
+        worst_abs = max(worst_abs, err)
+    return ratio, worst_abs
+
+
+def check_ssd_bwd_point(ops, gen, B, T, H, P, N, chunk, dtype, init, final):
+    """K3-bwd through ``ops.ssd_scan``'s autograd (K3 forward, K3-bwd
+    backward, one launch each) against the plain decomposition
+    (``ref.ssd_scan_bwd_two_pass``) and against autograd through the plain
+    scan, on the same values in fp32; each gradient within ``SSD_BWD_TOL``
+    of its largest entry.  Returns the worst ratio and absolute error."""
+    from repro_torch.kernels import ref
+    dt = getattr(torch, dtype)
+    xs, s0 = ssd_inputs(gen, B, T, H, P, N, dt, init)
+    dy = torch.randn((B, T, H, P), generator=gen, device="cuda")
+    d_final = torch.randn((B, H, N, P), generator=gen, device="cuda") if final else None
+    ops.reset_launch_counts()
+    got = ssd_grads(ops, xs, s0, dy, d_final, chunk)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    xf = [x.float() for x in xs]
+    plain = ssd_grads(ops, xf, s0, dy, d_final, chunk, force="plain")
+    two = [g for g in ref.ssd_scan_bwd_two_pass(*xf, dy, chunk=chunk, initial_state=s0,
+                                                 d_final=d_final) if g is not None]
+    torch.cuda.synchronize()
+    if (counts["ssd_scan"], counts["ssd_scan_bwd"]) != (1, 1) or \
+            any(g.dtype != x.dtype for g, x in zip(got, xs)):
+        raise AssertionError(f"K3-bwd: launches {counts}, types {[g.dtype for g in got]}")
+    err_two, abs_two = grads_err(got, two)
+    err_plain, _ = grads_err(got, plain)
+    err_ref, _ = grads_err(two, plain)
+    what = (f"K3-bwd {(B, T, H, P, N)} chunk {chunk} {dtype} init={init} "
+            f"d_final={final}")
+    ok = max(err_two, err_plain) <= SSD_BWD_TOL[dtype] and err_ref <= SSD_BWD_TOL["float32"]
+    log(f"  {what:66s} vs decomposition {err_two:.3e}, vs autograd {err_plain:.3e} "
+        f"(decomposition vs autograd {err_ref:.3e})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: {err_two}, {err_plain}, {err_ref} of the largest "
+                             f"gradient, over {SSD_BWD_TOL[dtype]}")
+    return max(err_two, err_plain), abs_two
+
+
+def check_ssd_bwd_grid(ops):
+    """Phase 3f: T 16, 100, 512, 2048 (one ragged chunk, a ragged second,
+    whole chunks), N 16 and 128, P 16 and 64, with neither or both of an
+    initial state and a final-state gradient, in fp32 at chunk 128; then
+    each of the two alone, chunks of 64 and 16 (the smallest shape the
+    kernel takes among them: one chunk of 16, N = 4, P = 16), and bf16
+    inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(T, N, P, 128, "float32", both, both) for T in (16, 100, 512, 2048)
+             for N in (16, 128) for P in (16, 64) for both in (False, True)]
+    cases += [(300, 128, 64, 128, "float32", True, False), (300, 128, 64, 128, "float32", False, True),
+              (200, 32, 32, 64, "float32", True, True), (37, 16, 16, 16, "float32", True, True),
+              (16, 4, 16, 16, "float32", True, True),
+              (300, 128, 64, 128, "bfloat16", True, True), (512, 128, 64, 128, "bfloat16", False, False)]
+    for T, N, P, chunk, dtype, init, final in cases:
+        worst[dtype] = max(worst[dtype], check_ssd_bwd_point(ops, gen, 2, T, 4, P, N, chunk, dtype,
+                                                             init, final)[0])
+        n += 1
+    log(f"K3-bwd: {n} cases, worst error over the largest gradient entry: {worst}")
+    return worst
+
+
+def ssd_bwd_flops(B, T, H, P, N, Q):
+    """Operations of K3's gradient on these inputs, counting the rows of a
+    ragged last chunk only and the causal triangles only: C·Bᵀ once per
+    (sequence, chunk); per (sequence, head, chunk) the chunk's share of the
+    state gradient, the reverse scan's step, M = L ∘ (dy·xdtᵀ), dC_h, dB_h
+    and dxdt (each an intra-chunk product over the triangle and a state
+    product), dcum and ddA's reverse cumsum; the sum of the heads' partials.
+    dcum counts the triangle's row and column sums of C·Bᵀ ∘ M, ⟨G, S⟩, and
+    the state terms as dot products with state parts already counted:
+    C_i·(dy ∘ exp(cum))_i·S_cᵀ reads dC_h's (N a row), and the state
+    update's term reads dB_h's (N a row) or dxdt's (P a row), whichever is
+    shorter.  The exponentials are not counted; the kernel computes more
+    than this (whole squares, whole tiles, the y state term from dC_h's and
+    the update's from dB_h's), which the bound does not count."""
+    total = 0
+    for c0 in range(0, T, Q):
+        q = min(Q, T - c0)
+        tri = q * (q + 1) // 2
+        total += B * 2 * N * tri + B * 2 * (H - 1) * q * N
+        total += B * H * ((2 * q * N * P + q * N) + 2 * N * P
+                          + (2 * P * tri + tri)
+                          + 2 * (2 * N * tri + 2 * q * P * N + q * P)
+                          + (2 * P * tri + tri + 2 * q * N * P + q * N)
+                          + (4 * (tri - q) + 2 * q * N + 2 * q * min(N, P) + 2 * N * P + q))
+    return total
+
+
+def measure_ssd_bwd(ops):
+    """K3-bwd at mamba2_370m's training shape (a microbatch of 4 sequences
+    of 2048 tokens, 32 heads of 64, N = 128, chunks of 128) in fp32, as
+    training calls it (no initial state, the final state unused): checked
+    against the plain decomposition and autograd, then timed back to back
+    and in a CUDA graph with the device time of each of its four launches,
+    beside the plain decomposition, autograd's backward through the plain
+    scan and K3's forward at the same shape; the bound from
+    ``ssd_bwd_flops`` at the fp32 rates (``kernel_bounds``: the row's is
+    3xTF32's, the CUDA cores' is printed beside it) against reading xdt, dA,
+    B, C, dy and the kept states once and writing the four gradients once;
+    autograd's backward through the plain scan over 10 calls; ptxas's
+    registers and spills of its fp32 kernels.  No PyTorch call computes it."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels import ssd_scan_bwd as bwd_mod
+    B, T, H, P, N, Q = 4, 2048, 32, 64, 128, 128
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    err, err_abs = check_ssd_bwd_point(ops, gen, B, T, H, P, N, Q, "float32", False, False)
+    xs, _ = ssd_inputs(gen, B, T, H, P, N, torch.float32)
+    dy = torch.randn((B, T, H, P), generator=gen, device="cuda")
+    _, state, carry = ssd_mod.ssd_scan(*xs, chunk=Q)
+
+    def kern():
+        return bwd_mod.ssd_scan_bwd(*xs, dy, carry, state, chunk=Q)
+    ms, g_ms, h_us = time_ms(kern), graph_ms(kern), host_us(kern, n=50)
+    launch = pass_ms(kern, ("ssd_bwd_chunk", "ssd_bwd_state", "ssd_bwd_grads",
+                            "ssd_bwd_head_sum"))
+    fwd_ms = graph_ms(lambda: ssd_mod.ssd_scan(*xs, chunk=Q))
+    decomp_ms = time_ms(lambda: ref.ssd_scan_bwd_two_pass(*xs, dy, chunk=Q), iters=3, warmup=1)
+    ins = [x.detach().requires_grad_() for x in xs]
+    y_plain, _ = ops.ssd_scan(*ins, chunk=Q, force="plain")
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_plain, ins, dy, retain_graph=True),
+                       iters=10, warmup=2)
+    del y_plain, ins
+    flops = ssd_bwd_flops(B, T, H, P, N, Q)
+    nbytes = 4 * (2 * xs[0].numel() + 2 * xs[1].numel() + 2 * xs[2].numel() + 2 * xs[3].numel()
+                  + dy.numel() + carry.numel() + state.numel())
+    b_ms, b_by, bounds = kernel_bounds(flops, nbytes, "float32")
+    blog = _build.build_log.get("ssd_scan_bwd", "")
+    ptxas = {k: kernel_resources(blog, f"{k}IfE") for k in ("ssd_bwd_chunk", "ssd_bwd_grads")}
+    ptxas.update({k: kernel_resources(blog, k) for k in ("ssd_bwd_state", "ssd_bwd_head_sum")})
+    log(f"K3-bwd mamba2_370m training {(B, T, H, P, N)} chunk {Q}: kernel {ms:.4f} ms "
+        f"({g_ms:.4f} in a graph; device time per launch "
+        + ", ".join(f"{k} {v:.4f}" for k, v in launch.items())
+        + f"), plain decomposition {decomp_ms:.4f} ms, autograd through the plain scan "
+        f"{plain_ms:.4f} ms, no library call; bound {b_ms:.5f} ms by {b_by} "
+        f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; {bounds}); K3 forward at "
+        f"this shape {fwd_ms:.4f} ms in a graph; host {h_us:.1f} us a call; ptxas {ptxas}")
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:84",
+            "gradient_of": "K3; the reference differentiates its jnp chunked scan with XLA "
+                           "(src/repro/models/layers.py:574-634)",
+            "shape": [B, T, H, P, N, Q], "dtype": "float32",
+            "max_abs_err": err_abs, "max_err_rel": err, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "decomposition_ms": decomp_ms, "library_ms": None,
+            "library_graph_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bounds": bounds,
+            "gflop": flops / 1e9, "mb": nbytes / 1e6, "launch_ms": launch,
+            "forward_graph_ms": fwd_ms, "host_us": h_us, "ptxas": ptxas}
 
 
 # -------------------------------------------------------------------------
@@ -1455,8 +1665,11 @@ def main() -> int:
     check_flash_bwd_grid(ops)
     kernels.insert(1, measure_flash_bwd(ops))
     kernels[1]["ptxas"] = resources      # K1's fp32 kernel and K1-bwd's, every D and type
+    log("== 3f. K3's gradient kernel against the plain decomposition and autograd")
+    check_ssd_bwd_grid(ops)
+    kernels.append(measure_ssd_bwd(ops))
     if "--kernels-only" in sys.argv[1:]:
-        log(f"--kernels-only: stopping after phase 3e, {time.monotonic() - t_start:.1f} s")
+        log(f"--kernels-only: stopping after phase 3f, {time.monotonic() - t_start:.1f} s")
         return 0
     launches = collections.Counter()      # summed over every serving path
 
@@ -1554,13 +1767,16 @@ def main() -> int:
     log("== 21b. restart on the card: qwen2_5_3b at full width, 2 layers, bit for bit")
     restart_qwen()
     torch.cuda.empty_cache()
+    log("== 22. training mamba2_370m at full size in fp32 through K3 and K3-bwd")
+    launches.update(train_mamba(ops))
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
         library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"kernel {k['name']}: {k['ms']:.4f} ms a call ({k['graph_ms']:.4f} in a CUDA "
             f"graph), {k['launches']} launches on its "
-            f"serving path, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, plain "
+            f"serving and training paths, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, plain "
             f"{k['plain_ms']:.4f} ms, library {library}, max abs err {k['max_abs_err']:.3e}")
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2285,30 +2501,37 @@ def profile_serving(serve, ranges=()) -> None:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")
 
 
-def train_qwen(ops):
-    """Phase 21: qwen2_5_3b at full size in fp32 (3,085,938,688 parameters),
-    trained through the training CLI's own code (``repro_torch.launch.train``:
-    ``setup`` and ``run``) at ``--batch 8 --seq 512 --microbatches 2`` with
-    remat.  Step 1 first, without an update, through the kernels and through
-    ``force="plain"`` on the same batch: loss within 1e-4 and the gradients'
-    global norm within 1e-2 (relative).  Then 8 steps: every loss finite,
-    the parameters moved, K1 36 x 2 x 2 launches a step (the remat runs each
-    forward again) and K1-bwd 36 x 2; step ms, tokens/s, peak allocated
-    memory, and one more step under torch.profiler.  Returns the 8 steps'
-    launch counts."""
+def train_full(ops, arch, *, seq, expect, kernels, leaf, sample, groups):
+    """Train ``arch`` at full size in fp32 through the training CLI's own
+    code (``repro_torch.launch.train``: ``setup`` and ``run``) at ``--batch 8
+    --seq <seq> --microbatches 2`` with remat.  Step 1 first, without an
+    update, through the kernels and through ``force="plain"`` on the same
+    batch: loss within 1e-4 and the gradients' global norm within 1e-2
+    (relative), and layer 0's ``leaf`` gradient within 1e-3 of its largest
+    entry.  Then 8 steps: every loss finite, the parameters ``sample`` picks
+    moved, the forward kernel (``kernels[0]``) 4 launches a layer a step
+    (the remat runs each forward again) and its gradient kernel 2, the plain
+    run none; step ms, tokens/s, peak allocated memory, and one more step
+    under torch.profiler with ``groups``.  Returns the 8 steps' launch
+    counts."""
     from repro_torch.launch import train as train_cli
     from repro_torch.models.optim import global_norm, tree_leaves, value_and_grad
-    args = train_cli.parse_args(["--arch", "qwen2_5_3b", "--full-config", "--steps", "8",
-                                 "--batch", "8", "--seq", "512", "--microbatches", "2",
+    args = train_cli.parse_args(["--arch", arch, "--full-config", "--steps", "8",
+                                 "--batch", "8", "--seq", str(seq), "--microbatches", "2",
                                  "--log-every", "1"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     cfg, model, params = train_cli.setup(args)
     n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"initialised {n_params:,} fp32 parameters in {time.monotonic() - t0:.1f} s")
-    if n_params != 3_085_938_688 or n_params != cfg.param_count():
-        raise AssertionError(f"qwen2_5_3b has {n_params} parameters")
+    if n_params != expect or n_params != cfg.param_count():
+        raise AssertionError(f"{arch} has {n_params} parameters")
     n_layers = cfg.num_layers
+
+    def at(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree
     batch = next(train_cli.data_stream(cfg.vocab_size, args.batch, args.seq, seed=1234,
                                        start_step=0))
     step1 = {}
@@ -2320,26 +2543,23 @@ def train_qwen(ops):
         step1[force] = (float(loss), norm, ops.launch_counts(), time.monotonic() - t0)
         log(f"step 1 {'kernels' if force is None else 'plain'}: loss {step1[force][0]:.6f}, "
             f"gradient norm {norm:.6f}, {step1[force][3]:.2f} s, launches {step1[force][2]}")
-        if force is None:      # the first layer's query projection, to compare
-            wq_grad = grads["blocks"]["attn"]["wq"][0].clone()
+        if force is None:      # the first layer's leaf, to compare
+            leaf_grad = at(grads, leaf)[0].clone()
         del grads
     (l_k, n_k, c_k, _), (l_p, n_p, c_p, _) = step1[None], step1["plain"]
-    wq_plain = params["blocks"]["attn"]["wq"].grad[0]
-    wq_err = float((wq_grad - wq_plain).abs().max()) / float(wq_plain.abs().max())
-    log(f"step 1: layer 0's wq gradient through the kernels is {wq_err:.3e} of its largest "
-        f"entry from the plain one's")
-    if abs(l_k - l_p) > 1e-4 * abs(l_p) or abs(n_k - n_p) > 1e-2 * abs(n_p) or wq_err > 1e-3:
+    leaf_plain = at(params, leaf).grad[0]
+    leaf_err = float((leaf_grad - leaf_plain).abs().max()) / float(leaf_plain.abs().max())
+    log(f"step 1: layer 0's {'/'.join(leaf)} gradient through the kernels is {leaf_err:.3e} of "
+        f"its largest entry from the plain one's")
+    if abs(l_k - l_p) > 1e-4 * abs(l_p) or abs(n_k - n_p) > 1e-2 * abs(n_p) or leaf_err > 1e-3:
         raise AssertionError(f"step 1: kernels loss {l_k}, norm {n_k}; plain {l_p}, {n_p}; "
-                             f"wq gradient {wq_err} apart")
-    if (c_k["flash_attention"], c_k["flash_attention_bwd"]) != (4 * n_layers, 2 * n_layers) \
-            or c_p["flash_attention"] or c_p["flash_attention_bwd"]:
+                             f"{leaf} gradient {leaf_err} apart")
+    if (c_k[kernels[0]], c_k[kernels[1]]) != (4 * n_layers, 2 * n_layers) \
+            or c_p[kernels[0]] or c_p[kernels[1]]:
         raise AssertionError(f"step 1 launches: kernels {c_k}, plain {c_p}")
     log(f"step 1 agrees: loss {abs(l_k - l_p) / abs(l_p):.3e}, gradient norm "
         f"{abs(n_k - n_p) / abs(n_p):.3e} apart (relative)")
 
-    def sample(p):
-        return [p["embed"][:4].detach().clone(), p["blocks"]["attn"]["wq"][0, :4].detach().clone(),
-                p["blocks"]["mlp"]["wo"][-1, :4].detach().clone()]
     before = sample(params)
     ops.reset_launch_counts()
     out = train_cli.run(args, cfg, model, params)
@@ -2348,12 +2568,12 @@ def train_qwen(ops):
     params, opt = out["params"], out["opt"]
     losses = [h["loss"] for h in out["history"]]
     moved = [float((a - b).abs().max()) for a, b in zip(sample(params), before)]
-    expect = (8 * 4 * n_layers, 8 * 2 * n_layers)
+    expect_counts = (8 * 4 * n_layers, 8 * 2 * n_layers)
     log(f"8 steps: losses {losses}, parameters moved by {moved}, launches {counts}")
     if not all(math.isfinite(x) for x in losses) or not all(m > 0 for m in moved):
         raise AssertionError(f"training: losses {losses}, moved {moved}")
-    if (counts["flash_attention"], counts["flash_attention_bwd"]) != expect:
-        raise AssertionError(f"K1 and K1-bwd launched {counts}, expected {expect}")
+    if (counts[kernels[0]], counts[kernels[1]]) != expect_counts:
+        raise AssertionError(f"{kernels} launched {counts}, expected {expect_counts}")
     secs = sorted(h["seconds"] for h in out["history"][1:])
     step_s = secs[len(secs) // 2]
     peak = torch.cuda.max_memory_allocated()
@@ -2361,14 +2581,41 @@ def train_qwen(ops):
         f"{args.batch * args.seq / step_s:,.0f} tokens/s; steps {[round(h['seconds'] * 1e3, 1) for h in out['history']]} ms; "
         f"peak allocated {peak / 2**30:.2f} GiB; allocated now "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    profile_training(model, params, opt, cfg, args)
+    profile_training(model, params, opt, cfg, args, groups)
     return counts
 
 
-def profile_training(model, params, opt, cfg, args):
+def train_qwen(ops):
+    """Phase 21: qwen2_5_3b at full size in fp32 (3,085,938,688 parameters),
+    batch 8 of 512 tokens, through K1 and K1-bwd (``train_full``; layer 0's
+    query projection compared at step 1)."""
+    return train_full(
+        ops, "qwen2_5_3b", seq=512, expect=3_085_938_688,
+        kernels=("flash_attention", "flash_attention_bwd"), leaf=("blocks", "attn", "wq"),
+        sample=lambda p: [p["embed"][:4].detach().clone(),
+                          p["blocks"]["attn"]["wq"][0, :4].detach().clone(),
+                          p["blocks"]["mlp"]["wo"][-1, :4].detach().clone()],
+        groups={"K1 (flash_fwd)": "flash_fwd", "K1-bwd (flash_bwd)": "flash_bwd"})
+
+
+def train_mamba(ops):
+    """Phase 22: mamba2_370m at full size in fp32 (368,227,840 parameters),
+    batch 8 of 2048 tokens, through K3 and K3-bwd (``train_full``; layer 0's
+    input projection compared at step 1)."""
+    return train_full(
+        ops, "mamba2_370m", seq=2048, expect=368_227_840,
+        kernels=("ssd_scan", "ssd_scan_bwd"), leaf=("blocks", "ssd", "w_in"),
+        sample=lambda p: [p["embed"][:4].detach().clone(),
+                          p["blocks"]["ssd"]["w_in"][0, :4].detach().clone(),
+                          p["blocks"]["ssd"]["w_out"][-1, :4].detach().clone()],
+        groups={"K3 (ssd_fwd)": "ssd_fwd", "K3-bwd (ssd_bwd)": "ssd_bwd"})
+
+
+def profile_training(model, params, opt, cfg, args, groups):
     """One more train step (step 9) under torch.profiler: the device's busy
-    share of the step's wall time and the shares of device time of K1, K1-bwd,
-    the matrix products and the rest."""
+    share of the step's wall time and the shares of device time of the
+    kernels in ``groups`` (label: a substring of their names), the matrix
+    products and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as train_cli
@@ -2384,8 +2631,7 @@ def profile_training(model, params, opt, cfg, args):
         step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    groups = {"K1 (flash_fwd)": 0.0, "K1-bwd (flash_bwd)": 0.0, "matrix products": 0.0,
-              "other": 0.0}
+    shares = dict.fromkeys(list(groups) + ["matrix products", "other"], 0.0)
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -2395,20 +2641,19 @@ def profile_training(model, params, opt, cfg, args):
             continue
         kernels.append((ms, evt.count, evt.key))
         low = evt.key.lower()
-        if "flash_fwd" in evt.key:
-            groups["K1 (flash_fwd)"] += ms
-        elif "flash_bwd" in evt.key:
-            groups["K1-bwd (flash_bwd)"] += ms
+        label = next((g for g, name in groups.items() if name in evt.key), None)
+        if label is not None:
+            shares[label] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
-            groups["matrix products"] += ms
+            shares["matrix products"] += ms
         else:
-            groups["other"] += ms
-    total = sum(groups.values())
+            shares["other"] += ms
+    total = sum(shares.values())
     if total <= 0:
         raise AssertionError("the profiler saw no device time in a train step")
     log(f"train step under the profiler: wall {wall_ms:.1f} ms, device busy {total:.1f} ms "
         f"({100 * total / wall_ms:.1f}%), idle {100 * (1 - total / wall_ms):.1f}%")
-    for g, ms in groups.items():
+    for g, ms in shares.items():
         log(f"  {g:22s} {ms:9.2f} ms  {100 * ms / total:5.1f}% of device time")
     for ms, n, name in sorted(kernels, reverse=True)[:8]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:110]}")

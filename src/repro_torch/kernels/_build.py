@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
-KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,10 +10,10 @@ the kernel against it on the same inputs.
 Training differentiates through the same dispatch.  On the card, a call of
 :func:`flash_attention` whose q, k or v needs a gradient runs K1 through a
 ``torch.autograd.Function`` whose backward is K1's gradient kernel
-(``kernels/flash_attention_bwd.py``); the plain versions (the CPU, and
-``force="plain"``) are differentiated by autograd.  K3 has no gradient
-kernel yet, so the model refuses to train an SSD layer on the card
-(``models/transformer.py``).
+(``kernels/flash_attention_bwd.py``), and a call of :func:`ssd_scan` whose
+xdt, dA, Bm, Cm or initial state needs one runs K3 through another whose
+backward is K3's gradient kernel (``kernels/ssd_scan_bwd.py``); the plain
+versions (the CPU, and ``force="plain"``) are differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from . import flash_attention_bwd as _flash_bwd
 from . import paged_attention as _paged
 from . import ref
 from . import ssd_scan as _ssd
+from . import ssd_scan_bwd as _ssd_bwd
 
 _FORCES = (None, "plain")
 
@@ -83,20 +84,52 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     return ref.paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, **kw)
 
 
+class _SsdScan(torch.autograd.Function):
+    """K3 forward (keeping its chunk states) and K3's gradient kernel
+    backward, on CUDA tensors.  Returns (y, final state)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, Bm, Cm, initial_state, chunk):
+        y, state, carry = _ssd.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk,
+                                        initial_state=initial_state)
+        ctx.save_for_backward(xdt, dA, Bm, Cm, initial_state, carry, state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        if dy is None and d_state is None:
+            return (None,) * 6
+        xdt, dA, Bm, Cm, initial_state, carry, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xdt.shape, dtype=torch.float32, device=xdt.device)
+        grads = _ssd_bwd.ssd_scan_bwd(
+            xdt, dA, Bm, Cm, dy.float().contiguous(), carry, state, chunk=ctx.chunk,
+            initial_state=initial_state,
+            d_final=None if d_state is None else d_state.float().contiguous())
+        inputs = (xdt, dA, Bm, Cm, initial_state)
+        return tuple(None if g is None else g.to(x.dtype) for g, x in zip(grads, inputs)) + (None,)
+
+
 def ssd_scan(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None,
              force: Optional[str] = None):
     if _use_kernel(xdt, force):
-        return _ssd.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=initial_state)
+        if torch.is_grad_enabled() and any(
+                x is not None and x.requires_grad for x in (xdt, dA, Bm, Cm, initial_state)):
+            return _SsdScan.apply(xdt, dA, Bm, Cm, initial_state, chunk)
+        return _ssd.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk, initial_state=initial_state)[:2]
     return ref.ssd_scan_chunked(xdt, dA, Bm, Cm, chunk=chunk, initial_state=initial_state)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts` (K1's
-    gradient: one per call, which launches its three kernels)."""
+    """Kernel launches since the last :func:`reset_launch_counts` (a
+    gradient kernel: one per call, whatever the launches it makes)."""
     return {"flash_attention": _flash.launches,
             "flash_attention_bwd": _flash_bwd.launches,
             "paged_attention": _paged.launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "ssd_scan_bwd": _ssd_bwd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -104,3 +137,4 @@ def reset_launch_counts() -> None:
     _flash_bwd.launches = 0
     _paged.launches = 0
     _ssd.launches = 0
+    _ssd_bwd.launches = 0

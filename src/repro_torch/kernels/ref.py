@@ -577,3 +577,93 @@ def ssd_scan_two_pass(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
     result.  Chunks are ``chunk`` long whatever T."""
     CBt, cum, dS, decay = ssd_chunk_pass(xdt, dA, Bm, Cm, chunk=chunk)
     return ssd_scan_pass(xdt, Cm, CBt, cum, dS, decay, initial_state=initial_state)
+
+
+def ssd_scan_bwd_two_pass(xdt, dA, Bm, Cm, dy, *, chunk: int = 128, initial_state=None,
+                          d_final=None):
+    """The gradient of :func:`ssd_scan_chunked` as K3-bwd's passes in plain
+    PyTorch; chunks are ``chunk`` long whatever T, a ragged tail padded with
+    zeros.  With G_c the gradient of the state leaving chunk c, S_c the
+    state entering it and cum the inclusive cumsum of dA inside it:
+
+    1. the reverse state scan, from G = ``d_final`` (or 0) at the last chunk:
+       G_{c-1} = exp(cum_last)·G_c + Σ_i exp(cum_i)·C_i ⊗ dy_i, which ends
+       at the initial state's gradient;
+    2. per (chunk, head), with M = L ∘ (dy·xdtᵀ) over the causal triangle:
+       dxdt = (C·Bᵀ ∘ L)ᵀ·dy + (B ∘ w)·G_c, w_j = exp(cum_last − cum_j);
+       dC_h = M·B + (dy ∘ exp(cum))·S_cᵀ;  dB_h = Mᵀ·C + (xdt ∘ w)·G_cᵀ;
+       dcum_i = Σ_{j<i} (C·Bᵀ ∘ M)_ij − Σ_{k>i} (C·Bᵀ ∘ M)_ki
+                + exp(cum_i)·dy_i·(S_cᵀ·C_i) − w_i·xdt_i·(G_cᵀ·B_i),
+       plus ⟨G_c, S_{c+1}⟩ at the last position (the terms of
+       C_i·dC_h,i − B_i·dB_h,i, whose diagonal cancels), and ddA is the
+       reverse cumsum of dcum inside the chunk.  ddA sums many terms of
+       both signs, so dcum is taken in fp64 from the fp32 inputs, states and
+       state gradients (the kernel sums fp32 products in fp64);
+    3. dB and dC summed over the heads in order, h = 0 .. H − 1.
+
+    xdt (B,T,H,P), dA (B,T,H), Bm/Cm (B,T,N), dy (B,T,H,P); initial_state
+    and d_final (B,H,N,P) or None.  Returns (dxdt, ddA, dBm, dCm, the
+    initial state's gradient or None), all fp32."""
+    B, T, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-T) % Q
+    nC = (T + pad) // Q
+    CBt, cum, dS, decay = ssd_chunk_pass(xdt, dA, Bm, Cm, chunk=Q)
+    x = F.pad(xdt.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P)
+    g_y = F.pad(dy.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nC, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nC, Q, N)
+    # the states entering each chunk, and the last chunk's end state
+    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    states = [s]
+    for c in range(nC):
+        states.append(states[-1] * decay[:, c, :, None, None] + dS[:, c])
+    states = torch.stack(states, dim=1)                           # (B, C+1, H, N, P)
+
+    # 1. the reverse state scan
+    ecum = torch.exp(cum.float())                                 # (B,C,Q,H)
+    dG = torch.einsum("bcin,bcih,bcihp->bchnp", Cc, ecum, g_y)
+    g = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if d_final is None else d_final.float())
+    G = [None] * nC
+    for c in reversed(range(nC)):
+        G[c] = g
+        g = g * decay[:, c, :, None, None] + dG[:, c]
+    G = torch.stack(G, dim=1)                                     # (B,C,H,N,P)
+
+    # 2. per (chunk, head)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    delta = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()   # (B,C,i,j,H)
+    L = torch.exp(torch.where(mask[None, None, :, :, None], delta,
+                              torch.tensor(-torch.inf, device=x.device)))
+    w = torch.exp((cum[:, :, -1:, :] - cum).float())              # (B,C,Q,H)
+    M = L * torch.einsum("bcihp,bcjhp->bcijh", g_y, x)
+    dx = (torch.einsum("bcji,bcijh,bcihp->bcjhp", CBt, L, g_y)
+          + torch.einsum("bcjn,bcjh,bchnp->bcjhp", Bc, w, G))
+    dC_h = (torch.einsum("bcijh,bcjn->bcihn", M, Bc)
+            + torch.einsum("bcih,bcihp,bchnp->bcihn", ecum, g_y, states[:, :-1]))
+    dB_h = (torch.einsum("bcijh,bcin->bcjhn", M, Cc)
+            + torch.einsum("bcjh,bcjhp,bchnp->bcjhn", w, x, G))
+    # dcum's terms in fp64 (from the fp32 inputs, states and state gradients)
+    xd, yd, Bd, Cd, Gd, Sd = (t.double() for t in (x, g_y, Bc, Cc, G, states))
+    CBM = (torch.einsum("bcin,bcjn->bcij", Cd, Bd)[..., None] * torch.exp(
+        torch.where(mask[None, None, :, :, None], cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                    torch.tensor(-torch.inf, dtype=torch.float64, device=x.device)))
+        * torch.einsum("bcihp,bcjhp->bcijh", yd, xd))
+    CBM = CBM * (1 - torch.eye(Q, dtype=torch.float64, device=x.device))[None, None, :, :, None]
+    dcum = (CBM.sum(3) - CBM.sum(2)
+            + torch.exp(cum) * torch.einsum("bcin,bcihp,bchnp->bcih", Cd, yd, Sd[:, :-1])
+            - torch.exp(cum[:, :, -1:, :] - cum) * torch.einsum("bcjn,bcjhp,bchnp->bcjh",
+                                                                 Bd, xd, Gd))
+    dcum[:, :, -1] += torch.einsum("bchnp,bchnp->bch", Gd, Sd[:, 1:])
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,)).float()
+
+    # 3. the ordered sum over heads
+    dBm, dCm = dB_h[:, :, :, 0], dC_h[:, :, :, 0]
+    for h in range(1, H):
+        dBm, dCm = dBm + dB_h[:, :, :, h], dCm + dC_h[:, :, :, h]
+    return (dx.reshape(B, nC * Q, H, P)[:, :T], ddA.reshape(B, nC * Q, H)[:, :T],
+            dBm.reshape(B, nC * Q, N)[:, :T], dCm.reshape(B, nC * Q, N)[:, :T],
+            None if initial_state is None else g)

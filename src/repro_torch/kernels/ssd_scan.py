@@ -81,10 +81,13 @@ def _kernel():
 
 def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
              chunk: int = 128, initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xdt: (B, T, H, P) dt-premultiplied inputs; dA: (B, T, H) log decays;
     Bm, Cm: (B, T, N); initial_state: (B, H, N, P) or None (zeros).
-    Returns (y (B, T, H, P) fp32, final state (B, H, N, P) fp32).
+    Returns (y (B, T, H, P) fp32, final state (B, H, N, P) fp32, carry
+    (B, chunks, H, N, P) fp32), where in ``carry`` every chunk but the last
+    holds its end state: what K3's gradient
+    (:mod:`repro_torch.kernels.ssd_scan_bwd`) reads.  Serving drops it.
 
     CUDA tensors only.  xdt, dA, Bm and Cm share one type, fp32 or bf16, and
     may be strided views (slices of one projection) as long as their last
@@ -135,18 +138,21 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
                              f"{tuple(initial_state.shape)}")
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=xdt.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=xdt.device)
-    # the scratch in one allocation of 4-byte words: AT, dS, carry, decay
-    # (fp32), then the flags (int32); the sizes of AT and dS are multiples of
-    # 16 values, so dS and carry stay 64-byte aligned
-    sizes = [math.prod(shape) for shape in scratch_shapes(B, T, H, P, N, chunk)]
+    # the scratch in one allocation of 4-byte words: AT, dS, decay (fp32),
+    # then the flags (int32); the sizes of AT and dS are multiples of 16
+    # values, so dS stays 64-byte aligned.  carry has an allocation of its
+    # own, so that keeping it for the gradient keeps nothing else.
+    shapes = scratch_shapes(B, T, H, P, N, chunk)
+    carry = torch.empty(shapes[2], dtype=torch.float32, device=xdt.device)
+    sizes = [math.prod(shape) for k, shape in enumerate(shapes) if k != 2]
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=xdt.device)
-    at_ptr, ds_ptr, carry_ptr, decay_ptr, flags_ptr = (
-        scratch.data_ptr() + 4 * sum(sizes[:k]) for k in range(5))
+    at_ptr, ds_ptr, decay_ptr, flags_ptr = (
+        scratch.data_ptr() + 4 * sum(sizes[:k]) for k in range(4))
     fn = _kernel()
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              initial_state.data_ptr() if initial_state is not None else None,
-             at_ptr, ds_ptr, carry_ptr, decay_ptr, flags_ptr, y.data_ptr(), state.data_ptr(),
+             at_ptr, ds_ptr, carry.data_ptr(), decay_ptr, flags_ptr, y.data_ptr(), state.data_ptr(),
              B, T, H, P, N, chunk, col_tile(P),
              xdt.stride(0), xdt.stride(1), xdt.stride(2),
              dA.stride(0), dA.stride(1), dA.stride(2),
@@ -155,4 +161,4 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     if err:
         raise RuntimeError(f"ssd_scan: launch failed with CUDA error {err}")
     launches += 1
-    return y, state
+    return y, state, carry

@@ -1,0 +1,293 @@
+"""Partitioning rules for every architecture: ``repro.launch.mesh`` without JAX.
+
+The reference's production meshes are (16, 16) with axes ("data", "model")
+and (2, 16, 16) with ("pod", "data", "model").  Its sharding table is
+name-based with a divisibility fallback: a dimension is sharded only when
+the axes' sizes divide it; otherwise the rule falls through to the next
+candidate dimension, or to replication.
+
+* **TP ("model")**: attention heads (head_dim where the head count does
+  not divide, e.g. whisper's 8 heads or recurrentgemma's 10), FFN width,
+  the MoE expert axis (dbrx's 16 experts, qwen3's 128; mixtral's 8 falls
+  back to the expert FFN width), the vocab of the embeddings, the SSD inner
+  width.
+* **FSDP ("data" [+ "pod"])**, training only: a parameter dimension over
+  the batch axes.  Serving replicates dense weights across "data" but keeps
+  MoE expert tensors data-sharded.
+* **Batch ("pod" + "data")**: token batches, KV caches, recurrent states; a
+  batch the batch axes do not divide shards the KV sequence over "data"
+  instead (context-parallel decode).
+
+Every rule is right-aligned on the trailing dimensions, so one table serves
+stacked (L, ...) parameters, per-layer lists and cache trees.
+
+A spec here is a tuple with one entry per dimension: ``None``, an axis
+name, or a tuple of axis names, the entries of the reference's
+``PartitionSpec``.  :class:`MeshAxes` is built from axis names and sizes;
+there are no devices.  ``make_production_mesh`` and the ``NamedSharding``
+trees are left out, since nothing here holds 256 devices: the
+expert-parallel MoE and the tensor-parallel llama3_70b (ROADMAP items 14
+and 16) will map these specs onto ``torch.distributed`` process groups.
+The tree walkers (:func:`param_specs`, :func:`cache_specs`,
+:func:`batch_specs`) take the port's nested dicts and lists of tensors and
+name each leaf as the reference's ``_leaf_name`` does: keys and list
+indices joined by "/".
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator, Sequence, Tuple
+
+__all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names"]
+
+Spec = Tuple[Any, ...]
+
+
+class MeshAxes:
+    """Axis names and sizes of a mesh (the pod axis optional)."""
+
+    def __init__(self, names: Sequence[str], sizes: Sequence[int]):
+        if len(names) != len(sizes):
+            raise ValueError(f"{len(names)} axis names for {len(sizes)} sizes")
+        self.names = tuple(names)
+        self.sizes = dict(zip(self.names, (int(n) for n in sizes)))
+        self.model = "model" if "model" in self.names else None
+        self.data = "data" if "data" in self.names else None
+        self.pod = "pod" if "pod" in self.names else None
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in (self.pod, self.data) if a)
+
+    def batch_size(self) -> int:
+        n = 1
+        for a in self.batch_axes:
+            n *= self.sizes[a]
+        return n
+
+    def model_size(self) -> int:
+        return self.sizes.get("model", 1)
+
+
+def _divides(dim: int, n: int) -> bool:
+    return n > 0 and dim % n == 0
+
+
+class _SpecBuilder:
+    """Builds a spec right-aligned on a concrete shape, assigning each mesh
+    axis at most once and only onto evenly divisible dimensions."""
+
+    def __init__(self, shape: Sequence[int], ax: MeshAxes):
+        self.shape = tuple(shape)
+        self.ax = ax
+        self.spec: list = [None] * len(shape)
+        self.used: set = set()
+
+    def try_assign(self, pos: int, axis) -> bool:
+        """pos: negative index from the right.  axis: name or tuple."""
+        if axis is None:
+            return False
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        axes = tuple(a for a in axes if a and a not in self.used)
+        if not axes:
+            return False
+        idx = len(self.shape) + pos
+        if idx < 0 or self.spec[idx] is not None:
+            return False
+        total = 1
+        for a in axes:
+            total *= self.ax.sizes[a]
+        if not _divides(self.shape[idx], total):
+            return False
+        self.spec[idx] = axes[0] if len(axes) == 1 else axes
+        self.used.update(axes)
+        return True
+
+    def first(self, candidates) -> None:
+        """Assign the first workable (pos, axis) candidate."""
+        for pos, axis in candidates:
+            if self.try_assign(pos, axis):
+                return
+
+    def build(self) -> Spec:
+        return tuple(self.spec)
+
+
+# --------------------------------------------------------------------------
+# parameter rules
+# --------------------------------------------------------------------------
+
+def _param_spec(name: str, shape: Tuple[int, ...], ax: MeshAxes, mode: str) -> Spec:
+    """mode: 'train' (FSDP over batch axes) or 'serve' (dense replicated)."""
+    b = _SpecBuilder(shape, ax)
+    model = ax.model
+    fsdp = ax.batch_axes if mode == "train" else ()
+    fsdp = fsdp if fsdp else None
+    leaf = name.rsplit("/", 1)[-1]
+    nd = len(shape)
+
+    is_moe = "/moe/" in name or name.endswith(("moe/w_in", "moe/w_out"))
+    moe_data = ax.batch_axes or None      # MoE experts: data-shard even in serve
+
+    if leaf in ("embed", "unembed"):
+        # embed (V, d) / unembed (d, V): shard vocab over model, other over fsdp
+        vpos = -2 if leaf == "embed" else -1
+        dpos = -1 if leaf == "embed" else -2
+        b.first([(vpos, model)])
+        b.first([(dpos, fsdp)])
+    elif leaf == "pos_embed":
+        pass  # replicate
+    elif leaf in ("wq", "wk", "wv"):       # (d, H, Dh)
+        b.first([(-2, model), (-1, model)])
+        b.first([(-3, fsdp)])
+    elif leaf == "wo" and nd >= 3 and "attn" in name:   # (H, Dh, d)
+        b.first([(-3, model), (-2, model)])
+        b.first([(-1, fsdp)])
+    elif leaf in ("wi", "wg"):             # (d, F)
+        b.first([(-1, model)])
+        b.first([(-2, fsdp)])
+    elif leaf == "wo":                     # mlp (F, d)
+        b.first([(-2, model)])
+        b.first([(-1, fsdp)])
+    elif leaf == "router":                 # (d, E)
+        b.first([(-2, fsdp)])
+    elif leaf == "w_in" and is_moe:        # (E, d, n*ff)
+        if not b.try_assign(-3, model):    # EP when expert count divides
+            b.first([(-1, model)])
+        b.first([(-2, moe_data)])
+    elif leaf == "w_out" and is_moe:       # (E, ff, d)
+        if not b.try_assign(-3, model):
+            b.first([(-2, model)])
+        b.first([(-1, moe_data)])
+    elif leaf == "w_in":                   # ssd (d, X)
+        b.first([(-1, model)])
+        b.first([(-2, fsdp)])
+    elif leaf == "w_out":                  # ssd/rglru (w, d)
+        b.first([(-2, model)])
+        b.first([(-1, fsdp)])
+    elif leaf in ("w_x", "w_gate_in"):     # rglru (d, w)
+        b.first([(-1, model)])
+        b.first([(-2, fsdp)])
+    elif leaf in ("w_a", "w_i"):           # rglru gates (w, w)
+        b.first([(-1, model)])
+        b.first([(-2, fsdp)])
+    # conv kernels, norms, biases, Λ/A_log/D/dt_bias: replicated
+    return b.build()
+
+
+# --------------------------------------------------------------------------
+# cache rules
+# --------------------------------------------------------------------------
+
+def _cache_spec(name: str, shape: Tuple[int, ...], ax: MeshAxes,
+                *, shard_batch: bool, seq_shard: bool = False) -> Spec:
+    b = _SpecBuilder(shape, ax)
+    model = ax.model
+    batch = ax.batch_axes or None
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf in ("k", "v", "cross_k", "cross_v"):   # (..., B, S, H, D)
+        if shard_batch:
+            b.first([(-4, batch)])
+        else:
+            b.first([(-3, ax.data)])               # context parallel on seq
+        if seq_shard:
+            # decode contexts sharded over "model" on the sequence dim: the
+            # score contraction stays local per S-shard, and only the
+            # softmax statistics and the (B, H, D) partial sums cross chips
+            b.first([(-3, model)])
+        b.first([(-2, model), (-1, model)])
+    elif leaf == "kv_pos":                          # (..., B, S)
+        if shard_batch:
+            b.first([(-2, batch)])
+        else:
+            b.first([(-1, ax.data)])
+        if seq_shard:
+            b.first([(-1, model)])
+    elif leaf == "state" and len(shape) >= 4:       # ssd (..., B, H, N, P)
+        if shard_batch:
+            b.first([(-4, batch)])
+        b.first([(-3, model)])
+    elif leaf == "state":                           # rglru (..., B, W)
+        if shard_batch:
+            b.first([(-2, batch)])
+        b.first([(-1, model)])
+    elif leaf == "conv":                            # (..., B, K-1, C)
+        if shard_batch:
+            b.first([(-3, batch)])
+        b.first([(-1, model)])
+    elif leaf == "cache_len":                       # (B,)
+        if shard_batch:
+            b.first([(-1, batch)])
+    return b.build()
+
+
+# --------------------------------------------------------------------------
+# batch (token input) rule
+# --------------------------------------------------------------------------
+
+def _batch_spec(shape: Tuple[int, ...], ax: MeshAxes, *, shard_batch: bool) -> Spec:
+    """tokens/labels (B, S); frontend_embeds (B, F, d); positions (B, S):
+    the leading (batch) dimension over the batch axes, where they divide it."""
+    b = _SpecBuilder(shape, ax)
+    if shard_batch and len(shape) >= 1:
+        b.try_assign(-len(shape), ax.batch_axes)
+    return b.build()
+
+
+# --------------------------------------------------------------------------
+# tree walkers over the port's nested dicts and lists
+# --------------------------------------------------------------------------
+
+def leaves_with_names(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(name, leaf) for every array leaf of ``tree`` (anything with a
+    ``.shape``), depth first: dict keys and list or tuple indices joined by
+    "/", as the reference's ``_leaf_name`` names a JAX tree's paths.  Other
+    leaves (the port's host-side ints, such as whisper's ``cross_frames``)
+    are skipped."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        if hasattr(tree, "shape"):
+            yield prefix, tree
+        return
+    for key, sub in items:
+        yield from leaves_with_names(sub, f"{prefix}/{key}" if prefix else str(key))
+
+
+def _map_named(tree: Any, fn, prefix: str = "") -> Any:
+    """``tree`` with ``fn(name, leaf)`` at each array leaf and None at any
+    other leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_named(v, fn, f"{prefix}/{i}" if prefix else str(i))
+               for i, v in enumerate(tree)]
+        return type(tree)(out)
+    return fn(prefix, tree) if hasattr(tree, "shape") else None
+
+
+def param_specs(params: Any, axes: MeshAxes, mode: str = "train") -> Any:
+    """The spec of every parameter, in a tree shaped like ``params``."""
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
+    return _map_named(params, lambda name, leaf: _param_spec(name, tuple(leaf.shape), axes, mode))
+
+
+def cache_specs(cache: Any, axes: MeshAxes, *, batch: int, seq_shard: bool = False) -> Any:
+    """The spec of every cache leaf, in a tree shaped like ``cache``: rows
+    over the batch axes where they divide ``batch``, else the sequence over
+    "data"; ``seq_shard`` also shards the KV sequence over "model"."""
+    shard_batch = _divides(batch, axes.batch_size())
+    return _map_named(cache, lambda name, leaf: _cache_spec(
+        name, tuple(leaf.shape), axes, shard_batch=shard_batch, seq_shard=seq_shard))
+
+
+def batch_specs(batch_tree: Any, axes: MeshAxes, *, batch: int) -> Any:
+    """The spec of every input of a batch (tokens, labels, frontend
+    embeddings, positions)."""
+    shard_batch = _divides(batch, axes.batch_size())
+    return _map_named(batch_tree, lambda _, leaf: _batch_spec(
+        tuple(leaf.shape), axes, shard_batch=shard_batch))

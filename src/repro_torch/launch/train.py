@@ -5,8 +5,8 @@ Trains any registry architecture on synthetic LM data, on the card unless
 gradient accumulation, remat, and atomic checkpoints with restart (kill it
 mid-run and relaunch with the same ``--ckpt-dir``: it resumes from the
 newest complete step).  On the card every attention layer runs K1 forward
-and K1's gradient kernel backward; an SSD layer refuses to train there
-until K3 has a gradient kernel (ROADMAP item 13b).
+and K1's gradient kernel backward, and every SSD layer K3 forward and K3's
+gradient kernel backward.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b \\
         --full-config --steps 8 --batch 8 --seq 512

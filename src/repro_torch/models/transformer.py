@@ -82,10 +82,11 @@ cache (:func:`_train_block`, which :func:`run_block` also runs given
 ``ops.flash_attention``, causal from 0 with the config's window (no mask
 for the encoder and the cross-attention), which on the card is K1 forward
 and K1's gradient kernel backward; SSD, RG-LRU and MoE blocks as in a
-prefill from a zero state.  ``remat`` wraps each block in
-``torch.utils.checkpoint``.  On the CPU every architecture trains; on the
-card an SSD block refuses to (K3 has no gradient kernel yet), naming its
-ROADMAP item, and so does ``moe_impl="a2a"`` anywhere.
+prefill from a zero state, the SSD scan through ``ops.ssd_scan``, which on
+the card is K3 forward and K3's gradient kernel backward.  ``remat`` wraps
+each block in ``torch.utils.checkpoint`` (so K3's forward runs twice a
+layer and its gradient once).  Every architecture trains on the CPU and on
+the card; ``moe_impl="a2a"`` raises anywhere, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -110,7 +111,6 @@ RECURRENT_KINDS = ("ssd", "rglru")
 
 _ROADMAP = {
     "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
-    "train": "ROADMAP Queue A item 13b (K3's backward kernel: training SSD layers on the card)",
 }
 
 
@@ -269,12 +269,9 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
     window) through ``ops.flash_attention`` and writes nothing; ``cross``
     is (the cross-attention params, the encoder's (k, v) (B, F, Hkv, D)),
     over which the decoder attends without a mask.  Returns (y, the MoE
-    block's ``moe_aux_loss`` or None).  An SSD block refuses to train on the
-    card: K3 has no gradient kernel yet."""
+    block's ``moe_aux_loss`` or None)."""
     h = L.apply_norm(cfg, x, p["norm1"])
     if kind == "ssd":
-        if ops._use_kernel(h, force):
-            raise _unported("train")
         return x + L.ssd_prefill(cfg, p["ssd"], h, force=force)[0], None
     if kind == "rglru":
         x = x + L.rglru(cfg, p["rglru"], h)[0]

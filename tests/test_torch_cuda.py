@@ -336,6 +336,100 @@ def test_ssd_kernel_takes_strided_views(gen):
                                rtol=2e-4, atol=2e-4)
 
 
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _ssd_grads(xs, s0, dy, d_final, chunk, force=None):
+    ins = [t.detach().requires_grad_() for t in xs]
+    if s0 is not None:
+        ins.append(s0.detach().requires_grad_())
+    y, st = ops.ssd_scan(*ins[:4], chunk=chunk, initial_state=ins[4] if s0 is not None else None,
+                         force=force)
+    outs, gouts = [y], [dy]
+    if d_final is not None:
+        outs.append(st)
+        gouts.append(d_final)
+    return torch.autograd.grad(outs, ins, gouts)
+
+
+SSD_BWD_CASES = ([(T, N, P, 128, torch.float32, both, both) for T in (16, 100, 512, 2048)
+                  for N in (16, 128) for P in (16, 64) for both in (False, True)]
+                 + [(300, 128, 64, 128, torch.float32, True, False),
+                    (300, 128, 64, 128, torch.float32, False, True),
+                    (200, 32, 32, 64, torch.float32, True, True),
+                    (37, 16, 16, 16, torch.float32, True, True),
+                    (300, 128, 64, 128, torch.bfloat16, True, True)])
+
+
+@pytest.mark.parametrize("T,N,P,chunk,dtype,init,final", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(gen, T, N, P, chunk, dtype, init, final):
+    """K3-bwd through ``ops.ssd_scan``'s autograd against the plain
+    decomposition (``ref.ssd_scan_bwd_two_pass``) and against autograd
+    through the plain scan on the same values in fp32 (chip_smoke.py's
+    phase 3f grid): each gradient within 1e-4 (fp32) or 1e-2 (bf16) of its
+    largest entry."""
+    from repro_torch.kernels import ref
+    xs = _ssd_inputs(gen, 2, T, 4, P, N, dtype)
+    s0 = torch.randn((2, 4, N, P), generator=gen, device="cuda") if init else None
+    dy = torch.randn((2, T, 4, P), generator=gen, device="cuda")
+    d_final = torch.randn((2, 4, N, P), generator=gen, device="cuda") if final else None
+    ops.reset_launch_counts()
+    got = _ssd_grads(xs, s0, dy, d_final, chunk)
+    counts = ops.launch_counts()
+    assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (1, 1)
+    xf = [x.float() for x in xs]
+    two = [g for g in ref.ssd_scan_bwd_two_pass(*xf, dy, chunk=chunk, initial_state=s0,
+                                                 d_final=d_final) if g is not None]
+    for exp in (two, _ssd_grads(xf, s0, dy, d_final, chunk, force="plain")):
+        assert len(got) == len(exp)
+        for g, e in zip(got, exp):
+            assert torch.isfinite(g).all()
+            assert float((g.float() - e).abs().max()) <= SSD_BWD_TOL[dtype] * float(e.abs().max())
+
+
+def test_ssd_bwd_kernel_at_the_smallest_shape(gen):
+    """One chunk of 16 with one head, N = 4 and P = 16: the rows of the
+    kernel's 128-row tiles past the chunk read nothing of C·Bᵀ, whose
+    scratch holds only this chunk's 16 × 16 block."""
+    from repro_torch.kernels import ref
+    xs = _ssd_inputs(gen, 1, 16, 1, 16, 4, torch.float32)
+    s0 = torch.randn((1, 1, 4, 16), generator=gen, device="cuda")
+    dy = torch.randn((1, 16, 1, 16), generator=gen, device="cuda")
+    d_final = torch.randn((1, 1, 4, 16), generator=gen, device="cuda")
+    got = _ssd_grads(xs, s0, dy, d_final, 16)
+    two = ref.ssd_scan_bwd_two_pass(*xs, dy, chunk=16, initial_state=s0, d_final=d_final)
+    for exp in (two, _ssd_grads(xs, s0, dy, d_final, 16, force="plain")):
+        for g, e in zip(got, exp):
+            assert torch.isfinite(g).all()
+            assert float((g - e).abs().max()) <= SSD_BWD_TOL[torch.float32] * float(e.abs().max())
+
+
+def test_ssd_bwd_kernel_is_the_same_bits_every_run(gen):
+    """No atomics: the heads' partials of dB and dC are summed in order."""
+    xs = _ssd_inputs(gen, 2, 300, 8, 64, 128, torch.float32)
+    s0 = torch.randn((2, 8, 128, 64), generator=gen, device="cuda")
+    dy = torch.randn((2, 300, 8, 64), generator=gen, device="cuda")
+    first = _ssd_grads(xs, s0, dy, None, 128)
+    for _ in range(3):
+        for a, b in zip(first, _ssd_grads(xs, s0, dy, None, 128)):
+            assert torch.equal(a, b)
+
+
+def test_ssd_bwd_kernel_takes_strided_views(gen):
+    """B and C as slices of one projection, as the SSD layer hands them over."""
+    proj = torch.randn((2, 40, 64 + 2 * 32), generator=gen, device="cuda")
+    xdt, dA, _, _ = _ssd_inputs(gen, 2, 40, 4, 16, 32, torch.float32)
+    dy = torch.randn((2, 40, 4, 16), generator=gen, device="cuda")
+
+    def grads(force):
+        p = proj.detach().requires_grad_()
+        ins = [xdt.detach().requires_grad_(), dA.detach().requires_grad_()]
+        y, _ = ops.ssd_scan(*ins, p[..., 64:96], p[..., 96:], chunk=32, force=force)
+        return torch.autograd.grad(y, ins + [p], dy)
+    for g, e in zip(grads(None), grads("plain")):
+        assert float((g - e).abs().max()) <= 1e-4 * float(e.abs().max())
+
+
 def test_mamba2_with_kernel_matches_plain(gen):
     """Reduced mamba2_370m in fp32: a prefill, a ragged prefill chunk from the
     carried state and a decode, with K3 against the plain scan (2e-3)."""
@@ -526,23 +620,30 @@ def test_flash_bwd_kernel_is_the_same_bits_every_run(gen, dtype):
             assert torch.equal(a, b)
 
 
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+
+
 def _train_counts(cfg, microbatches):
-    """K1 launches and K1-bwd calls of one remat train step."""
+    """Launches of K1, K1-bwd, K3 and K3-bwd (a gradient kernel: one per
+    call) in one remat train step: each block's forward runs twice."""
     if cfg.encoder is not None:            # encoder without remat; self and cross with it
         enc, dec = cfg.encoder.num_layers, cfg.num_layers
-        return (enc + 4 * dec) * microbatches, (enc + 2 * dec) * microbatches
+        return (enc + 4 * dec) * microbatches, (enc + 2 * dec) * microbatches, 0, 0
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
-    return 2 * n_attn * microbatches, n_attn * microbatches
+    n_ssd = sum(kind == "ssd" for kind in cfg.layer_pattern)
+    return (2 * n_attn * microbatches, n_attn * microbatches, 2 * n_ssd * microbatches,
+            n_ssd * microbatches)
 
 
 @pytest.mark.parametrize("arch", ["llama3_8b", "qwen3_30b_a3b", "mixtral_8x7b",
-                                  "recurrentgemma_2b", "whisper_base"])
+                                  "recurrentgemma_2b", "whisper_base", "mamba2_370m"])
 def test_train_step_with_kernels_matches_plain(gen, arch):
     """Reduced dense, MoE, windowed (mixtral, window 64 over 96 tokens),
-    RecurrentGemma and Whisper models at head_dim 32 (K1 rejects the reduced
-    configs' 16) in fp32: the loss and every gradient of a remat step of two
-    microbatches through K1 and K1-bwd against the plain attention (loss
-    1e-4; each leaf within 1e-3 of its largest plain entry)."""
+    RecurrentGemma, Whisper and Mamba2 models at head_dim 32 (K1 rejects the
+    reduced configs' 16) in fp32: the loss and every gradient of a remat
+    step of two microbatches through K1 and K1-bwd, and K3 and K3-bwd,
+    against the plain attention and scan (loss 1e-4; each leaf within 1e-3
+    of its largest plain entry)."""
     from repro_torch.models.optim import tree_leaves, value_and_grad
     cfg = get_reduced_config(arch).replace(head_dim=32, d_model=128)
     model = build_model(cfg)
@@ -558,24 +659,38 @@ def test_train_step_with_kernels_matches_plain(gen, arch):
         loss, _, grads = value_and_grad(model, params, batch, microbatches=2, force=force)
         counts = ops.launch_counts()
         res[force] = (float(loss), [g.clone() for g in tree_leaves(grads)],
-                      (counts["flash_attention"], counts["flash_attention_bwd"]))
+                      tuple(counts[k] for k in TRAIN_KERNELS))
     assert res[None][2] == _train_counts(cfg, 2)
-    assert res["plain"][2] == (0, 0)
+    assert res["plain"][2] == (0, 0, 0, 0)
     assert res[None][0] == pytest.approx(res["plain"][0], rel=1e-4)
     for g, e in zip(res[None][1], res["plain"][1]):
         assert torch.isfinite(g).all()
         assert float((g - e).abs().max()) <= 1e-3 * max(float(e.abs().max()), 1e-6)
 
 
-def test_ssd_training_raises_on_the_card(gen):
-    """K3 has no gradient kernel yet: training an SSD model on the card
-    raises, naming ROADMAP item 13b; the plain scan, asked for, trains."""
+def test_ssd_training_runs_through_k3_and_k3_bwd(gen):
+    """The reduced mamba2_370m trains on the card: a remat train step of two
+    microbatches at a ragged length (40 tokens, chunks of 16: the last
+    ragged) launches K3 twice a layer a microbatch and K3-bwd once, every
+    loss finite and the parameters moved, the plain scan none."""
+    from repro_torch.models.optim import OptimizerConfig, init_adamw, make_train_step
     cfg = get_reduced_config("mamba2_370m")
     model = build_model(cfg)
     params = model.init(gen, torch.float32)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32), generator=gen, device="cuda"),
-             "labels": torch.randint(0, cfg.vocab_size, (2, 32), generator=gen, device="cuda")}
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        model.train_loss(params, batch)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 40), generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 40), generator=gen, device="cuda")}
+    step = make_train_step(model, OptimizerConfig(warmup_steps=1, total_steps=4), microbatches=2)
+    opt = init_adamw(params)
+    before = params["blocks"]["ssd"]["w_in"].detach().clone()
+    ops.reset_launch_counts()
+    for _ in range(2):
+        params, opt, metrics = step(params, opt, batch)
+        assert torch.isfinite(torch.as_tensor(metrics["loss"]))
+    counts = ops.launch_counts()
+    n = cfg.num_layers
+    assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (2 * 2 * 2 * n, 2 * 2 * n)
+    assert float((params["blocks"]["ssd"]["w_in"].detach() - before).abs().max()) > 0
+    ops.reset_launch_counts()
     loss, _ = model.train_loss(params, batch, force="plain")
-    assert torch.isfinite(loss)
+    loss.backward()
+    assert torch.isfinite(loss) and not any(ops.launch_counts().values())
