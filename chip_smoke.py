@@ -72,12 +72,16 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    scan on the same values in fp32, each gradient within 1e-4 (fp32) or
    1e-2 (bf16) of its largest entry: T 16, 100, 512, 2048 (ragged and whole
    chunks), N 16 and 128, P 16 and 64, with and without an initial state
-   and a final-state gradient, chunks of 128, 64 and 16, bf16 inputs; and
-   times it at mamba2_370m's training shape (B=4, T=2048, 32 heads of 64,
-   N=128) back to back and in a CUDA graph, with the device time of each
-   of its four launches, beside the plain decomposition, autograd through
-   the plain scan and K3's forward, its two fp32 bounds (``ssd_bwd_flops``) and
-   ptxas's registers and spills;
+   and a final-state gradient, chunks of 128, 64 and 16, bf16 inputs; then
+   the edges of the 3xTF32 tiles: N 4, 8, 12 and 100 (padded to the mma's 8
+   columns), P 16 and 48, chunks of 16, 32 and 48, T 1, Q + 1 and 2Q − 1,
+   one head and heads that the head groups do not divide, bf16 at a ragged
+   T; and times it at mamba2_370m's training shape (B=4, T=2048, 32 heads
+   of 64, N=128) back to back and in a CUDA graph, with the device time of
+   each of its launches and the scratch each reads and writes, beside the
+   plain decomposition, autograd through the plain scan and K3's forward
+   (with K3's own bounds), its two fp32 bounds (``ssd_bwd_flops``) and
+   ptxas's registers and spills for every kernel of both types;
 4. builds llama3_8b at full width and depth in bf16 from a seeded generator
    on the card and compares its prefill and decode logits with the kernels
    against the same calls with the plain attention;
@@ -1376,15 +1380,37 @@ def ssd_grads(ops, xs, s0, dy, d_final, chunk, force=None):
     return torch.autograd.grad(outs, ins, gouts)
 
 
+ZERO_GRAD = 1e-6    # a gradient whose largest entry is under this share of the call's is 0
+ZERO_GRAD_SCALE = 1e-1      # ... and is judged against this share of the call's largest entry
+
+
+def grad_scales(exp):
+    """The scale each gradient's error is judged against: its largest |exp|,
+    or for a gradient that is zero in exact arithmetic (largest entry under
+    ``ZERO_GRAD`` of the largest over all the call's gradients: rounding
+    noise, as ddA at T = 1 without an initial state, where dA enters
+    nothing) ``ZERO_GRAD_SCALE`` of that largest, so that it is still held
+    to rounding: its entries are differences of sums of N·P products (the
+    state terms of dcum), whose fp32 rounding reaches ~1e-6 of the largest
+    entry (8.4e-7 in the plain 3xTF32 arithmetic at N = 128, P = 64), so
+    at 1e-4 of 1e-1 an fp32 kernel is held to 1e-5 of it.  Every other case
+    keeps its own largest entry: over phase 3f's grid the smallest gradient
+    is above 1e-2 of the largest."""
+    own = [float(e.abs().max()) for e in exp]
+    top = max(own)
+    return [m if m > ZERO_GRAD * top else ZERO_GRAD_SCALE * top for m in own]
+
+
 def grads_err(got, exp):
-    """Largest |got - exp| over the largest |exp|, gradient by gradient;
-    returns (worst ratio, worst absolute error)."""
+    """Largest |got - exp| over the gradient's scale (``grad_scales``: its
+    largest |exp|), gradient by gradient; returns (worst ratio, worst
+    absolute error)."""
     ratio, worst_abs = 0.0, 0.0
-    for g, e in zip(got, exp):
+    for g, e, scale in zip(got, exp, grad_scales(exp)):
         if not torch.isfinite(g).all():
             raise AssertionError("a gradient is not finite")
         err = float((g.float() - e.float()).abs().max())
-        ratio = max(ratio, err / max(float(e.abs().max()), 1e-30))
+        ratio = max(ratio, err / scale)
         worst_abs = max(worst_abs, err)
     return ratio, worst_abs
 
@@ -1432,7 +1458,11 @@ def check_ssd_bwd_grid(ops):
     initial state and a final-state gradient, in fp32 at chunk 128; then
     each of the two alone, chunks of 64 and 16 (the smallest shape the
     kernel takes among them: one chunk of 16, N = 4, P = 16), and bf16
-    inputs."""
+    inputs; then the edges of the 3xTF32 tiles: N 4, 8, 12, 100 (zero
+    columns up to the mma's 8), P 16 and 48 (tiles of 16), chunks of 16, 32
+    and 48, T = 1 (with and without an initial state: without one ddA is
+    0, ``grad_scales``), Q + 1 and 2Q − 1, one head, 10 heads in groups of 3
+    (T = 1024: ``ssd_scan_bwd.plan`` cuts them so), bf16 at a ragged T."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
     cases = [(T, N, P, 128, "float32", both, both) for T in (16, 100, 512, 2048)
@@ -1441,8 +1471,19 @@ def check_ssd_bwd_grid(ops):
               (200, 32, 32, 64, "float32", True, True), (37, 16, 16, 16, "float32", True, True),
               (16, 4, 16, 16, "float32", True, True),
               (300, 128, 64, 128, "bfloat16", True, True), (512, 128, 64, 128, "bfloat16", False, False)]
-    for T, N, P, chunk, dtype, init, final in cases:
-        worst[dtype] = max(worst[dtype], check_ssd_bwd_point(ops, gen, 2, T, 4, P, N, chunk, dtype,
+    cases = [c[:1] + (4,) + c[1:] for c in cases]
+    # the edges of the 3xTF32 tiles (T, H, N, P, chunk, dtype, init, final)
+    cases += [(T, 4, N, 16, 128, "float32", True, True) for T, N in ((100, 4), (129, 8), (255, 12),
+                                                                     (200, 100))]
+    cases += [(129, 4, 128, 48, 128, "float32", True, False), (47, 4, 8, 48, 16, "float32", False, True),
+              (63, 4, 12, 16, 32, "float32", True, True), (95, 4, 100, 32, 48, "float32", True, True),
+              (1, 4, 4, 16, 128, "float32", True, True), (1, 4, 128, 64, 32, "float32", True, True),
+              (1, 4, 128, 64, 32, "float32", False, True),
+              (33, 4, 16, 16, 32, "float32", True, True), (63, 4, 64, 48, 32, "float32", False, False),
+              (200, 1, 128, 64, 128, "float32", True, True), (1024, 10, 128, 16, 128, "float32", True, True),
+              (129, 4, 12, 48, 128, "bfloat16", True, True)]
+    for T, H, N, P, chunk, dtype, init, final in cases:
+        worst[dtype] = max(worst[dtype], check_ssd_bwd_point(ops, gen, 2, T, H, P, N, chunk, dtype,
                                                              init, final)[0])
         n += 1
     log(f"K3-bwd: {n} cases, worst error over the largest gradient entry: {worst}")
@@ -1476,19 +1517,50 @@ def ssd_bwd_flops(B, T, H, P, N, Q):
     return total
 
 
+SSD_BWD_LAUNCHES = ("ssd_bwd_chunk", "ssd_bwd_state", "ssd_bwd_grads", "ssd_bwd_bc",
+                    "ssd_bwd_group_sum")
+
+
+def ssd_bwd_scratch_mb(B, T, H, P, N, Q):
+    """MB of scratch that each of K3-bwd's launches requests from global
+    memory, modelled from its grid and ``ssd_scan_bwd.scratch_shapes`` (no
+    counter of this card's DRAM bytes is read: re-reads within a launch may
+    hit L2).  CB (C·Bᵀ) is written and read over its causal strips only
+    (Q·(Q + 16)/2 floats a chunk); ssd_bwd_grads reads it once a (head, tile
+    of P), ssd_bwd_bc reads cumx (the cumsum with its exponentials) once a
+    (head, slice of P, half of N); G (the state gradient) and decay are
+    counted once a launch that touches them, as are the head groups'
+    partials of dB and dC."""
+    from repro_torch.kernels import ssd_scan_bwd as bwd_mod
+    p = bwd_mod.plan(B, T, H, P, N, Q)
+    _, g, cumx, decay, part_b, part_c = (4 * math.prod(s) / 1e6
+                                         for s in bwd_mod.scratch_shapes(B, T, H, P, N, Q))
+    cb = 4 * B * p.chunks * Q * (Q + 16) / 2 / 1e6
+    part = part_b + part_c
+    return {"ssd_bwd_chunk": {"read": 0.0, "written": cb + g + cumx + decay},
+            "ssd_bwd_state": {"read": g + decay, "written": g},
+            "ssd_bwd_grads": {"read": cb * H * (P // p.p_tile) + g + cumx, "written": 0.0},
+            "ssd_bwd_bc": {"read": g + cumx * p.halves * (P // p.p_slice), "written": part},
+            "ssd_bwd_group_sum": {"read": part, "written": 0.0}}
+
+
 def measure_ssd_bwd(ops):
     """K3-bwd at mamba2_370m's training shape (a microbatch of 4 sequences
     of 2048 tokens, 32 heads of 64, N = 128, chunks of 128) in fp32, as
     training calls it (no initial state, the final state unused): checked
     against the plain decomposition and autograd, then timed back to back
-    and in a CUDA graph with the device time of each of its four launches,
+    and in a CUDA graph with the device time of each of its launches and the
+    scratch each requests (``ssd_bwd_scratch_mb``, modelled, in the log only),
     beside the plain decomposition, autograd's backward through the plain
     scan and K3's forward at the same shape; the bound from
     ``ssd_bwd_flops`` at the fp32 rates (``kernel_bounds``: the row's is
     3xTF32's, the CUDA cores' is printed beside it) against reading xdt, dA,
     B, C, dy and the kept states once and writing the four gradients once;
-    autograd's backward through the plain scan over 10 calls; ptxas's
-    registers and spills of its fp32 kernels.  No PyTorch call computes it."""
+    autograd's backward through the plain scan over 10 calls; K3's forward at
+    this shape with its own bounds (``ssd_flops``, in the log only); ptxas's
+    registers and spills of every kernel of both types, none of which may
+    spill.  No
+    PyTorch call computes it."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.kernels import ssd_scan_bwd as bwd_mod
@@ -1502,9 +1574,13 @@ def measure_ssd_bwd(ops):
     def kern():
         return bwd_mod.ssd_scan_bwd(*xs, dy, carry, state, chunk=Q)
     ms, g_ms, h_us = time_ms(kern), graph_ms(kern), host_us(kern, n=50)
-    launch = pass_ms(kern, ("ssd_bwd_chunk", "ssd_bwd_state", "ssd_bwd_grads",
-                            "ssd_bwd_head_sum"))
+    launch = pass_ms(kern, SSD_BWD_LAUNCHES)
     fwd_ms = graph_ms(lambda: ssd_mod.ssd_scan(*xs, chunk=Q))
+    fwd_flops = ssd_flops(B, T, H, P, N, Q)
+    fwd_bytes = 4 * (2 * xs[0].numel() + xs[1].numel() + xs[2].numel() + xs[3].numel()
+                     + state.numel() + carry.numel())
+    fwd_bound = kernel_bounds(fwd_flops, fwd_bytes, "float32")[2]
+    scratch = ssd_bwd_scratch_mb(B, T, H, P, N, Q)
     decomp_ms = time_ms(lambda: ref.ssd_scan_bwd_two_pass(*xs, dy, chunk=Q), iters=3, warmup=1)
     ins = [x.detach().requires_grad_() for x in xs]
     y_plain, _ = ops.ssd_scan(*ins, chunk=Q, force="plain")
@@ -1516,15 +1592,24 @@ def measure_ssd_bwd(ops):
                   + dy.numel() + carry.numel() + state.numel())
     b_ms, b_by, bounds = kernel_bounds(flops, nbytes, "float32")
     blog = _build.build_log.get("ssd_scan_bwd", "")
-    ptxas = {k: kernel_resources(blog, f"{k}IfE") for k in ("ssd_bwd_chunk", "ssd_bwd_grads")}
-    ptxas.update({k: kernel_resources(blog, k) for k in ("ssd_bwd_state", "ssd_bwd_head_sum")})
+    ptxas = {f"{k}<{tn}>": kernel_resources(blog, f"{k}I{mangled}E")
+             for k in ("ssd_bwd_chunk", "ssd_bwd_grads", "ssd_bwd_bc")
+             for tn, mangled in (("float", "f"), ("bf16", "13__nv_bfloat16"))}
+    ptxas.update({k: kernel_resources(blog, k) for k in ("ssd_bwd_state", "ssd_bwd_group_sum")})
+    spills = {k: v for k, v in ptxas.items() if v is None or v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        raise AssertionError(f"K3-bwd: ptxas reports spills (or no entry) for {spills}")
     log(f"K3-bwd mamba2_370m training {(B, T, H, P, N)} chunk {Q}: kernel {ms:.4f} ms "
         f"({g_ms:.4f} in a graph; device time per launch "
         + ", ".join(f"{k} {v:.4f}" for k, v in launch.items())
         + f"), plain decomposition {decomp_ms:.4f} ms, autograd through the plain scan "
         f"{plain_ms:.4f} ms, no library call; bound {b_ms:.5f} ms by {b_by} "
-        f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; {bounds}); K3 forward at "
-        f"this shape {fwd_ms:.4f} ms in a graph; host {h_us:.1f} us a call; ptxas {ptxas}")
+        f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; {bounds}); scratch MB read and "
+        f"written per launch, modelled from the grids and scratch shapes, not measured: "
+        f"{scratch} (in all {sum(sum(v.values()) for v in scratch.values()):.3f} MB against "
+        f"the bound's {nbytes / 1e6:.3f}); K3 forward at this shape {fwd_ms:.4f} ms "
+        f"in a graph, its bounds {fwd_bound} ({fwd_flops / 1e9:.4f} GFLOP, "
+        f"{fwd_bytes / 1e6:.3f} MB); host {h_us:.1f} us a call; ptxas {ptxas}")
     return {"name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:84",
@@ -2612,10 +2697,15 @@ def train_mamba(ops):
 
 
 def profile_training(model, params, opt, cfg, args, groups):
-    """One more train step (step 9) under torch.profiler: the device's busy
-    share of the step's wall time and the shares of device time of the
-    kernels in ``groups`` (label: a substring of their names), the matrix
-    products and the rest."""
+    """One more train step (step 9, both microbatches) under torch.profiler:
+    the device's busy share of the step's wall time and the shares of device
+    time of the kernels in ``groups`` (label: a substring of their names),
+    the matrix products and the rest.  The profiler's device clock is held
+    against CUDA events recorded around the step: where its span from the
+    first launch's start to the last one's end differs from theirs by more
+    than 5%, its times are scaled to the events' clock and the log says so
+    (one full run on the H100 read every kernel of this step at 0.47 of its
+    time, with every launch counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as train_cli
@@ -2625,18 +2715,34 @@ def profile_training(model, params, opt, cfg, args, groups):
                               microbatches=args.microbatches)
     batch = next(train_cli.data_stream(cfg.vocab_size, args.batch, args.seq, seed=1234,
                                        start_step=8))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
+        start.record()
         step_fn(params, opt, batch)
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    events_ms = start.elapsed_time(end)
+    ranges = [e.time_range for e in prof.events() if e.device_type ==
+              torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    span_ms = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e3 if ranges else 0.0
+    scale = events_ms / span_ms if span_ms > 0 else 1.0
+    log(f"the profiler's device clock: {len(ranges)} device events over {span_ms:.1f} ms from the "
+        f"first start to the last end; CUDA events around the step {events_ms:.1f} ms "
+        f"(ratio {scale:.4f})")
+    if abs(scale - 1) <= 0.05:
+        scale = 1.0
+    else:
+        log(f"  the profiler's clock disagrees with CUDA events: its device times below are "
+            f"multiplied by {scale:.4f}")
     shares = dict.fromkeys(list(groups) + ["matrix products", "other"], 0.0)
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = getattr(evt, "self_device_time_total", 0) / 1e3
+        ms = scale * getattr(evt, "self_device_time_total", 0) / 1e3
         if ms <= 0:
             continue
         kernels.append((ms, evt.count, evt.key))

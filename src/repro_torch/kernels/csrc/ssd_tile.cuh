@@ -1,7 +1,7 @@
-// Pieces shared by K3 (ssd_scan.cu) and its gradient (ssd_scan_bwd.cu): the
-// register-tiled fp32 product of a 128-row output tile, fed from
-// shared-memory slices of depth 16 (256 threads, each 4 rows x CPT columns),
-// the fp64 cumsum of dA inside a chunk, and the input strides.
+// Pieces of K3 (ssd_scan.cu): the register-tiled fp32 product of a 128-row
+// output tile, fed from shared-memory slices of depth 16 (256 threads, each
+// 4 rows x CPT columns); and, shared with its gradient (ssd_scan_bwd.cu),
+// the fp64 cumsum of dA inside a chunk, the input strides and to_f32.
 #pragma once
 
 #include "common.cuh"

@@ -667,3 +667,125 @@ def ssd_scan_bwd_two_pass(xdt, dA, Bm, Cm, dy, *, chunk: int = 128, initial_stat
     return (dx.reshape(B, nC * Q, H, P)[:, :T], ddA.reshape(B, nC * Q, H)[:, :T],
             dBm.reshape(B, nC * Q, N)[:, :T], dCm.reshape(B, nC * Q, N)[:, :T],
             None if initial_state is None else g)
+
+
+def ssd_scan_bwd_tiled(xdt, dA, Bm, Cm, dy, *, chunk: int = 128, initial_state=None,
+                       d_final=None, group_heads: Optional[int] = None,
+                       matmul=matmul_3xtf32):
+    """The gradient of :func:`ssd_scan_chunked` as K3-bwd's kernels compute
+    it (``csrc/ssd_scan_bwd.cu``), in plain PyTorch with every product
+    through ``matmul`` (the kernels' 3xTF32 by default).  Chunks are
+    ``chunk`` long whatever T, a ragged tail padded with zeros; 16-row strips
+    of a chunk are the kernels' row tiles.  With cum the inclusive fp64
+    cumsum of dA inside a chunk, ecum = exp(cum), w = exp(cum_last − cum),
+    L[i,j] = exp(cum_i − cum_j) for i ≥ j, S_c the state entering chunk c
+    and G_c the gradient of the state leaving it:
+
+    1. ``ssd_bwd_chunk``: C·Bᵀ over the lower-triangular strips once per
+       chunk; per head ΔG = Cᵀ·(ecum ∘ dy), the chunk's share of the state
+       gradient;
+    2. ``ssd_bwd_state``: G_{c-1} = exp(cum_last)·G_c + ΔG_c from G =
+       ``d_final`` (or 0) at the last chunk, ending at the initial state's
+       gradient;
+    3. ``ssd_bwd_grads``, per (chunk, head): raw = dy·xdtᵀ over the
+       triangle's strips and CBL = C·Bᵀ ∘ L; dcum's intra-chunk terms are the
+       row sums of CBL ∘ raw left of the diagonal less its column sums below
+       it; dxdt = CBLᵀ·dy (row strip j from depth j on) + w ∘ (B·G_c), whose
+       state part gives dcum's term −⟨xdt_j, w_j (B·G_c)_j⟩, and dcum's other
+       state term is ecum_i ⟨C_i, (dy·S_cᵀ)_i⟩, plus ⟨G_c, S_{c+1}⟩ at the
+       last position; every dcum term is an fp32 product summed in fp64, and
+       ddA is dcum's reverse cumsum;
+    4. ``ssd_bwd_bc``, per (chunk, group of ``group_heads`` heads): the
+       heads' sum inside the products, Msum = Σ_h L_h ∘ raw_h (fp32, heads in
+       order), dC = Σ_h (ecum_h ∘ dy_h)·S_hᵀ + Msum·B and dB = Σ_h (w_h ∘
+       xdt_h)·G_hᵀ + Msumᵀ·C; the groups' partials are summed in order.
+
+    ``group_heads`` defaults to ``ssd_scan_bwd.plan``'s.  xdt (B,T,H,P), dA
+    (B,T,H), Bm/Cm (B,T,N), dy (B,T,H,P); initial_state and d_final
+    (B,H,N,P) or None.  Returns (dxdt, ddA, dBm, dCm, the initial state's
+    gradient or None), all fp32."""
+    from . import ssd_scan_bwd as ssd_bwd_mod
+    B, T, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-T) % Q
+    nC = (T + pad) // Q
+    hg = group_heads or ssd_bwd_mod.plan(B, T, H, P, N, chunk).group_heads
+    strips = [(r, r + ssd_bwd_mod.STRIP) for r in range(0, Q, ssd_bwd_mod.STRIP)]
+    dev = xdt.device
+    x = F.pad(xdt.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P).permute(0, 1, 3, 2, 4)
+    g_y = F.pad(dy.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P).permute(0, 1, 3, 2, 4)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nC, 1, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nC, 1, Q, N)
+    cum = torch.cumsum(F.pad(dA.float(), (0, 0, 0, pad)).reshape(B, nC, Q, H).double(), dim=2)
+    cum = cum.permute(0, 1, 3, 2)                                  # (B, C, H, Q)
+    ecum = torch.exp(cum.float())
+    w = torch.exp((cum[..., -1:] - cum).float())
+    decay = torch.exp(cum[..., -1].float())                        # (B, C, H)
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    L = torch.exp(torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                              torch.tensor(-torch.inf, dtype=torch.float64, device=dev)).float())
+
+    # 1. C·Bᵀ over the triangle's strips; each head's ΔG
+    CB = torch.zeros((B, nC, 1, Q, Q), dtype=torch.float32, device=dev)
+    for r0, r1 in strips:
+        CB[..., r0:r1, :r1] = matmul(Cc[..., r0:r1, :], Bc[..., :r1, :].transpose(-1, -2))
+    dG = matmul(Cc.transpose(-1, -2), ecum[..., None] * g_y)      # (B, C, H, N, P)
+
+    # 2. the reverse state scan; the states from the forward's recurrence
+    g = (torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+         if d_final is None else d_final.float())
+    G = [None] * nC
+    for c in reversed(range(nC)):
+        G[c] = g
+        g = g * decay[:, c, :, None, None] + dG[:, c]
+    G = torch.stack(G, dim=1)
+    dS = torch.einsum("bcjn,bchj,bchjp->bchnp", Bc[:, :, 0], w, x)
+    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+         if initial_state is None else initial_state.float())
+    states = [s]
+    for c in range(nC):
+        states.append(states[-1] * decay[:, c, :, None, None] + dS[:, c])
+    states = torch.stack(states, dim=1)                            # (B, C+1, H, N, P)
+    S_in, S_out = states[:, :-1], states[:, 1:]
+
+    # 3. per (chunk, head): dxdt and ddA
+    raw = torch.zeros((B, nC, H, Q, Q), dtype=torch.float32, device=dev)
+    for r0, r1 in strips:
+        raw[..., r0:r1, :r1] = matmul(g_y[..., r0:r1, :], x[..., :r1, :].transpose(-1, -2))
+    CBL = torch.where(tril, CB * L, 0.0)
+    v = torch.where(torch.tril(tril, -1), CBL * raw, 0.0).double()
+    dcum = v.sum(-1) - v.sum(-2)
+    dx = torch.zeros_like(x)
+    for r0, r1 in strips:
+        dx[..., r0:r1, :] = matmul(CBL[..., r0:, r0:r1].transpose(-1, -2), g_y[..., r0:, :])
+    dx_state = w[..., None] * matmul(Bc, G)
+    dx = dx + dx_state
+    dcum -= (x.double() * dx_state.double()).sum(-1)
+    ys = matmul(g_y, S_in.transpose(-1, -2))                       # (B, C, H, Q, N)
+    dcum += ecum.double() * (Cc.double() * ys.double()).sum(-1)
+    dcum[..., -1] += (G.double() * S_out.double()).sum((-1, -2))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,)).float()
+
+    # 4. per (chunk, group of heads): dB and dC with the heads summed inside
+    M = torch.where(tril, raw * L, 0.0)
+    dBm = dCm = None
+    for h0 in range(0, H, hg):
+        hs = range(h0, min(H, h0 + hg))
+        msum = M[:, :, h0]
+        for h in hs[1:]:
+            msum = msum + M[:, :, h]
+        pc = pb = None
+        for h in hs:
+            tc = matmul(ecum[:, :, h, :, None] * g_y[:, :, h], S_in[:, :, h].transpose(-1, -2))
+            tb = matmul(w[:, :, h, :, None] * x[:, :, h], G[:, :, h].transpose(-1, -2))
+            pc, pb = (tc, tb) if pc is None else (pc + tc, pb + tb)
+        for r0, r1 in strips:
+            pc[..., r0:r1, :] += matmul(msum[..., r0:r1, :r1], Bc[:, :, 0, :r1, :])
+            pb[..., r0:r1, :] += matmul(msum[..., r0:, r0:r1].transpose(-1, -2),
+                                        Cc[:, :, 0, r0:, :])
+        dBm, dCm = (pb, pc) if dBm is None else (dBm + pb, dCm + pc)
+    return (dx.permute(0, 1, 3, 2, 4).reshape(B, nC * Q, H, P)[:, :T],
+            ddA.permute(0, 1, 3, 2).reshape(B, nC * Q, H)[:, :T],
+            dBm.reshape(B, nC * Q, N)[:, :T], dCm.reshape(B, nC * Q, N)[:, :T],
+            None if initial_state is None else g)

@@ -339,6 +339,15 @@ def test_ssd_kernel_takes_strided_views(gen):
 SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def _grad_scales(exp):
+    """Each gradient's largest entry; for one that is zero in exact
+    arithmetic (under 1e-6 of the largest over all the call's gradients, as
+    ddA at T = 1 without an initial state) 1e-1 of that largest, so that it
+    is still held to rounding (chip_smoke.py's ``grad_scales`` says why)."""
+    own = [float(e.abs().max()) for e in exp]
+    return [m if m > 1e-6 * max(own) else 1e-1 * max(own) for m in own]
+
+
 def _ssd_grads(xs, s0, dy, d_final, chunk, force=None):
     ins = [t.detach().requires_grad_() for t in xs]
     if s0 is not None:
@@ -358,7 +367,21 @@ SSD_BWD_CASES = ([(T, N, P, 128, torch.float32, both, both) for T in (16, 100, 5
                     (300, 128, 64, 128, torch.float32, False, True),
                     (200, 32, 32, 64, torch.float32, True, True),
                     (37, 16, 16, 16, torch.float32, True, True),
-                    (300, 128, 64, 128, torch.bfloat16, True, True)])
+                    (300, 128, 64, 128, torch.bfloat16, True, True)]
+                 # the edges of the 3xTF32 tiles: N padded to the mma's 8 columns,
+                 # P in tiles of 16, chunks of 16-48, T = 1, Q + 1, 2Q - 1
+                 + [(T, N, 16, 128, torch.float32, True, True)
+                    for T, N in ((100, 4), (129, 8), (255, 12), (200, 100))]
+                 + [(129, 128, 48, 128, torch.float32, True, False),
+                    (47, 8, 48, 16, torch.float32, False, True),
+                    (63, 12, 16, 32, torch.float32, True, True),
+                    (95, 100, 32, 48, torch.float32, True, True),
+                    (1, 4, 16, 128, torch.float32, True, True),
+                    (1, 128, 64, 32, torch.float32, True, True),
+                    (1, 128, 64, 32, torch.float32, False, True),
+                    (33, 16, 16, 32, torch.float32, True, True),
+                    (63, 64, 48, 32, torch.float32, False, False),
+                    (129, 12, 48, 128, torch.bfloat16, True, True)])
 
 
 @pytest.mark.parametrize("T,N,P,chunk,dtype,init,final", SSD_BWD_CASES)
@@ -367,7 +390,8 @@ def test_ssd_bwd_kernel_matches_plain(gen, T, N, P, chunk, dtype, init, final):
     decomposition (``ref.ssd_scan_bwd_two_pass``) and against autograd
     through the plain scan on the same values in fp32 (chip_smoke.py's
     phase 3f grid): each gradient within 1e-4 (fp32) or 1e-2 (bf16) of its
-    largest entry."""
+    largest entry (``_grad_scales``: at T = 1 without an initial state ddA
+    is 0)."""
     from repro_torch.kernels import ref
     xs = _ssd_inputs(gen, 2, T, 4, P, N, dtype)
     s0 = torch.randn((2, 4, N, P), generator=gen, device="cuda") if init else None
@@ -382,9 +406,32 @@ def test_ssd_bwd_kernel_matches_plain(gen, T, N, P, chunk, dtype, init, final):
                                                  d_final=d_final) if g is not None]
     for exp in (two, _ssd_grads(xf, s0, dy, d_final, chunk, force="plain")):
         assert len(got) == len(exp)
+        for g, e, scale in zip(got, exp, _grad_scales(exp)):
+            assert torch.isfinite(g).all()
+            assert float((g.float() - e).abs().max()) <= SSD_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("T,H", [(200, 1), (1024, 10)])
+def test_ssd_bwd_kernel_head_groups(gen, T, H):
+    """One head, and 10 heads that ``ssd_scan_bwd.plan`` cuts into groups of
+    3, 3, 3 and 1 (T = 1024: partials summed by ``ssd_bwd_group_sum``):
+    each gradient within 1e-4 of its largest entry against the plain
+    decomposition and autograd through the plain scan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan_bwd as bwd_mod
+    if H == 10:
+        assert bwd_mod.head_groups(bwd_mod.plan(2, T, H, 16, 128, 128), H) == [
+            (0, 3), (3, 6), (6, 9), (9, 10)]
+    xs = _ssd_inputs(gen, 2, T, H, 16, 128, torch.float32)
+    s0 = torch.randn((2, H, 128, 16), generator=gen, device="cuda")
+    dy = torch.randn((2, T, H, 16), generator=gen, device="cuda")
+    d_final = torch.randn((2, H, 128, 16), generator=gen, device="cuda")
+    got = _ssd_grads(xs, s0, dy, d_final, 128)
+    two = ref.ssd_scan_bwd_two_pass(*xs, dy, chunk=128, initial_state=s0, d_final=d_final)
+    for exp in (two, _ssd_grads(xs, s0, dy, d_final, 128, force="plain")):
         for g, e in zip(got, exp):
             assert torch.isfinite(g).all()
-            assert float((g.float() - e).abs().max()) <= SSD_BWD_TOL[dtype] * float(e.abs().max())
+            assert float((g - e).abs().max()) <= SSD_BWD_TOL[torch.float32] * float(e.abs().max())
 
 
 def test_ssd_bwd_kernel_at_the_smallest_shape(gen):
