@@ -192,12 +192,36 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    1e-2, layer 0's ``w_in`` gradient 1e-3 of its largest entry), 8 steps
    (finite losses, parameters moved, K3 192 launches a step and K3-bwd 96,
    the plain run none), step ms, tokens/s, peak memory and a profiled step
-   (K3 and K3-bwd shares).
+   (K3 and K3-bwd shares);
+23. expert parallelism on the one card (``repro_torch.launch.expert_parallel``):
+   qwen3_30b_a3b at full width (d_model 2048, 128 experts, top-8) cut to 8
+   of its 48 layers, first as the one-process dropless model in this
+   process, then as 2 rank processes in a gloo group (EP = 2, one data rank,
+   64 experts each, all on this card, the exchanges through host memory),
+   each prefilling the same 4 prompts of 512 tokens through ``model.prefill``
+   with ``moe_impl="a2a"`` (K1 in every layer) at capacity_factor 2, where a
+   destination holds all of a rank's pairs and nothing drops, and at the
+   config's 1.25, then one decode step (the dropless fallback, K2 in every
+   layer).  The no-drop logits and the decode's must lie within the relative
+   5e-2 of the dropless model's, the two ranks' logits must agree, and a
+   rank that fails fails the phase; it prints the pairs dropped at 1.25 and
+   the MoE layers' ms (a2a on each rank against dropless), labelled as two
+   ranks sharing one card;
+24. the dry-run's per-device accounting (``repro_torch.launch.specs``,
+   ``mesh.shard_bytes``) at a (1, 1) mesh against the card's allocation:
+   qwen3_30b_a3b's bf16 parameters as phase 10 built them, and qwen2_5_3b's
+   fp32 parameters and AdamW moments as phase 21 built them, each against
+   ``torch.cuda.memory_allocated()`` measured right after it was built; the
+   two agree to the byte but for the caching allocator's rounding: each
+   tensor up to 512 bytes, and a tensor of over 1 MiB with up to 1 MiB of
+   its block left unsplit (it prints the gap, and what fresh segments would
+   give).
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
-serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19 and the 8 training
-steps of phases 21 and 22), the card's name and power limit, and
+serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
+steps of phases 21 and 22 and the ranks' prefills and decodes of phase 23),
+the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
 code is not 0; without a CUDA device it exits 1 before doing anything.
@@ -230,6 +254,11 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_3XTF32_FLOPS = 495e12 / 3   # fp32 as 3xTF32: three TF32 tensor-core products
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+ALLOC_BLOCK = 512             # the CUDA caching allocator rounds each tensor up to this
+ALLOC_UNSPLIT = 1 << 20       # and leaves up to this much of a larger block unsplit with it
+# {tree: (torch.cuda.memory_allocated() grown by building it, its tensors' (shape,
+# dtype))}: the trees phases 10 and 21 build, which phase 24 accounts for
+BUILT_BYTES = {}
 SERVING = dict(num=8, prompt_min=128, prompt_max=1024, new_tokens=32, seed=0)
 
 
@@ -1855,6 +1884,11 @@ def main() -> int:
     log("== 22. training mamba2_370m at full size in fp32 through K3 and K3-bwd")
     launches.update(train_mamba(ops))
     torch.cuda.empty_cache()
+    log("== 23. expert parallelism: qwen3_30b_a3b through moe_a2a on 2 ranks sharing this card")
+    launches.update(expert_parallel())
+    torch.cuda.empty_cache()
+    log("== 24. the dry-run's per-device bytes against the card's allocation")
+    dry_run_bytes()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1884,8 +1918,11 @@ def build_full(arch, layers=None, expect=None):
         cfg = cfg.replace(num_layers=layers, layer_pattern=None)
     model = build_model(cfg)
     t0 = time.monotonic()
+    before = torch.cuda.memory_allocated()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
     torch.cuda.synchronize()
+    BUILT_BYTES[arch if layers is None else f"{arch}/{layers}"] = (
+        torch.cuda.memory_allocated() - before, _shapes(params))
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"initialised {n_params:,} parameters (config says {cfg.param_count():,}) "
         f"in {time.monotonic() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -2600,15 +2637,25 @@ def train_full(ops, arch, *, seq, expect, kernels, leaf, sample, groups):
     under torch.profiler with ``groups``.  Returns the 8 steps' launch
     counts."""
     from repro_torch.launch import train as train_cli
-    from repro_torch.models.optim import global_norm, tree_leaves, value_and_grad
+    from repro_torch.models.optim import global_norm, init_adamw, tree_leaves, value_and_grad
     args = train_cli.parse_args(["--arch", arch, "--full-config", "--steps", "8",
                                  "--batch", "8", "--seq", str(seq), "--microbatches", "2",
                                  "--log-every", "1"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
+    before = torch.cuda.memory_allocated()
     cfg, model, params = train_cli.setup(args)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - before
     n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"initialised {n_params:,} fp32 parameters in {time.monotonic() - t0:.1f} s")
+    before = torch.cuda.memory_allocated()
+    opt = init_adamw(params)          # the moments train_cli.run builds, measured and freed
+    torch.cuda.synchronize()
+    BUILT_BYTES[f"{arch}/fp32"] = (built, _shapes(params))
+    BUILT_BYTES[f"{arch}/moments"] = (torch.cuda.memory_allocated() - before,
+                                      _shapes([opt.step, opt.mu, opt.nu]))
+    del opt
     if n_params != expect or n_params != cfg.param_count():
         raise AssertionError(f"{arch} has {n_params} parameters")
     n_layers = cfg.num_layers
@@ -2813,6 +2860,102 @@ def restart_qwen():
     if same != len(pairs) or int(o_out.step) != 4 or loss_out != loss_ref \
             or meta["step"] != 2:
         raise AssertionError("the restarted run is not bit-identical to the straight one")
+
+
+def expert_parallel():
+    """Phase 23: qwen3_30b_a3b at full width, 8 of its 48 layers, served by
+    the one-process dropless model here and then by 2 expert-parallel ranks
+    (``repro_torch.launch.expert_parallel``: gloo, both on this card, 64
+    experts each); see the module docstring.  Returns the ranks' kernel
+    launches, summed."""
+    from repro_torch.launch import expert_parallel as ep
+    args = ep.parse_args(["--arch", "qwen3_30b_a3b", "--layers", "8", "--ranks", "2",
+                          "--batch", "4", "--prompt", "512"])
+    cfg = ep.model_config(args)
+    log(f"qwen3_30b_a3b at full width (d_model {cfg.d_model}, {cfg.moe.num_experts} experts, "
+        f"top-{cfg.moe.top_k}), depth cut to {args.layers} of 48 layers: the dropless copy, then "
+        f"{args.ranks} ranks of {cfg.moe.num_experts // args.ranks} experts, one after the other; "
+        f"capacity factors {ep.capacity_factors(args)} (at {args.ranks:.0f} nothing can drop)")
+    t0 = time.monotonic()
+    ref = ep.dropless(args)
+    torch.cuda.empty_cache()
+    log(f"dropless model: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ranks = ep.launch(args)
+    log(f"{args.ranks} ranks: {time.monotonic() - t0:.1f} s, built in "
+        f"{[round(r['build_seconds'], 1) for r in ranks]} s, peak allocated "
+        f"{[round(r['memory'] / 2**30, 2) for r in ranks]} GiB")
+    log("times below: two ranks sharing one card, exchange through host memory "
+        "(gloo); not a multi-card figure")
+    for line in ep.summary(ranks, ref):
+        log(line)
+    launches = ep.check(args, ranks, ref, 5e-2)
+    log(f"phase 23 passed: launches {dict(launches)}")
+    return launches
+
+
+def dry_run_bytes():
+    """Phase 24: the dry-run's accounting (``specs.abstract_params`` on the
+    meta device, ``init_adamw`` of it, ``mesh.param_specs`` and
+    ``mesh.shard_bytes`` at a (1, 1) mesh) for qwen3_30b_a3b's bf16
+    parameters (phase 10) and qwen2_5_3b's fp32 parameters and moments
+    (phase 21), against the allocation measured when each was built: the
+    meta trees must have the built trees' shapes and types, their bytes the
+    allocation's once each tensor is rounded up to ALLOC_BLOCK."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh, specs
+    from repro_torch.models.optim import init_adamw
+    from repro_torch.models.transformer import build_model
+    axes = mesh.MeshAxes(("data", "model"), (1, 1))
+    cases = []
+    qwen3 = specs.abstract_params(build_model(get_config("qwen3_30b_a3b")))
+    cases.append(("qwen3_30b_a3b bf16 parameters (phase 10)", "qwen3_30b_a3b", qwen3,
+                  mesh.param_specs(qwen3, axes, "serve")))
+    qwen2 = specs.abstract_params(build_model(get_config("qwen2_5_3b")), torch.float32)
+    p_specs = mesh.param_specs(qwen2, axes, "train")
+    cases.append(("qwen2_5_3b fp32 parameters (phase 21)", "qwen2_5_3b/fp32", qwen2, p_specs))
+    opt = init_adamw(qwen2)
+    cases.append(("qwen2_5_3b AdamW moments and step (phase 21)", "qwen2_5_3b/moments",
+                  [opt.step, opt.mu, opt.nu], [(), p_specs, p_specs]))
+    for what, key, tree, tree_specs in cases:
+        measured, built = BUILT_BYTES[key]
+        counted = mesh.shard_bytes(tree, tree_specs, axes)
+        if _shapes(tree) != built:
+            raise AssertionError(f"{what}: the meta tree's shapes and types are not the built tree's")
+        sizes = [t.numel() * t.element_size() for t in _leaves(tree)]
+        rounded = sum(_rounded(n) for n in sizes)
+        large = sum(_rounded(n) > ALLOC_UNSPLIT for n in sizes)
+        fresh = sum(_fresh_block(n) for n in sizes)
+        log(f"{what}: dry-run argument_bytes {counted:,}; allocated {measured:,}, "
+            f"{measured - counted:,} more: {len(sizes)} tensors rounded up to {ALLOC_BLOCK} bytes "
+            f"make {rounded:,}, and the {large} of over {ALLOC_UNSPLIT:,} bytes may each hold "
+            f"up to {ALLOC_UNSPLIT:,} more of an unsplit block (fresh segments: {fresh:,}, "
+            f"{'equal to' if fresh == measured else 'not'} the allocation)")
+        if counted != sum(sizes) or not rounded <= measured <= rounded + large * ALLOC_UNSPLIT:
+            raise AssertionError(f"{what}: counted {counted}, allocated {measured}, "
+                                 f"rounded {rounded}, {large} large tensors")
+
+
+def _rounded(n):
+    """An n-byte tensor's request as the CUDA caching allocator books it."""
+    return max(ALLOC_BLOCK, -(-n // ALLOC_BLOCK) * ALLOC_BLOCK)
+
+
+def _fresh_block(n):
+    """The block the caching allocator books for an n-byte tensor from a new
+    segment: a request of 10 MiB or more gets a segment rounded up to 2 MiB,
+    which is split only if more than ALLOC_UNSPLIT would be left over;
+    smaller requests are split out of their segment exactly."""
+    size = _rounded(n)
+    if size < 10 << 20:
+        return size
+    segment = -(-size // (2 << 20)) * (2 << 20)
+    return segment if segment - size <= ALLOC_UNSPLIT else size
+
+
+def _shapes(tree):
+    """(shape, dtype) of every tensor of ``tree``, in order."""
+    return [(tuple(t.shape), t.dtype) for t in _leaves(tree)]
 
 
 def _widen(tree):

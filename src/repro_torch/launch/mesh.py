@@ -25,9 +25,21 @@ A spec here is a tuple with one entry per dimension: ``None``, an axis
 name, or a tuple of axis names, the entries of the reference's
 ``PartitionSpec``.  :class:`MeshAxes` is built from axis names and sizes;
 there are no devices.  ``make_production_mesh`` and the ``NamedSharding``
-trees are left out, since nothing here holds 256 devices: the
-expert-parallel MoE and the tensor-parallel llama3_70b (ROADMAP items 14
-and 16) will map these specs onto ``torch.distributed`` process groups.
+trees are left out, since nothing here holds 256 devices: the dry-run
+(:mod:`repro_torch.launch.dryrun`) divides each leaf's shape by the axes
+its spec names instead (:func:`shard_shape`, :func:`shard_bytes`).
+
+Real ranks: :func:`device_mesh` builds a ``torch.distributed`` device mesh
+with the axes of a :class:`MeshAxes` over the default process group, which
+the caller has initialised with the backend of its choice, and
+:func:`use_mesh` makes it the ambient mesh (the reference's ``with mesh:``),
+which :func:`ambient_mesh` returns (its ``_ambient_mesh``) and the
+expert-parallel MoE reads; the three live with the MoE in
+:mod:`repro_torch.models.layers`, runtime state the model reads, and are
+re-exported here.  :func:`shard_params` cuts a whole parameter
+tree into one rank's: the MoE's ``w_in`` and ``w_out`` on their expert
+dimension by the rank's "model" coordinate, every other leaf whole.
+
 The tree walkers (:func:`param_specs`, :func:`cache_specs`,
 :func:`batch_specs`) take the port's nested dicts and lists of tensors and
 name each leaf as the reference's ``_leaf_name`` does: keys and list
@@ -38,7 +50,11 @@ from __future__ import annotations
 
 from typing import Any, Iterator, Sequence, Tuple
 
-__all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names"]
+from repro_torch.models.layers import ambient_mesh, model_coordinate, use_mesh
+
+__all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names",
+           "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
+           "shard_params", "model_coordinate"]
 
 Spec = Tuple[Any, ...]
 
@@ -291,3 +307,84 @@ def batch_specs(batch_tree: Any, axes: MeshAxes, *, batch: int) -> Any:
     shard_batch = _divides(batch, axes.batch_size())
     return _map_named(batch_tree, lambda _, leaf: _batch_spec(
         tuple(leaf.shape), axes, shard_batch=shard_batch))
+
+
+# --------------------------------------------------------------------------
+# per-device shapes of a placement
+# --------------------------------------------------------------------------
+
+def shard_shape(shape: Sequence[int], spec: Spec, axes: MeshAxes) -> Tuple[int, ...]:
+    """One device's block of a leaf of ``shape`` placed by ``spec``: each
+    dimension divided by the sizes of the axes its entry names (the
+    reference's ``NamedSharding.shard_shape``; the rules only name axes
+    that divide)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        n = 1
+        for a in names:
+            n *= axes.sizes[a]
+        if dim % n:
+            raise ValueError(f"{tuple(shape)} does not split by {spec} on {axes.sizes}")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def shard_bytes(tree: Any, specs: Any, axes: MeshAxes) -> int:
+    """The bytes one device holds of ``tree`` placed by ``specs`` (a tree of
+    the same shape, as the walkers return it): every array leaf's
+    :func:`shard_shape` times its element size."""
+    if isinstance(tree, dict):
+        return sum(shard_bytes(v, specs[k], axes) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(shard_bytes(v, s, axes) for v, s in zip(tree, specs))
+    if not hasattr(tree, "shape"):
+        return 0
+    n = 1
+    for d in shard_shape(tuple(tree.shape), specs, axes):
+        n *= d
+    return n * tree.element_size()
+
+
+# --------------------------------------------------------------------------
+# real ranks: a torch.distributed device mesh and one rank's weights
+# --------------------------------------------------------------------------
+
+def device_mesh(axes: MeshAxes, device_type: str = "cuda"):
+    """A ``torch.distributed.device_mesh.DeviceMesh`` with the axes of
+    ``axes`` in their order (("data", "model") or ("pod", "data", "model")),
+    over the default process group, which must hold their product of ranks.
+    ``device_type`` is always explicit: ``"cuda"`` on the card, ``"cpu"``
+    only when the caller asks for it; the group's backend is whatever the
+    caller initialised it with."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(axes.sizes[a] for a in axes.names),
+                            mesh_dim_names=axes.names)
+
+
+def shard_params(params: Any, mesh=None) -> Any:
+    """One rank's tree of a whole parameter tree: each MoE ``w_in`` and
+    ``w_out`` (expert dimension third from the right, stacked or not) cut
+    into the "model" size's equal blocks of experts, the block of this
+    rank's "model" coordinate kept (a copy, so the whole tree can be freed);
+    every other leaf is the whole leaf itself.  Where the expert count does
+    not split by the "model" size the experts stay whole, as the expert-parallel MoE then falls back to the dropless
+    one.  ``mesh`` defaults to the ambient mesh."""
+    m, ep = model_coordinate(ambient_mesh() if mesh is None else mesh)
+
+    def cut(name, leaf):
+        if ep == 1 or not name.endswith(("moe/w_in", "moe/w_out")):
+            return leaf
+        E = leaf.shape[-3]
+        if E % ep:
+            return leaf
+        return leaf.narrow(leaf.dim() - 3, m * (E // ep), E // ep).clone()
+
+    def walk(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{prefix}/{i}" if prefix else str(i))
+                              for i, v in enumerate(tree))
+        return cut(prefix, tree) if hasattr(tree, "shape") else tree
+    return walk(params)

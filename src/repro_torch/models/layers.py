@@ -21,17 +21,23 @@ runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
 PyTorch.  :func:`moe` is the reference's dropless MoE; its two grouped
 products lie outside any Pallas kernel in the reference
 (``jax.lax.ragged_dot``) and stay PyTorch products here
-(:func:`grouped_mm`).  :func:`rglru` runs its fp32 recurrence as a chunked
-scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
+(:func:`grouped_mm`).  :func:`moe_a2a` is the reference's expert-parallel
+MoE over the ``torch.distributed`` ranks of the ambient mesh's "model"
+axis (:func:`use_mesh`, :func:`ambient_mesh`; the mesh itself and the
+weights' cut come from :mod:`repro_torch.launch.mesh`).  :func:`rglru` runs
+its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
@@ -317,8 +323,11 @@ def grouped_mm(x, w, group_sizes, *, force: Optional[str] = None):
     On the card it is one ``torch._grouped_mm`` call whose group ends are the
     cumulative sizes on the device, so no host read waits on the router; its
     plain version, :func:`grouped_mm_loop`, serves the CPU and
-    ``force="plain"``."""
-    if ops._use_kernel(x, force):
+    ``force="plain"``; a meta tensor (the dry-run) takes the grouped call,
+    whose output shape needs no sizes.  Rows past the last group are not
+    computed."""
+    if ops._use_kernel(x, force) or x.is_meta:
+        # a meta tensor has shapes only: the loop would read the sizes
         return torch._grouped_mm(x, w, offs=torch.cumsum(group_sizes, 0, dtype=torch.int32))
     return grouped_mm_loop(x, w, group_sizes)
 
@@ -370,6 +379,301 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     ce = group_sizes.float() / (n * K)
     aux_loss = E * torch.sum(me * ce)
     return out.reshape(B, T, d), {"moe_aux_loss": aux_loss, "expert_load": ce}
+
+
+# --------------------------------------------------------------------------
+# Expert-parallel MoE: capacity-bounded all-to-all over the "model" ranks
+# --------------------------------------------------------------------------
+#
+# Every rank of a "model" group computes the same thing outside the MoE and
+# ends with the same loss, so each collective's gradient is the one that
+# keeps the ranks' gradients of replicated tensors whole (the rule of
+# Megatron's sequence parallelism): a replicated tensor cut into the rank's
+# block gathers the gradient blocks back (_Split); blocks gathered into a
+# replicated tensor each take their own block of its gradient (_Gather);
+# partial sums reduced into a replicated tensor each take its whole gradient
+# (_Reduce); a replicated tensor fed into per-rank partial work sums its
+# gradient over the ranks (_Copy).  The library's autograd all_gather and
+# all_reduce sum the ranks' gradients in every case, which would count the
+# one loss once a rank.  The exchanges themselves go through
+# ``torch.distributed.nn.functional.all_to_all_single``, whose gradient is
+# the reverse exchange.  The router, which every rank holds whole but runs
+# on its own tokens only, would end with a partial gradient on each rank, so
+# it enters the MoE through _Copy: its gradient is summed over "model" in
+# the backward pass, before anything compares or uses it.
+
+
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the ambient mesh of this thread while
+    the block runs: the reference's ``with mesh:``."""
+    stack = _AMBIENT.__dict__.setdefault("stack", [])
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def ambient_mesh():
+    """The innermost mesh of :func:`use_mesh` on this thread, or None: the
+    reference's ``_ambient_mesh()``."""
+    stack = getattr(_AMBIENT, "stack", None)
+    return stack[-1] if stack else None
+
+
+def model_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's "model" coordinate, the "model" size) of ``mesh``, or
+    (0, 1) without a "model" axis."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return 0, 1
+    sub = mesh["model"]
+    return sub.get_local_rank(), sub.size()
+
+
+def _rank_and_size(group):
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _all_gather(x, dim: int, group):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _all_reduce(x, group):
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block of a replicated tensor along ``dim``; the gradient
+    gathers every rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        rank, n = _rank_and_size(group)
+        return x.chunk(n, dim)[rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's block along ``dim`` gathered into one replicated tensor;
+    the gradient keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank, n = _rank_and_size(ctx.group)
+        return g.chunk(n, ctx.dim)[rank].contiguous(), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the ranks of their partial tensors; the gradient passes
+    unchanged to each rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """A replicated tensor into per-rank partial work; the gradient is the
+    sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _exchange(x, group):
+    """``all_to_all_single`` over ``group``: dim 0 of ``x`` in as many equal
+    blocks as ranks, block j to rank j, block i of the result from rank i;
+    its gradient is the reverse exchange."""
+    import warnings
+
+    import torch.distributed.nn.functional as dist_fn
+    with warnings.catch_warnings():
+        # newer torch marks the autograd form deprecated for a private module
+        warnings.simplefilter("ignore", FutureWarning)
+        return dist_fn.all_to_all_single(torch.empty_like(x), x.contiguous(), group=group)
+
+
+def _local_experts(cfg: ModelConfig, p, rows, local_id, E_loc: int, force):
+    """The received rows through this rank's experts: rows (m, d), their
+    local expert ids (m,), -1 for an empty slot -> (m, d), zero where
+    empty.  The rows are sorted by expert for two grouped products, so each
+    row is multiplied by its own expert alone."""
+    valid = local_id >= 0
+    key = torch.where(valid, local_id, E_loc).long()
+    order = torch.argsort(key, stable=True)
+    sizes = torch.zeros(E_loc + 1, dtype=torch.int32, device=rows.device).index_add_(
+        0, key, torch.ones_like(key, dtype=torch.int32))[:E_loc]
+    h = grouped_mm(rows[order], p["w_in"], sizes, force=force)
+    if cfg.mlp_act == "swiglu":
+        hi, hg = torch.chunk(h, 2, dim=-1)
+        h = F.silu(hi) * hg
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ys = grouped_mm(h, p["w_out"], sizes, force=force)
+    # the empty rows sort last and were not computed
+    ys = torch.where(valid[order][:, None], ys, torch.zeros((), dtype=ys.dtype, device=ys.device))
+    return torch.zeros_like(rows).index_copy(0, order, ys)
+
+
+def moe_a2a(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
+    """Expert-parallel MoE with explicit dispatch and combine all-to-alls
+    over the ambient mesh's "model" ranks, as the reference's ``moe_a2a``.
+
+    ``p`` is this rank's tree (:func:`repro_torch.launch.mesh.shard_params`):
+    the router whole, ``w_in``/``w_out`` its E / ep experts.  x (B, T, d) is
+    the same on every rank of the "model" group (its data rank's batch
+    block, or the whole batch where the batch axes do not divide it).  Rank
+    m takes the sequence block [m·T/ep, (m+1)·T/ep), the reference's
+    ``x_spec = P(b_spec, "model", None)``, and
+
+    * routes it locally (fp32 logits, softmax, top-k, gates renormalised);
+    * buckets each (token, choice) pair by the rank of its expert, in the
+      cumulative order of the flattened pairs, ``cap = ceil(n_loc·K / ep ·
+      capacity_factor)`` slots a destination, the rest dropped;
+    * exchanges the rows and their local expert ids (-1 marks an empty
+      slot) with an all-to-all, runs its experts' two grouped products on
+      the received rows sorted by expert, and sends the results back with
+      a second one;
+    * scatter-adds them weighted by gate × keep.
+
+    The blocks are then all-gathered over "model", so every rank holds the
+    whole (B, T, d) output again: the port's counterpart of the resharding
+    GSPMD does after the reference's ``out_specs``.
+
+    Which pairs drop is the reference's: the pairs past ``cap`` and, where a
+    destination overflows, also the pair in its last slot
+    (:func:`_overwritten_by_a_drop`, ROADMAP fault F6).
+
+    Falls back to :func:`moe` where the reference does: no ambient mesh, no
+    "model" axis, one "model" rank, or E % ep (the experts then stay whole).
+    Where T % ep (a decode step) it runs the dropless MoE on the sharded
+    experts: every rank routes every token, runs the pairs bound for its
+    own experts, and the partial outputs are summed over "model".
+
+    Returns (y (B, T, d), aux).  Every rank returns the same statistics:
+    the means over the "model" ranks of each rank's router probabilities and
+    expert loads, which are the dropless MoE's over the same tokens (the
+    reference returns one shard's, the first device's); the main path also
+    gives ``dropped``, the pairs dropped on all the group's ranks."""
+    mesh = ambient_mesh()
+    moe_cfg = cfg.moe
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    B, T, d = x.shape
+    m, ep = model_coordinate(mesh)
+    if ep == 1 or E % ep:
+        return moe(cfg, p, x, force=force)
+    group = mesh.get_group("model")
+    p = {**p, "router": _Copy.apply(p["router"], group)}    # its gradient summed over "model"
+    E_loc = E // ep
+    if p["w_in"].shape[0] != E_loc:
+        raise ValueError(f"moe_a2a needs this rank's {E_loc} of {E} experts "
+                         f"(launch.mesh.shard_params), got {p['w_in'].shape[0]}")
+    if T % ep:
+        return _moe_expert_sharded(cfg, p, x, group, m, ep, force)
+    T_loc = T // ep
+    n_loc = B * T_loc
+    cap = max(1, int(math.ceil(n_loc * K / ep * moe_cfg.capacity_factor)))
+
+    xf = _Split.apply(x, 1, group).reshape(n_loc, d)
+    probs, gate, idx = moe_route(cfg, p, xf)
+    flat_e = idx.reshape(-1)                                          # (n_loc*K,)
+    tok_of = torch.arange(n_loc * K, device=x.device) // K
+    dest = flat_e // E_loc
+    onehot = F.one_hot(dest, ep)
+    slot = (torch.cumsum(onehot, 0) - 1).gather(1, dest[:, None])[:, 0]
+    keep = (slot < cap) & ~_overwritten_by_a_drop(slot, onehot.sum(0) > cap, dest, cap)
+    at = dest * cap + slot.clamp(max=cap - 1)
+    # dropped pairs go to one spare row past the buffer, which is cut off
+    to = torch.where(keep, at, ep * cap)
+    send_x = xf.new_zeros((ep * cap + 1, d)).index_copy(0, to, xf[tok_of])[:-1]
+    send_e = torch.full((ep * cap + 1,), -1, dtype=torch.int32, device=x.device).index_copy(
+        0, to, (flat_e % E_loc).int())[:-1]
+
+    rows = _exchange(send_x, group)
+    local_id = _exchange(send_e, group)
+    back = _exchange(_local_experts(cfg, p, rows, local_id, E_loc, force), group)
+
+    got = back[at] * (gate.reshape(-1) * keep)[:, None].to(back.dtype)
+    y = torch.zeros((n_loc, d), dtype=got.dtype, device=x.device).index_add_(0, tok_of, got)
+    y = _Gather.apply(y.reshape(B, T_loc, d), 1, group)
+
+    load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    stats = _Reduce.apply(torch.cat([probs.mean(dim=0) / ep, load / (n_loc * K * ep),
+                                     (~keep).sum()[None].float()]), group)
+    me, ce = stats[:E], stats[E:2 * E].detach()
+    return y, {"moe_aux_loss": E * torch.sum(me * ce), "expert_load": ce,
+               "dropped": stats[2 * E].detach().round().long()}
+
+
+def _overwritten_by_a_drop(slot, overflow, dest, cap: int):
+    """The kept pairs that the reference's ``moe_a2a`` also loses (ROADMAP
+    fault F6): the pair in slot ``cap - 1`` of a destination that overflows.
+    The reference clamps a dropped pair's slot to ``cap - 1`` and scatters
+    its zeros there too; the order of those duplicate-index writes is left
+    to the implementation by JAX, and XLA on the CPU applies them in order,
+    so the dropped pair's zeros win and the slot goes out empty.  The port
+    reproduces that order, so that its y and dropped pairs are the
+    reference's as the tests run it; to keep the pair instead, return
+    ``torch.zeros_like(slot, dtype=torch.bool)``."""
+    return (slot == cap - 1) & overflow[dest]
+
+
+def _moe_expert_sharded(cfg: ModelConfig, p, x, group, m: int, ep: int, force):
+    """The dropless MoE on expert-sharded weights (:func:`moe_a2a` where T %
+    ep): rank m routes every token, runs the (token, choice) pairs bound for
+    its experts m·E/ep .. (m+1)·E/ep − 1, and the partial outputs are summed
+    over "model" in fp32.  The statistics are every token's, as
+    :func:`moe`'s."""
+    moe_cfg = cfg.moe
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    B, T, d = x.shape
+    n = B * T
+    E_loc = E // ep
+    xf = _Copy.apply(x, group).reshape(n, d)
+    probs, gate, idx = moe_route(cfg, p, xf)
+    flat_e = idx.reshape(-1)
+    local_id = torch.where(flat_e // E_loc == m, flat_e - m * E_loc, -1)
+    token_of = torch.arange(n * K, device=x.device) // K
+    ys = _local_experts(cfg, p, xf[token_of], local_id, E_loc, force)
+    ys = ys * gate.reshape(-1)[:, None].to(ys.dtype)
+    part = torch.zeros((n, d), dtype=ys.dtype, device=x.device).index_add_(0, token_of, ys)
+    y = _Reduce.apply(part.float(), group).to(x.dtype)
+
+    load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    ce = load / (n * K)
+    # every rank computes the same loss from the same routing: a 1/ep share a
+    # rank sums to one loss's gradient over the ranks (_Copy, the router sum)
+    aux = _Reduce.apply(E * torch.sum(probs.mean(dim=0) * ce) / ep, group)
+    return y.reshape(B, T, d), {"moe_aux_loss": aux, "expert_load": ce}
 
 
 # --------------------------------------------------------------------------

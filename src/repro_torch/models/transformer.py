@@ -42,8 +42,12 @@ sees the keys at p − window + 1 .. p.  The cache stays linear,
 one window (``positions % S``): the same function, since the reference also
 masks by position, at the memory of the whole context.
 
-An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`; its
-auxiliary outputs are dropped, as serving does in the reference.  A
+An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
+with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
+parallelism over the ambient mesh's "model" ranks, each rank running the
+whole model on the same tokens with its own experts; the dropless MoE
+without a mesh); its auxiliary outputs are dropped, as serving does in the
+reference.  A
 ``frontend`` config takes ``inputs["frontend_embeds"]`` (B, F, d), which
 are prepended to the token embeddings: that prefill writes F + T positions.
 
@@ -86,7 +90,7 @@ prefill from a zero state, the SSD scan through ``ops.ssd_scan``, which on
 the card is K3 forward and K3's gradient kernel backward.  ``remat`` wraps
 each block in ``torch.utils.checkpoint`` (so K3's forward runs twice a
 layer and its gradient once).  Every architecture trains on the CPU and on
-the card; ``moe_impl="a2a"`` raises anywhere, naming its ROADMAP item.
+the card.
 """
 
 from __future__ import annotations
@@ -109,25 +113,23 @@ PAGE_SIZE = 16     # K2's view of a slot: S / PAGE_SIZE consecutive pages
 ATTN_KINDS = ("attn", "local_attn")
 RECURRENT_KINDS = ("ssd", "rglru")
 
-_ROADMAP = {
-    "a2a": "ROADMAP Queue A item 14 (expert-parallel MoE)",
-}
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} does not run in the PyTorch port yet: "
-                               f"{_ROADMAP[what]}")
+MOE_IMPLS = ("ragged", "a2a")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any part of ``cfg`` the port does not run yet."""
+    """Raise ``ValueError`` for a value of ``cfg`` the port does not know."""
     for kind in cfg.layer_pattern:
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
     if cfg.kv_append not in ("inline", "defer"):
         raise ValueError(f"unknown kv_append {cfg.kv_append!r}")
-    if cfg.moe is not None and cfg.moe_impl != "ragged":
-        raise _unported("a2a")
+    if cfg.moe is not None and cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+
+
+def _moe_fn(cfg: ModelConfig):
+    """The MoE block's function: the expert-parallel one for ``a2a``."""
+    return L.moe_a2a if cfg.moe_impl == "a2a" else L.moe
 
 
 # ==========================================================================
@@ -258,7 +260,7 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
         x = x + _cross_attention(cfg, *cross, x, step, force)
     h2 = L.apply_norm(cfg, x, p["norm2"])
     if cfg.moe is not None:
-        return x + L.moe(cfg, p["moe"], h2, force=force)[0]
+        return x + _moe_fn(cfg)(cfg, p["moe"], h2, force=force)[0]
     return x + L.mlp(cfg, p["mlp"], h2)
 
 
@@ -289,7 +291,7 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
     h2 = L.apply_norm(cfg, x, p["norm2"])
     if cfg.moe is None:
         return x + L.mlp(cfg, p["mlp"], h2), None
-    y, moe_aux = L.moe(cfg, p["moe"], h2, force=force)
+    y, moe_aux = _moe_fn(cfg)(cfg, p["moe"], h2, force=force)
     return x + y, moe_aux["moe_aux_loss"]
 
 
@@ -433,14 +435,16 @@ def _page_tables(rows, S: int, batch: int, device):
     return tables[rows].contiguous()
 
 
-def _prefill_start(cache, k, T: int) -> int:
-    """The one ``cache_len`` all rows share, checked against the attention
-    cache ``k`` (.., B, S, Hkv, D), which must hold T more positions."""
-    starts = set(cache["cache_len"].tolist())
-    if len(starts) != 1:
-        raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
-                         f"got {sorted(starts)}")
-    start = starts.pop()
+def _prefill_start(cache, k, T: int, start: Optional[int] = None) -> int:
+    """The one ``cache_len`` all rows share, read on the host unless the
+    caller gives it as ``start``, checked against the attention cache ``k``
+    (.., B, S, Hkv, D), which must hold T more positions."""
+    if start is None:
+        starts = set(cache["cache_len"].tolist())
+        if len(starts) != 1:
+            raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
+                             f"got {sorted(starts)}")
+        start = starts.pop()
     S = k.shape[-3]
     if start + T > S:
         raise ValueError(f"prefill to position {start + T} overflows the "
@@ -469,11 +473,12 @@ class TransformerLM:
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
              dtype=torch.float32, device=None) -> Dict[str, Any]:
-        """Random parameters on ``generator``'s device (``cuda`` when no
-        generator is given: a fresh one seeded with 0)."""
+        """Random parameters on ``device``, by default ``generator``'s
+        (``cuda`` when no generator is given: a fresh one seeded with 0); the
+        meta device (the dry-run) takes a CPU generator and draws nothing."""
         if generator is None:
             generator = torch.Generator(resolve_device(device)).manual_seed(0)
-        device = generator.device
+        device = generator.device if device is None else torch.device(device)
         cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": L.embed_init((cfg.vocab_size, cfg.d_model), generator,
@@ -601,12 +606,15 @@ class TransformerLM:
         return {"layers": layers,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
-    def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
+    def prefill(self, params, inputs, cache, *, force: Optional[str] = None,
+                start: Optional[int] = None):
         """Extend every row of ``cache`` (in place) with T new positions at
         cache_len + arange(T), the frontend embeddings (if given) and then the
         tokens; returns (last-position logits (B, V), the same cache).
         ``force="plain"`` runs the plain attention, SSD scan or per-expert
-        loop on the card."""
+        loop on the card.  ``start`` is the rows' shared ``cache_len`` where
+        the caller knows it, so it is not read on the host (a cache on the
+        meta device, as the dry-run's, holds no values)."""
         tokens = inputs["tokens"]
         x = self._embed_inputs(params, inputs)
         B, T = x.shape[:2]
@@ -618,7 +626,7 @@ class TransformerLM:
             logits = self._run(params, x, None, cache, CacheStep(), force)
             cache["cache_len"] += T
             return logits, cache
-        start = _prefill_start(cache, self._attn_cache(cache)["k"], T)
+        start = _prefill_start(cache, self._attn_cache(cache)["k"], T, start)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
         logits = self._run(params, x, positions, cache, CacheStep(start=start), force)
         cache["cache_len"] += T
@@ -673,12 +681,13 @@ class EncDecLM:
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
              dtype=torch.float32, device=None) -> Dict[str, Any]:
-        """Random parameters on ``generator``'s device (``cuda`` when no
-        generator is given: a fresh one seeded with 0), in the reference's
-        tree: stacked encoder, decoder and cross-attention layers."""
+        """Random parameters on ``device``, by default ``generator``'s
+        (``cuda`` when no generator is given: a fresh one seeded with 0), in
+        the reference's tree: stacked encoder, decoder and cross-attention
+        layers."""
         if generator is None:
             generator = torch.Generator(resolve_device(device)).manual_seed(0)
-        device = generator.device
+        device = generator.device if device is None else torch.device(device)
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         return {
@@ -792,11 +801,13 @@ class EncDecLM:
         x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
         return (x @ params["embed"].T)[:, 0, :]
 
-    def prefill(self, params, inputs, cache, *, force: Optional[str] = None):
+    def prefill(self, params, inputs, cache, *, force: Optional[str] = None,
+                start: Optional[int] = None):
         """The encoder over ``inputs["frontend_embeds"]`` (B, F, d) where
         given, its cross K/V written into every row of the cache, then the
         decoder over the T tokens at cache_len + arange(T) (in place);
-        returns (last-position logits (B, V), the same cache)."""
+        returns (last-position logits (B, V), the same cache).  ``start``
+        as for :meth:`TransformerLM.prefill`."""
         extra = set(inputs) - {"tokens", "frontend_embeds"}
         if extra:
             raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
@@ -816,7 +827,7 @@ class EncDecLM:
         if T == 1:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
-        start = _prefill_start(cache, cache["layers"]["k"], T)
+        start = _prefill_start(cache, cache["layers"]["k"], T, start)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
         logits = self._decoder(params, tokens, positions, cache, CacheStep(start=start), force)
         cache["cache_len"] += T

@@ -239,9 +239,16 @@ def test_param_count_accounting(arch):
 
 
 def test_unported_paths_raise():
+    """Unknown values raise; ``moe_impl="a2a"`` builds, and without a mesh
+    runs the dropless MoE (the reference's fallback)."""
     cfg = get_reduced_config("llama3_8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-        build_model(get_reduced_config("mixtral_8x7b").replace(moe_impl="a2a"))
+    moe_cfg = get_reduced_config("mixtral_8x7b")
+    a2a, ragged = build_model(moe_cfg.replace(moe_impl="a2a")), build_model(moe_cfg)
+    params = ragged.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    tokens = torch.randint(0, moe_cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    logits = [m.prefill(params, {"tokens": tokens}, m.init_cache(2, 16, torch.float32, "cpu"))[0]
+              for m in (a2a, ragged)]
+    assert torch.equal(logits[0], logits[1])
     with pytest.raises(ValueError, match="kv_append"):
         build_model(cfg.replace(kv_append="later"))
     model = build_model(cfg)

@@ -200,8 +200,20 @@ def test_cpu_autograd_goes_through_the_plain_version():
 
 
 def test_only_the_expert_parallel_moe_is_unported():
-    """SSD blocks train on the card now: the only raise left names item 14."""
-    assert set(transformer._ROADMAP) == {"a2a"}
+    """Every path of every config runs: ``check_supported`` raises for
+    nothing but values the port does not know (an SSD training block, and
+    ``moe_impl="a2a"`` since the expert-parallel MoE, build)."""
+    from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config
+    for arch in ARCH_IDS + PAPER_ARCH_IDS:
+        cfg = get_config(arch)
+        for moe_impl in transformer.MOE_IMPLS:
+            for kv_append in ("inline", "defer"):
+                transformer.check_supported(cfg.replace(moe_impl=moe_impl, kv_append=kv_append))
+    cfg = get_config("mixtral_8x7b")
+    for bad in (dict(moe_impl="dense"), dict(kv_append="later"),
+                dict(layer_pattern=("attn", "conv"), num_layers=2)):
+        with pytest.raises(ValueError, match="unknown"):
+            transformer.check_supported(cfg.replace(**bad))
 
 
 # ---------------------------------------------------------------------------
