@@ -144,11 +144,15 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    (23,482,470,400 parameters) and compares the logits of a 6144-token
    prefill (three 2048-token chunks) and of a decode at position 6144, K1
    and K2 with the 4096-token window against the plain attention, beside
-   the same weights without the window;
-14. serves one request of 6144 prompt tokens and 64 new ones in a cache of
-   8192 through ``build_stack(mode="real")`` and checks that K1 ran the
-   window over more keys than it holds and K2 ran every decode with it,
-   logging K1's (B, T, S, window, causal) and K2's windows;
+   the same weights without the window; the cache keeps the reference's
+   ring of 4096 positions a layer, so the last chunk attends over the
+   ring's earlier keys (K1 with ``q_offset``) and its own, merged;
+14. serves one request of 6144 prompt tokens and 64 new ones in a slot of
+   8192 positions (a ring of 4096) through ``build_stack(mode="real")``
+   and checks that K1 ran the ring's earlier keys with ``q_offset`` and the
+   window, and K2 every decode with the window over the ring's modular
+   block tables, logging K1's (B, T, S, window, causal, q_offset), K2's
+   windows and the slot's bytes (the ring's, and a linear row's);
 15. builds recurrentgemma_2b at full size (2,894,435,840 parameters: 18
    RG-LRU and 8 local-attention layers, head_dim 256, 10 query heads over
    one KV head, window 2048) and compares the logits of a 3072-token
@@ -159,8 +163,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    cache segment with ``q_offset`` and the window at D = 256) and a decode
    at 3072 (K2 with the window less one);
 16. serves 4 requests of 3072 prompt tokens and 32 new ones (slots of
-   4096) and checks that K1 ran in every local-attention layer of every
-   chunk and that K2 ran;
+   4096, rings of 2048) and checks that K1 ran in every local-attention
+   layer of every chunk and that K2 ran, and logs a slot's bytes;
 17. profiles that run as in 6, with the RG-LRU recurrence as a range;
 18. builds whisper_base at full size (87,405,056 parameters) and compares
    the logits of a prefill with 1500 random frame embeddings and 64 tokens
@@ -193,20 +197,23 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    (finite losses, parameters moved, K3 192 launches a step and K3-bwd 96,
    the plain run none), step ms, tokens/s, peak memory and a profiled step
    (K3 and K3-bwd shares);
-23. expert parallelism on the one card (``repro_torch.launch.expert_parallel``):
+23. expert parallelism on the one card (``repro_torch.launch.parallel``):
    qwen3_30b_a3b at full width (d_model 2048, 128 experts, top-8) cut to 8
    of its 48 layers, first as the one-process dropless model in this
    process, then as 2 rank processes in a gloo group (EP = 2, one data rank,
-   64 experts each, all on this card, the exchanges through host memory),
-   each prefilling the same 4 prompts of 512 tokens through ``model.prefill``
-   with ``moe_impl="a2a"`` (K1 in every layer) at capacity_factor 2, where a
-   destination holds all of a rank's pairs and nothing drops, and at the
-   config's 1.25, then one decode step (the dropless fallback, K2 in every
-   layer).  The no-drop logits and the decode's must lie within the relative
-   5e-2 of the dropless model's, the two ranks' logits must agree, and a
-   rank that fails fails the phase; it prints the pairs dropped at 1.25 and
-   the MoE layers' ms (a2a on each rank against dropless), labelled as two
-   ranks sharing one card;
+   64 experts each and, tensor-parallel, 16 of the 32 query heads over 2 of
+   the 4 KV heads and half the vocabulary, all on this card, the exchanges
+   through host memory), each prefilling the same 4 prompts of 512 tokens
+   through ``model.prefill`` with ``moe_impl="a2a"`` (K1 in every layer) at
+   capacity_factor 2, where a destination holds all of a rank's pairs and
+   nothing drops, and at the config's 1.25, then one decode step (the
+   dropless fallback, K2 in every layer).  The no-drop logits and the
+   decode's must lie within the relative 5e-2 of the dropless model's, the
+   two ranks' logits must agree, each rank's parameters and cache must be
+   its placements' blocks (shapes, and allocated bytes up to the
+   allocator's rounding), and a rank that fails fails the phase; it prints
+   the pairs dropped at 1.25 and the MoE layers' ms (a2a on each rank
+   against dropless), labelled as two ranks sharing one card;
 24. the dry-run's per-device accounting (``repro_torch.launch.specs``,
    ``mesh.shard_bytes``) at a (1, 1) mesh against the card's allocation:
    qwen3_30b_a3b's bf16 parameters as phase 10 built them, and qwen2_5_3b's
@@ -215,12 +222,28 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    two agree to the byte but for the caching allocator's rounding: each
    tensor up to 512 bytes, and a tensor of over 1 MiB with up to 1 MiB of
    its block left unsplit (it prints the gap, and what fresh segments would
-   give).
+   give);
+25. llama3_70b tensor-parallel (``repro_torch.launch.parallel``): at full
+   width (d_model 8192, 64 query heads over 8 KV heads of 128, F 28672,
+   vocabulary 128256, bf16) cut to 16 of its 80 layers, first as the
+   one-process model in this process (31.6 GB of weights), freed, then as 4
+   rank processes sharing this card through gloo (TP = 4: 16 query heads
+   over 2 KV heads, F 7168 and 32064 rows of the vocabulary each, 7.9 GB a
+   rank, each rank drawing its blocks leaf by leaf from the same seed), each
+   prefilling 4 prompts of 256 tokens (numpy seed 0) and decoding 4 tokens
+   through ``decode_slots``.  Every step's logits must lie within the
+   relative 5e-2 of the one-process model's and be the same on every rank,
+   K1 must launch once a layer on each rank's prefill and K2 once a layer a
+   decode, and each rank's ``memory_allocated()`` grown by its build and by
+   its cache must be ``mesh.shard_bytes`` of its placements at a (1, 4)
+   mesh up to the allocator's rounding; it prints each rank's prefill and
+   decode ms, labelled as ranks sharing one card through gloo.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
-steps of phases 21 and 22 and the ranks' prefills and decodes of phase 23),
+steps of phases 21 and 22 and the ranks' prefills and decodes of phases 23
+and 25),
 the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -1852,7 +1875,7 @@ def main() -> int:
     long_cfg = engine_config(max_num_seqs=4, max_len=4096)
     launches.update(serve_path(ops, cfg, model, params, ("flash_attention", "paged_attention"),
                                reqs=make_requests(4, 3072, 3072, 32, cfg.vocab_size, seed=0),
-                               engine_cfg=long_cfg, max_len=4096))
+                               engine_cfg=long_cfg, max_len=4096, slot_bytes=True))
     log("== 17. where the device time goes: the same serving run under torch.profiler")
     serve_path(ops, cfg, model, params, (), profile=True,
                reqs=make_requests(4, 3072, 3072, 32, cfg.vocab_size, seed=0),
@@ -1889,6 +1912,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== 24. the dry-run's per-device bytes against the card's allocation")
     dry_run_bytes()
+    log("== 25. llama3_70b tensor-parallel: 4 ranks sharing this card through gloo")
+    launches.update(tensor_parallel())
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1934,7 +1960,7 @@ def build_full(arch, layers=None, expect=None):
 
 
 def serve_path(ops, cfg, model, params, path_kernels, profile=False, *, reqs=None,
-               engine_cfg=None, max_len=2048, ranges=(), noncausal=False):
+               engine_cfg=None, max_len=2048, ranges=(), noncausal=False, slot_bytes=False):
     """Serve the smoke traffic (8 requests at once, prompts uniform in
     128-1024 from numpy seed 0, 32 new tokens each; vllm policy, 512-token
     step budget, 8 slots, no prefix caching), or ``reqs`` on ``engine_cfg``,
@@ -1944,7 +1970,9 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False, *, reqs=Non
     every prefill chunk.  Returns those kernels' counts.  With ``profile``,
     runs under torch.profiler, with the layer functions named in ``ranges``
     as ranges of their own.  With ``noncausal``, K1 must also have run
-    without the causal mask (an enc-dec decoder's cross-attention)."""
+    without the causal mask (an enc-dec decoder's cross-attention).  With
+    ``slot_bytes``, logs the bytes a slot's attention cache holds
+    (:func:`log_slot_bytes`)."""
     from repro_torch.launch.serve import engine_config, make_requests, run_requests
     from repro_torch.serving.stack import build_stack
     engine_cfg = engine_cfg or engine_config()
@@ -1954,6 +1982,8 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False, *, reqs=Non
         reqs = make_requests(SERVING["num"], SERVING["prompt_min"], SERVING["prompt_max"],
                              SERVING["new_tokens"], cfg.vocab_size, seed=SERVING["seed"])
     new_tokens = [r.max_new_tokens for r in reqs]
+    if slot_bytes:
+        log_slot_bytes(cfg, stack.runner, max_len)
     if profile:
         profile_serving(lambda: serve_inline(stack, reqs),
                         ranges=ranges or (("moe",) if cfg.moe is not None else ()))
@@ -1965,12 +1995,12 @@ def serve_path(ops, cfg, model, params, path_kernels, profile=False, *, reqs=Non
         counts = ops.launch_counts()
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     if rec.flash:
-        log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+        log(f"K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}")
         if (sum(rec.flash.values()) != counts["flash_attention"]
                 or any(n % n_attn for n in rec.flash.values())):
             raise AssertionError(f"K1 did not run in every layer of every prefill chunk: "
                                  f"{dict(rec.flash)} over {n_attn} attention layers")
-    if noncausal and not any(not causal for (*_, causal) in rec.flash):
+    if noncausal and not any(not causal for (*_, causal, _) in rec.flash):
         raise AssertionError(f"K1 never ran without the causal mask: {dict(rec.flash)}")
     steps = summary["steps"]
     log("serving: " + json.dumps(summary))
@@ -2009,10 +2039,10 @@ def serve_inline(stack, reqs) -> None:
 
 @contextlib.contextmanager
 def recording():
-    """Counters of the (B, T, S, window, causal) of every K1 launch
-    (``rec.flash``) and of the window of every K2 launch (``rec.paged``)
-    while the block runs, taken from shapes and Python arguments (no device
-    value is read)."""
+    """Counters of the (B, T, S, window, causal, q_offset) of every K1
+    launch (``rec.flash``) and of the window of every K2 launch
+    (``rec.paged``) while the block runs, taken from shapes and Python
+    arguments (no device value is read)."""
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import paged_attention as paged_mod
     rec = types.SimpleNamespace(flash=collections.Counter(), paged=collections.Counter())
@@ -2020,7 +2050,7 @@ def recording():
 
     def record_flash(q, k, v, **kw):
         rec.flash[(q.shape[0], q.shape[1], k.shape[1], kw.get("window"),
-                   kw.get("causal", True))] += 1
+                   kw.get("causal", True), kw.get("q_offset"))] += 1
         return flash(q, k, v, **kw)
 
     def record_paged(*args, **kw):
@@ -2036,29 +2066,32 @@ def recording():
 
 def serve_window(ops, cfg, model, params):
     """Phase 14: one request of 6144 prompt tokens and 64 new ones through
-    ``build_stack(mode="real")`` in one slot of 8192 positions (512-token
-    chunks).  K1 must have run the window on keys past it (S > window) and
-    K2 every decode with the window; returns the launch counts."""
+    ``build_stack(mode="real")`` in one slot of 8192 positions, a ring of
+    4096 (512-token chunks).  K1 must have run the ring's earlier keys with
+    ``q_offset`` and the window (the chunks past the ring's end) and K2
+    every decode with the window; returns the launch counts."""
     from repro_torch.launch.serve import engine_config, make_requests, run_requests
     from repro_torch.serving.stack import build_stack
     window, prompt, new = cfg.sliding_window, 6144, 64
     stack = build_stack(cfg, engine_config(max_num_seqs=1, max_len=8192), "real",
                         model=model, params=params, max_len=8192, device="cuda",
                         dtype=torch.bfloat16)
+    log_slot_bytes(cfg, stack.runner, 8192)
     reqs = make_requests(1, prompt, prompt, new, cfg.vocab_size, seed=SERVING["seed"])
     with recording() as rec:
         ops.reset_launch_counts()
         summary = run_requests(stack, reqs, timeout=600)
         counts = ops.launch_counts()
     log("serving: " + json.dumps(summary))
-    log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+    log(f"K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}")
     log(f"K2 launches by window: {dict(rec.paged)}; launches {counts} over "
         f"{summary['steps']} steps")
     req = reqs[0]
     if req.num_generated != new or summary["finished"] != 1:
         raise AssertionError(f"the request produced {req.num_generated} tokens")
-    if not any(S > window and w == window for (_, _, S, w, _) in rec.flash):
-        raise AssertionError(f"K1 never ran the window past {window} keys: {dict(rec.flash)}")
+    if not any(off is not None and w == window for (_, _, _, w, _, off) in rec.flash):
+        raise AssertionError(f"K1 never ran the ring's earlier keys with q_offset and the "
+                             f"window {window}: {dict(rec.flash)}")
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     if counts["paged_attention"] != (new - 1) * n_attn:
         raise AssertionError(f"K2 ran {counts['paged_attention']} times for {new - 1} decodes "
@@ -2066,6 +2099,21 @@ def serve_window(ops, cfg, model, params):
     if set(rec.paged) != {window}:
         raise AssertionError(f"K2 ran without the window: {dict(rec.paged)}")
     return {name: counts[name] for name in ("flash_attention", "paged_attention")}
+
+
+def log_slot_bytes(cfg, runner, max_len):
+    """Log the bytes one slot of ``runner``'s cache holds in its attention
+    layers (K, V and positions), and what a linear row of ``max_len``
+    positions, the port's cache before the ring, held."""
+    from repro_torch.launch.mesh import leaves_with_names
+    ring = linear = 0
+    for name, leaf in leaves_with_names(runner.cache["layers"]):
+        if name.rsplit("/", 1)[-1] in ("k", "v", "kv_pos"):
+            row = leaf.numel() // runner.max_seqs * leaf.element_size()
+            ring += row
+            linear += row // leaf.shape[-3 if leaf.dim() >= 4 else -1] * max_len
+    log(f"slot bytes in the attention layers: {ring:,} ({ring / 2**30:.3f} GiB) on the ring; "
+        f"a linear row of {max_len} positions held {linear:,} ({linear / 2**30:.3f} GiB)")
 
 
 def check_window_model(cfg, model, params, *, name="mixtral", prompt=6144, chunk=2048,
@@ -2093,7 +2141,7 @@ def check_window_model(cfg, model, params, *, name="mixtral", prompt=6144, chunk
         kern = run(model, None)
     plain, wide = run(model, "plain"), run(unwindowed, None)
     torch.cuda.synchronize()
-    log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; K2 by "
+    log(f"K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}; K2 by "
         f"window: {dict(rec.paged)}")
     for i, what in enumerate((f"prefill to position {prompt - 1} (K1, window {window})",
                               f"decode at position {prompt} (K2, window {window})")):
@@ -2200,7 +2248,7 @@ def check_defer_model(cfg, model, params, *, name, prompt, chunk, cache, decodes
     torch.cuda.synchronize()
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     chunks = -(-prompt // chunk)
-    log(f"{name} defer: K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; "
+    log(f"{name} defer: K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}; "
         f"{counts['flash_attention'] / n_attn:.0f} a layer over {chunks} chunks, "
         f"K2 {counts['paged_attention'] / n_attn:.0f} a layer over {decodes} decodes")
     want = {"flash_attention": n_attn * (2 * chunks - 1),
@@ -2271,7 +2319,7 @@ def serve_deferred(cfg, model, params, deferred):
             f"({len(stack.engine.step_log)} steps); launches {counts}")
     rs, stack, counts, wall, dev, rec = runs["defer"]
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
-    log(f"defer: K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}")
+    log(f"defer: K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}")
     if any(n % n_attn for n in rec.flash.values()):
         raise AssertionError(f"defer: K1 did not run in every layer: {dict(rec.flash)}")
     for name in ("flash_attention", "paged_attention"):
@@ -2446,10 +2494,10 @@ def check_whisper(cfg, model, params):
             dec, _ = model.decode_step(params, cache, toks[:, 64:], force=force)
         results[force] = (pre.float(), dec.float())
         if force is None:
-            log(f"K1 launches by (B, T, S, window, causal): {sorted(rec.flash.items())}; "
+            log(f"K1 launches by (B, T, S, window, causal, q_offset): {sorted(rec.flash.items(), key=str)}; "
                 f"K2: {dict(rec.paged)}; cross cache {tuple(cache['cross_k'].shape)} for "
                 f"{cache['cross_frames']} frames")
-            if not any(S == F and not causal for (_, _, S, _, causal) in rec.flash):
+            if not any(S == F and not causal for (_, _, S, _, causal, _) in rec.flash):
                 raise AssertionError("K1 never ran the encoder or the cross-attention")
     torch.cuda.synchronize()
     for i, what in enumerate(("prefill (encoder over 1500 frames, 64 tokens)",
@@ -2865,10 +2913,10 @@ def restart_qwen():
 def expert_parallel():
     """Phase 23: qwen3_30b_a3b at full width, 8 of its 48 layers, served by
     the one-process dropless model here and then by 2 expert-parallel ranks
-    (``repro_torch.launch.expert_parallel``: gloo, both on this card, 64
-    experts each); see the module docstring.  Returns the ranks' kernel
-    launches, summed."""
-    from repro_torch.launch import expert_parallel as ep
+    (``repro_torch.launch.parallel``: gloo, both on this card, 64 experts
+    each, the attention tensor-parallel); see the module docstring.  Returns
+    the ranks' kernel launches, summed."""
+    from repro_torch.launch import parallel as ep
     args = ep.parse_args(["--arch", "qwen3_30b_a3b", "--layers", "8", "--ranks", "2",
                           "--batch", "4", "--prompt", "512"])
     cfg = ep.model_config(args)
@@ -2877,7 +2925,7 @@ def expert_parallel():
         f"{args.ranks} ranks of {cfg.moe.num_experts // args.ranks} experts, one after the other; "
         f"capacity factors {ep.capacity_factors(args)} (at {args.ranks:.0f} nothing can drop)")
     t0 = time.monotonic()
-    ref = ep.dropless(args)
+    ref = ep.reference(args)
     torch.cuda.empty_cache()
     log(f"dropless model: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -2891,6 +2939,45 @@ def expert_parallel():
         log(line)
     launches = ep.check(args, ranks, ref, 5e-2)
     log(f"phase 23 passed: launches {dict(launches)}")
+    return launches
+
+
+def tensor_parallel():
+    """Phase 25: llama3_70b at full width, 16 of its 80 layers, served by
+    the one-process model here, which is then freed, and by 4
+    tensor-parallel ranks sharing this card (``repro_torch.launch.parallel``:
+    gloo, each rank's blocks drawn leaf by leaf); see the module docstring.
+    Returns the ranks' kernel launches, summed."""
+    from repro_torch.launch import parallel
+    args = parallel.parse_args(["--arch", "llama3_70b", "--layers", "16", "--ranks", "4",
+                                "--batch", "4", "--prompt", "256", "--decodes", "4"])
+    cfg = parallel.model_config(args)
+    log(f"llama3_70b at full width (d_model {cfg.d_model}, {cfg.num_heads} query heads over "
+        f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, F {cfg.d_ff}, vocabulary "
+        f"{cfg.vocab_size}), depth cut to {args.layers} of 80 layers: the one-process model, "
+        f"then {args.ranks} ranks of {cfg.num_heads // args.ranks} query heads each")
+    t0 = time.monotonic()
+    ref = parallel.reference(args)
+    torch.cuda.empty_cache()
+    log(f"one-process model: {time.monotonic() - t0:.1f} s; allocated after freeing it "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.monotonic()
+    ranks = parallel.launch(args)
+    (_, p_sizes), (_, c_sizes) = parallel.expected(args)
+    log(f"{args.ranks} ranks: {time.monotonic() - t0:.1f} s, built in "
+        f"{[round(r['build_seconds'], 1) for r in ranks]} s, peak allocated "
+        f"{[round(r['memory'] / 2**30, 2) for r in ranks]} GiB")
+    for r in ranks:
+        log(f"rank {r['rank']}: parameters allocated {r['param_bytes']:,} bytes, "
+            f"mesh.shard_bytes {sum(p_sizes):,} (rounded {parallel.allocation_bounds(p_sizes)}); "
+            f"cache {r['cache_bytes']:,}, shard_bytes {sum(c_sizes):,} "
+            f"(rounded {parallel.allocation_bounds(c_sizes)})")
+    log("times below: 4 ranks sharing one card, the collectives host-exchanged through "
+        "gloo; not a multi-card figure")
+    for line in parallel.summary(ranks, ref):
+        log(line)
+    launches = parallel.check(args, ranks, ref, 5e-2)
+    log(f"phase 25 passed: launches {dict(launches)}")
     return launches
 
 

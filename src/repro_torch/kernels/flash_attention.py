@@ -7,7 +7,7 @@ a default scale of 1/sqrt(D).  Beyond the Pallas kernel, the queries may sit
 anywhere: query t at key position ``q_offset + t`` (``S - T`` by default),
 and the kernel returns each row's log-sum-exp on request.  The deferred KV
 append attends over a cached prefix and the new chunk as two such segments
-and merges them (``repro_torch.models.layers.attention_merge2``): the prefix
+and merges them (``repro_torch.models.layers.attention_merge``): the prefix
 with ``q_offset = S``, where the causal mask is vacuous and only the window
 masks.
 

@@ -37,8 +37,24 @@ which :func:`ambient_mesh` returns (its ``_ambient_mesh``) and the
 expert-parallel MoE reads; the three live with the MoE in
 :mod:`repro_torch.models.layers`, runtime state the model reads, and are
 re-exported here.  :func:`shard_params` cuts a whole parameter
-tree into one rank's: the MoE's ``w_in`` and ``w_out`` on their expert
-dimension by the rank's "model" coordinate, every other leaf whole.
+tree into one rank's: every leaf that :func:`param_specs` in "serve" mode
+places on "model" at a ("data", "model") mesh of (1, tp), cut to the rank's
+block of :func:`shard_shape` by its "model" coordinate, every other leaf
+whole.  That is Megatron's tensor parallelism for the dense layers (the
+attention's heads, the MLP's F, the vocabulary of the embeddings), which
+``models.layers`` runs on the blocks, and the expert-parallel MoE's experts.
+:func:`build_params` makes the same tree leaf by leaf from a seed, so that a
+rank never holds more than its blocks and one whole leaf.  Where the rules
+place a leaf on a dimension no layer runs a block of (the heads' fallback to
+head_dim, the experts' to their width, the SSD and RG-LRU leaves, the
+encoder-decoder), :func:`model_placements` decides by what the ranks are
+for.  A tree with MoE experts is served expert-parallel: such a leaf stays
+whole on every rank, and so does an attention block whose K/V do not split
+on heads, as the experts that do not divide stay whole for the dropless
+fallback.  A dense tree has the ranks for tensor parallelism alone, so there
+it raises, and so do ``shard_params`` and ``build_params``.  The "data"
+entries the serve rules give the MoE's experts are not executed: each data
+rank keeps them whole.
 
 The tree walkers (:func:`param_specs`, :func:`cache_specs`,
 :func:`batch_specs`) take the port's nested dicts and lists of tensors and
@@ -48,13 +64,16 @@ indices joined by "/".
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
-from repro_torch.models.layers import ambient_mesh, model_coordinate, use_mesh
+import torch
+
+from repro_torch.models.layers import ambient_mesh, model_coordinate, on_init, use_mesh
 
 __all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names",
-           "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
-           "shard_params", "model_coordinate"]
+           "named_specs", "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
+           "model_placements", "shard_params", "build_params",
+           "model_coordinate"]
 
 Spec = Tuple[Any, ...]
 
@@ -313,6 +332,22 @@ def batch_specs(batch_tree: Any, axes: MeshAxes, *, batch: int) -> Any:
 # per-device shapes of a placement
 # --------------------------------------------------------------------------
 
+def named_specs(specs: Any, prefix: str = "") -> Dict[str, Spec]:
+    """{leaf name: spec} of a tree of specs, the names
+    :func:`leaves_with_names` gives the tree it was made from (a spec is a
+    tuple of entries, not a subtree)."""
+    if isinstance(specs, dict):
+        items = specs.items()
+    elif isinstance(specs, list):
+        items = enumerate(specs)
+    else:
+        return {prefix: specs}
+    out: Dict[str, Spec] = {}
+    for key, sub in items:
+        out.update(named_specs(sub, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
 def shard_shape(shape: Sequence[int], spec: Spec, axes: MeshAxes) -> Tuple[int, ...]:
     """One device's block of a leaf of ``shape`` placed by ``spec``: each
     dimension divided by the sizes of the axes its entry names (the
@@ -362,29 +397,137 @@ def device_mesh(axes: MeshAxes, device_type: str = "cuda"):
                             mesh_dim_names=axes.names)
 
 
+# (parent/leaf) -> the dimension, from the right, of the leaf's block that
+# the port's layers run on a "model" rank (``models.layers``: attn_qkv,
+# attn_out, mlp, embed, unembed, moe_a2a), and what it is
+EXECUTED = {"embed": (-2, "vocabulary"), "unembed": (-1, "vocabulary"),
+            "attn/wq": (-2, "heads"), "attn/wk": (-2, "heads"), "attn/wv": (-2, "heads"),
+            "attn/wo": (-3, "heads"), "mlp/wi": (-1, "F"), "mlp/wg": (-1, "F"),
+            "mlp/wo": (-2, "F"), "moe/w_in": (-3, "experts"), "moe/w_out": (-3, "experts")}
+
+
+def _role(name: str) -> str:
+    parts = name.split("/")
+    return parts[-1] if parts[-1] in ("embed", "unembed") else "/".join(parts[-2:])
+
+
+def _model_dim(spec: Spec, ndim: int) -> Optional[int]:
+    """The dimension, from the right, that ``spec`` places on "model"."""
+    for i, entry in enumerate(spec):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        if "model" in names:
+            return i - ndim
+    return None
+
+
+def model_placements(params: Any, tp: int) -> Dict[str, Optional[int]]:
+    """{leaf name: the dimension, from the right, that a rank of ``tp``
+    "model" ranks holds its block of, or None where it holds the leaf
+    whole} for every leaf of ``params``: where the serve rules
+    (:func:`param_specs` at a ("data", "model") mesh of (1, ``tp``)) place
+    the leaf on "model" and a layer of the port runs that block
+    (``EXECUTED``).  An attention block is split only whole: its q, k, v
+    and o projections all on heads (the rank's query heads need their KV
+    heads), or none.
+
+    Where the rules place a leaf that no layer runs a block of, or split an
+    attention block only in part, a tree with MoE experts (served
+    expert-parallel) keeps the leaf, or the attention block, whole on every
+    rank; a tree without (whose ranks are for tensor parallelism alone)
+    raises ``ValueError``, naming the leaf and the rule, as it does for any
+    placement of an encoder-decoder's."""
+    axes = MeshAxes(("data", "model"), (1, tp))
+    leaves = list(leaves_with_names(params))
+    experts = any(_role(name) == "moe/w_in" for name, _ in leaves)
+    enc_dec = isinstance(params, dict) and "cross" in params
+    dims: Dict[str, Optional[int]] = {}
+    for name, leaf in leaves:
+        shape = tuple(leaf.shape)
+        dim = _model_dim(_param_spec(name, shape, axes, "serve"), len(shape))
+        run = EXECUTED.get(_role(name))
+        if dim is not None and (enc_dec or run is None or run[0] != dim):
+            if not experts:
+                what = ("the encoder-decoder runs whole on each rank" if enc_dec else
+                        "no layer of the port runs a block of this leaf" if run is None else
+                        f"the port runs its block on {run[1]} (dimension {run[0]}) only")
+                raise ValueError(f"{name} {shape}: the serve rules (launch.mesh._param_spec) "
+                                 f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
+            dim = None                          # whole, as expert parallelism runs it
+        dims[name] = dim
+    for name in [n for n in dims if n.endswith("attn/wq")]:
+        block = [name[:-2] + w for w in ("wq", "wk", "wv", "wo")]
+        split = [dims[n] is not None for n in block]
+        if any(split) and not all(split):
+            if not experts:
+                whole = block[split.index(False)]
+                raise ValueError(
+                    f"{whole}: the serve rules place it on 'model' nowhere at {tp} ranks, "
+                    f"but {block[split.index(True)]} on its heads: a rank's query heads "
+                    f"need their KV heads")
+            dims.update((n, None) for n in block)
+    return dims
+
+
+def _block(leaf, dim: Optional[int], m: int, tp: int, whole=None):
+    """Rank m's block of ``leaf`` along ``dim`` (a copy, so the whole leaf
+    can be freed), or the leaf itself where it is not placed or is a block
+    already (its shape is not ``whole``)."""
+    if dim is None or (whole is not None and tuple(leaf.shape) != tuple(whole)):
+        return leaf
+    n = leaf.shape[dim] // tp
+    return leaf.narrow(leaf.dim() + dim, m * n, n).clone()
+
+
+def _walk(tree, fn, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree) if hasattr(tree, "shape") else tree
+
+
 def shard_params(params: Any, mesh=None) -> Any:
-    """One rank's tree of a whole parameter tree: each MoE ``w_in`` and
-    ``w_out`` (expert dimension third from the right, stacked or not) cut
-    into the "model" size's equal blocks of experts, the block of this
-    rank's "model" coordinate kept (a copy, so the whole tree can be freed);
-    every other leaf is the whole leaf itself.  Where the expert count does
-    not split by the "model" size the experts stay whole, as the expert-parallel MoE then falls back to the dropless
-    one.  ``mesh`` defaults to the ambient mesh."""
-    m, ep = model_coordinate(ambient_mesh() if mesh is None else mesh)
+    """One rank's tree of a whole parameter tree: each leaf that the serve
+    rules place on "model" (:func:`model_placements`, which raises for a
+    placement the port does not run) cut into the "model" size's equal
+    blocks on that dimension and the block of this rank's "model"
+    coordinate kept (a copy, so the whole tree can be freed); every other
+    leaf is the whole leaf itself.  ``mesh`` defaults to the ambient mesh;
+    with one "model" rank the tree is returned as it is."""
+    m, tp = model_coordinate(ambient_mesh() if mesh is None else mesh)
+    if tp == 1:
+        return params
+    dims = model_placements(params, tp)
+    return _walk(params, lambda name, leaf: _block(leaf, dims[name], m, tp))
 
-    def cut(name, leaf):
-        if ep == 1 or not name.endswith(("moe/w_in", "moe/w_out")):
-            return leaf
-        E = leaf.shape[-3]
-        if E % ep:
-            return leaf
-        return leaf.narrow(leaf.dim() - 3, m * (E // ep), E // ep).clone()
 
-    def walk(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, f"{prefix}/{i}" if prefix else str(i))
-                              for i, v in enumerate(tree))
-        return cut(prefix, tree) if hasattr(tree, "shape") else tree
-    return walk(params)
+def build_params(model, generator: torch.Generator, dtype=torch.float32, device=None,
+                 mesh=None) -> Any:
+    """``shard_params(model.init(generator, dtype, device), mesh)`` without
+    the whole tree: the tree is first built on the meta device, which gives
+    each leaf's name in the order ``model.init`` draws them and each
+    placement (raising as :func:`model_placements` does); then each leaf is
+    drawn whole from ``generator``, exactly as ``model.init`` draws it, and
+    replaced by this rank's block at once (``layers.on_init``), so that the
+    rank's peak is its blocks and one whole leaf."""
+    m, tp = model_coordinate(ambient_mesh() if mesh is None else mesh)
+    if tp == 1:
+        return model.init(generator, dtype, device)
+    drawn = []
+    with use_mesh(None), on_init(lambda t: drawn.append(t) or t):
+        meta = model.init(torch.Generator().manual_seed(0), dtype, device="meta")
+    whole = {name: leaf.shape for name, leaf in leaves_with_names(meta)}
+    names = {id(leaf): name for name, leaf in leaves_with_names(meta)}
+    order = iter([names.get(id(t)) for t in drawn])
+    dims = model_placements(meta, tp)
+    del meta, drawn
+
+    def keep(t):
+        name = next(order)
+        return t if name is None else _block(t, dims[name], m, tp)
+
+    with on_init(keep):
+        params = model.init(generator, dtype, device)
+    # a leaf that is not drawn (a norm, a bias) is cut here, if placed
+    return _walk(params, lambda name, leaf: _block(leaf, dims[name], m, tp, whole[name]))

@@ -15,7 +15,7 @@ reference's dense, mask-based attention, kept for layer-level parity tests; the 
 over its cache through :mod:`repro_torch.kernels.ops`.  The deferred KV
 append attends over two segments of keys, the cache and the new chunk, each
 through a kernel that also returns its log-sum-exp (:func:`attention_partial`:
-K1), and merges them exactly (:func:`attention_merge2`).  :func:`ssd_prefill`
+K1), and merges them exactly (:func:`attention_merge`).  :func:`ssd_prefill`
 runs its chunked scan through ``ops.ssd_scan`` (K3 on the card);
 :func:`ssd_decode_step` has no kernel in the reference and stays plain
 PyTorch.  :func:`moe` is the reference's dropless MoE; its two grouped
@@ -24,7 +24,11 @@ products lie outside any Pallas kernel in the reference
 (:func:`grouped_mm`).  :func:`moe_a2a` is the reference's expert-parallel
 MoE over the ``torch.distributed`` ranks of the ambient mesh's "model"
 axis (:func:`use_mesh`, :func:`ambient_mesh`; the mesh itself and the
-weights' cut come from :mod:`repro_torch.launch.mesh`).  :func:`rglru` runs
+weights' cut come from :mod:`repro_torch.launch.mesh`).  The dense layers
+(:func:`attn_qkv`, :func:`attn_out`, :func:`mlp`, :func:`embed`,
+:func:`unembed`) run on a rank's block of their weights wherever they are
+given one (:func:`tp_group`): Megatron's tensor parallelism over the same
+ranks.  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -61,14 +65,38 @@ def dense_init(shape, generator: torch.Generator, *, in_axis: int = 0,
     towards the fan-in."""
     std = 1.0 / math.sqrt(shape[in_axis])
     w = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
-    return torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
-                                       generator=generator)
+    return _made(torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
+                                             generator=generator))
 
 
 def embed_init(shape, generator: torch.Generator, *, dtype=torch.float32,
                device=None) -> torch.Tensor:
     w = torch.empty(shape, dtype=dtype, device=device)
-    return w.normal_(0.0, 0.02, generator=generator)
+    return _made(w.normal_(0.0, 0.02, generator=generator))
+
+
+_ON_INIT = threading.local()
+
+
+@contextlib.contextmanager
+def on_init(fn):
+    """While the block runs, each leaf that :func:`dense_init` or
+    :func:`embed_init` draws is handed to ``fn``, and what ``fn`` returns
+    takes its place: a rank that keeps a block of each leaf
+    (``launch.mesh.build_params``) frees the whole leaf before the next is
+    drawn.  The draws themselves, and so the generator's stream, are
+    unchanged."""
+    prev = getattr(_ON_INIT, "fn", None)
+    _ON_INIT.fn = fn
+    try:
+        yield
+    finally:
+        _ON_INIT.fn = prev
+
+
+def _made(w):
+    fn = getattr(_ON_INIT, "fn", None)
+    return w if fn is None else fn(w)
 
 
 # --------------------------------------------------------------------------
@@ -177,18 +205,21 @@ def attention_partial(q, k, v, *, q_offset: Optional[int] = None,
                                return_lse=True, force=force)
 
 
-def attention_merge2(seg_a, seg_b, out_dtype):
-    """Exact two-segment online-softmax combine of (out, lse) pairs: each
-    segment weighs exp(lse - max lse), and out = Σ w·out / Σ w.  A segment
-    that saw no key (lse = -inf) weighs 0; a row that neither saw gives 0."""
-    out_a, lse_a = seg_a
-    out_b, lse_b = seg_b
-    m = torch.maximum(lse_a, lse_b)
-    m = torch.where(torch.isinf(m), 0.0, m)                  # both empty
-    wa = torch.exp(lse_a - m)
-    wb = torch.exp(lse_b - m)
-    num = out_a.float() * wa[..., None] + out_b.float() * wb[..., None]
-    den = wa + wb
+def attention_merge(segs, out_dtype):
+    """Exact online-softmax combine of (out, lse) segments (the reference's
+    ``attention_merge2`` over any number of them: a ring cache's keys before
+    a chunk lie in up to two ranges of it): each segment weighs
+    exp(lse - max lse), and out = Σ w·out / Σ w.  A segment that saw no key
+    (lse = -inf) weighs 0; a row that none saw gives 0."""
+    m = segs[0][1]
+    for _, lse in segs[1:]:
+        m = torch.maximum(m, lse)
+    m = torch.where(torch.isinf(m), 0.0, m)                  # all empty
+    num = den = 0.0
+    for out, lse in segs:
+        w = torch.exp(lse - m)
+        num = num + out.float() * w[..., None]
+        den = den + w
     den = torch.where(den == 0.0, 1.0, den)
     return (num / den[..., None]).to(out_dtype)
 
@@ -239,21 +270,36 @@ def _proj_heads(x, w):
 
 
 def attn_qkv(cfg: ModelConfig, p, x, positions):
+    """q, k, v (B, T, heads, D) of x (B, T, d).  A rank that holds its block
+    of the heads (``wq`` with Hq / tp of them; :func:`tp_group`) computes
+    query heads [m·Hq/tp, (m+1)·Hq/tp) and KV heads [m·Hkv/tp, (m+1)·Hkv/tp),
+    whose contiguous blocks keep each query head with its KV head; x enters
+    through ``_Copy`` and the replicated biases give the rank their heads'
+    slice."""
+    group = tp_group(p["wq"].shape[-2], cfg.num_heads)
+    if group is not None:
+        x = _Copy.apply(x, group)
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        bq, bk, bv = p["bq"], p["bk"], p["bv"]
+        if group is not None:
+            bq, bk, bv = (_own_block(_Copy.apply(b, group), -2, w.shape[-2], group)
+                          for b, w in ((bq, p["wq"]), (bk, p["wk"]), (bv, p["wv"])))
+        q, k, v = q + bq, k + bk, v + bv
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attn_out(p, ctx):
-    """einsum("bthk,hkd->btd") as one matmul over the flattened heads."""
-    h, k, d = p["wo"].shape
-    return ctx.flatten(-2) @ p["wo"].reshape(h * k, d)
+def attn_out(cfg: ModelConfig, p, ctx):
+    """einsum("bthk,hkd->btd") as one matmul over the flattened heads; a
+    rank's block of the heads gives a partial sum, reduced over "model"."""
+    h, k, d = p["wo"].shape[-3:]
+    y = ctx.flatten(-2) @ p["wo"].reshape(h * k, d)
+    return _reduce_partial(y, tp_group(h, cfg.num_heads))
 
 
 # --------------------------------------------------------------------------
@@ -278,12 +324,48 @@ def mlp_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=None,
 
 
 def mlp(cfg: ModelConfig, p, x):
+    """The dense MLP; a rank that holds its block of F (``wi``/``wg``
+    columns, ``wo`` rows) takes x through ``_Copy`` and reduces its partial
+    output over "model"."""
+    group = tp_group(p["wi"].shape[-1], cfg.d_ff)
+    if group is not None:
+        x = _Copy.apply(x, group)
     if cfg.mlp_act == "swiglu":
         h = F.silu(x @ p["wi"]) * (x @ p["wg"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")
-    return h @ p["wo"]
+    return _reduce_partial(h @ p["wo"], group)
+
+
+# --------------------------------------------------------------------------
+# embeddings (vocabulary-parallel on a rank's block of the vocabulary)
+# --------------------------------------------------------------------------
+
+
+def embed(cfg: ModelConfig, w, tokens):
+    """The rows of ``w`` (V, d) for ``tokens``.  A rank that holds its block
+    of V / tp rows looks up the tokens inside it, zeros the rest and sums
+    over "model": one rank gives each token its row, so the sum is exact."""
+    group = tp_group(w.shape[0], cfg.vocab_size)
+    if group is None:
+        return w[tokens]
+    V_loc = w.shape[0]
+    local = tokens - dist.get_rank(group) * V_loc
+    inside = (local >= 0) & (local < V_loc)
+    x = torch.where(inside[..., None], w[local.clamp(0, V_loc - 1)],
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    return _reduce_partial(x, group)
+
+
+def unembed(cfg: ModelConfig, params, x):
+    """Logits x @ unembed (or @ embedᵀ where tied); a rank's block of the
+    vocabulary gives its block of the logits, gathered over "model"."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    group = tp_group(w.shape[-1], cfg.vocab_size)
+    if group is None:
+        return x @ w
+    return _Gather.apply(_Copy.apply(x, group) @ w, x.dim() - 1, group)
 
 
 # --------------------------------------------------------------------------
@@ -432,6 +514,34 @@ def model_coordinate(mesh) -> Tuple[int, int]:
         return 0, 1
     sub = mesh["model"]
     return sub.get_local_rank(), sub.size()
+
+
+def tp_group(local: int, whole: int):
+    """The ambient mesh's "model" group where a rank holds ``local`` of a
+    dimension of ``whole`` (its block: ``launch.mesh.shard_params``), None
+    where it holds all of it.  A block that is not one "model" rank's share
+    raises."""
+    if local == whole:
+        return None
+    mesh = ambient_mesh()
+    _, tp = model_coordinate(mesh)
+    if tp == 1 or local * tp != whole:
+        raise ValueError(f"a block of {local} of {whole} needs {whole // local} 'model' "
+                         f"ranks; the ambient mesh has {tp}")
+    return mesh.get_group("model")
+
+
+def _own_block(x, dim: int, n: int, group):
+    """This rank's block of ``n`` along ``dim`` of a replicated tensor."""
+    return x.narrow(dim, dist.get_rank(group) * n, n)
+
+
+def _reduce_partial(y, group):
+    """The ranks' partial sums ``y`` summed over ``group`` in fp32 and cast
+    back, so that the sum rounds once; ``y`` itself without a group."""
+    if group is None:
+        return y
+    return _Reduce.apply(y.float(), group).to(y.dtype)
 
 
 def _rank_and_size(group):
@@ -665,7 +775,7 @@ def _moe_expert_sharded(cfg: ModelConfig, p, x, group, m: int, ep: int, force):
     ys = _local_experts(cfg, p, xf[token_of], local_id, E_loc, force)
     ys = ys * gate.reshape(-1)[:, None].to(ys.dtype)
     part = torch.zeros((n, d), dtype=ys.dtype, device=x.device).index_add_(0, token_of, ys)
-    y = _Reduce.apply(part.float(), group).to(x.dtype)
+    y = _reduce_partial(part, group)
 
     load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))

@@ -37,10 +37,18 @@ Attention over the cache goes through :mod:`repro_torch.kernels.ops`:
 
 A sliding window (``cfg.sliding_window``, on every attention layer, as in
 the reference) goes to both kernels, which mask by position: a query at p
-sees the keys at p − window + 1 .. p.  The cache stays linear,
-``cache_size`` positions a row, where the reference keeps a ring of about
-one window (``positions % S``): the same function, since the reference also
-masks by position, at the memory of the whole context.
+sees the keys at p − window + 1 .. p.  A windowed layer keeps the
+reference's ring of min(cache_size, window) + ``window_slack`` positions a
+row (:func:`cache_span`), position p at p % S.  A prefill chunk that ends
+past S attends over the ring's earlier keys and its own before it writes
+(:func:`_prefill_segments`); a decode reads the ring through modular block
+tables (:func:`_page_tables`).
+
+Given a rank's blocks of the parameters (``launch.mesh.shard_params``,
+under an ambient mesh of more than one "model" rank: ``layers.use_mesh``),
+the model runs on them: its attention heads, MLP width and vocabulary rows,
+Megatron's tensor parallelism in :mod:`.layers`.  ``init_cache`` given those
+parameters holds their KV heads, and K1 and K2 run on the rank's heads.
 
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
 with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
@@ -64,7 +72,7 @@ which is padded to a whole number of pages; its context length is F.
 
 ``kv_append="defer"`` (the reference's ``_apply_deferred_append``) leaves
 the cache unwritten while the layers run.  Each attention layer attends over
-two segments and merges them exactly (:func:`layers.attention_merge2`):
+two segments and merges them exactly (:func:`layers.attention_merge`):
 
 * prefill: the cached keys ``k[:, :s0]`` through K1 with ``q_offset = s0``
   (the causal mask is vacuous there, the window is not), skipped for the
@@ -164,11 +172,33 @@ def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator, dtype,
     return p
 
 
+def cache_span(cfg: ModelConfig, kind: str, cache_size: int, window_slack: int = 0) -> int:
+    """Positions a row of an attention layer's cache holds, as the
+    reference's ``_cache_span``: a windowed layer (``local_attn`` or
+    ``attn`` under ``cfg.sliding_window``, the window of both) keeps a ring
+    of min(cache_size, window) + ``window_slack``; any other layer keeps
+    ``cache_size`` (the reference adds the slack there too, where a row
+    never wraps, and cannot build a ``local_attn`` layer without a window,
+    which here attends over the whole row).  Raises unless the span is a
+    whole number of K2's pages."""
+    if kind in ATTN_KINDS and cfg.sliding_window:
+        span = min(cache_size, cfg.sliding_window) + window_slack
+    else:
+        span = cache_size
+    if span % PAGE_SIZE:
+        raise ValueError(f"a {kind} cache row of {span} positions is not a multiple of the "
+                         f"page size {PAGE_SIZE}")
+    return span
+
+
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
-                device=None, lead=()) -> Dict:
+                device=None, lead=(), window_slack: int = 0, kv_heads: Optional[int] = None
+                ) -> Dict:
     """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0.
-    SSD and RG-LRU states are fp32 whatever ``dtype`` is, and take no
-    ``cache_size``."""
+    An attention block's rows hold :func:`cache_span` positions of
+    ``kv_heads`` heads (the config's by default; a tensor-parallel rank's
+    block of them).  SSD and RG-LRU states are fp32 whatever ``dtype`` is,
+    and take no ``cache_size``."""
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "ssd":
         ssm = cfg.ssm
@@ -185,7 +215,8 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                 "conv": torch.zeros(lead + (rg.conv_width - 1, rg.lru_width), **f32)}
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    shape = tuple(lead) + (batch, cache_size, cfg.num_kv_heads, cfg.head_dim)
+    shape = tuple(lead) + (batch, cache_span(cfg, kind, cache_size, window_slack),
+                           kv_heads or cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "kv_pos": torch.full(shape[:-2], -1, dtype=torch.int32, device=device)}
@@ -199,7 +230,7 @@ class CacheStep:
 
     start: Optional[int] = None                  # first position of every row
     rows: Optional[torch.Tensor] = None          # (n,) cache rows decoded
-    block_tables: Optional[torch.Tensor] = None  # (n, S / PAGE_SIZE) int32
+    block_tables: Optional[torch.Tensor] = None  # (n, S / PAGE_SIZE [+ 1]) int32
     context_lens: Optional[torch.Tensor] = None  # (n,) int32
     cross_tables: Optional[torch.Tensor] = None  # (n, F_pad / PAGE_SIZE) int32, enc-dec
     cross_lens: Optional[torch.Tensor] = None    # (n,) int32: F, enc-dec
@@ -233,29 +264,30 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     q, k_new, v_new = L.attn_qkv(cfg, p["attn"], h, positions)
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
-    T = positions.shape[1]
+    k_new, v_new = k_new.to(k_c.dtype), v_new.to(v_c.dtype)
+    T, S = positions.shape[1], k_c.shape[1]
     window = cfg.sliding_window
     if deferred is not None:
-        k_new, v_new = k_new.to(k_c.dtype), v_new.to(v_c.dtype)
         deferred.append((k_new, v_new))
-        if step.start is not None:
-            ctx = _deferred_prefill(q, k_new, v_new, k_c, v_c, step.start, window, force)
-        else:
+    if step.start is None:
+        if deferred is not None:
             ctx = _deferred_decode(q, k_new, v_new, k_c, v_c, step, window, force)
-    elif step.start is not None:
+        else:
+            _write_kv(cache, k_new, v_new, positions, step.rows)
+            ctx = _paged(q, k_c, v_c, step.block_tables, step.context_lens, window, force)
+    elif deferred is None and step.start + T <= S:
+        # no position of the row has wrapped: write the chunk, then attend
         s0, s1 = step.start, step.start + T
-        k_c[:, s0:s1] = k_new.to(k_c.dtype)
-        v_c[:, s0:s1] = v_new.to(v_c.dtype)
+        k_c[:, s0:s1] = k_new
+        v_c[:, s0:s1] = v_new
         kv_pos[:, s0:s1] = positions.to(kv_pos.dtype)
         ctx = ops.flash_attention(q, k_c[:, :s1], v_c[:, :s1], causal=True,
                                   window=window, force=force)
     else:
-        rows, pos = step.rows, positions[:, 0].long()
-        k_c[rows, pos] = k_new[:, 0].to(k_c.dtype)
-        v_c[rows, pos] = v_new[:, 0].to(v_c.dtype)
-        kv_pos[rows, pos] = pos.to(kv_pos.dtype)
-        ctx = _paged(q, k_c, v_c, step.block_tables, step.context_lens, window, force)
-    x = x + L.attn_out(p["attn"], ctx.to(x.dtype))
+        ctx = _prefill_segments(q, k_new, v_new, k_c, v_c, step.start, window, force)
+        if deferred is None:
+            _write_kv(cache, k_new, v_new, positions, None)
+    x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
     if cross is not None:
         x = x + _cross_attention(cfg, *cross, x, step, force)
     h2 = L.apply_norm(cfg, x, p["norm2"])
@@ -282,12 +314,12 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
         raise ValueError(f"unknown block kind {kind!r}")
     q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
     ctx = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, force=force)
-    x = x + L.attn_out(p["attn"], ctx)
+    x = x + L.attn_out(cfg, p["attn"], ctx)
     if cross is not None:
         cp, (ek, ev) = cross
         qx = L._proj_heads(L.apply_norm(cfg, x, cp["norm"]), cp["attn"]["wq"])
-        x = x + L.attn_out(cp["attn"], ops.flash_attention(qx, ek, ev, causal=False,
-                                                           force=force))
+        x = x + L.attn_out(cfg, cp["attn"], ops.flash_attention(qx, ek, ev, causal=False,
+                                                                force=force))
     h2 = L.apply_norm(cfg, x, p["norm2"])
     if cfg.moe is None:
         return x + L.mlp(cfg, p["mlp"], h2), None
@@ -331,15 +363,56 @@ def _paged(q, k_c, v_c, tables, lens, window, force, return_lse=False):
     return res[:, None]
 
 
-def _deferred_prefill(q, k_new, v_new, k_c, v_c, s0: int, window, force):
-    """Attention of a prefill chunk at s0 over [cache[:s0] ‖ the chunk]
-    without writing the cache: two K1 segments and their merge."""
-    seg_new = L.attention_partial(q, k_new, v_new, window=window, force=force)
-    if s0 == 0 or window == 1:          # no cached key is visible
-        return seg_new[0]
-    seg_cache = L.attention_partial(q, k_c[:, :s0], v_c[:, :s0], q_offset=s0,
-                                    window=window, force=force)
-    return L.attention_merge2(seg_cache, seg_new, q.dtype)
+def _prefill_segments(q, k_new, v_new, k_c, v_c, s0: int, window, force):
+    """Attention of a prefill chunk at positions s0 .. s0 + T − 1 over the
+    cached keys before s0 and the chunk's own, without writing the cache
+    (the deferred append's decomposition, and a ring's): K1 over the chunk's
+    keys, causal with the window, and K1 over each contiguous range of
+    cache rows that holds keys the chunk sees, with ``q_offset`` counted
+    from the range's first position (the causal mask is vacuous there, the
+    window is not); their exact merge.
+
+    The cached keys a chunk sees are positions [s0 − window + 1, s0) (all
+    of [0, s0) without a window), at most window − 1 of them.  A row of S
+    positions keeps position p at p % S, so they lie in at most two ranges
+    of rows, split where p crosses a multiple of S; they are all still
+    there, since S ≥ window wherever a row wraps.  The chunk's own keys are
+    never read from the cache, so a chunk longer than its ring (or than the
+    reference's ``window_slack``) loses nothing."""
+    S = k_c.shape[1]
+    segs = [L.attention_partial(q, k_new, v_new, window=window, force=force)]
+    a = 0 if window is None else max(0, s0 - window + 1)
+    while a < s0:                       # no range when no cached key is visible
+        b = min(s0, (a // S + 1) * S)
+        i = a % S
+        segs.insert(-1, L.attention_partial(q, k_c[:, i:i + b - a], v_c[:, i:i + b - a],
+                                            q_offset=s0 - a, window=window, force=force))
+        a = b
+    if len(segs) == 1:
+        return segs[0][0]
+    return L.attention_merge(segs, q.dtype)
+
+
+def _write_kv(layers: Dict, k_new, v_new, positions, rows) -> None:
+    """Write new K/V (.., n, T, Hkv, D) and their positions into a cache
+    (in place) at rows ``rows`` (all rows where None) and position % S,
+    where S is the rows' length: a ring's, or a linear row's, in which
+    p % S = p.  Only the last S of T positions are written, those a ring
+    keeps.  ``layers`` is one layer's cache {"k", "v": (B, S, Hkv, D),
+    "kv_pos": (B, S)} or a stacked one (L, B, S, ...), with new K/V
+    (L, n, T, Hkv, D)."""
+    k, v, kv_pos = layers["k"], layers["v"], layers["kv_pos"]
+    S = k.shape[-3]
+    n = min(positions.shape[1], S)
+    positions = positions[:, -n:].long()
+    if rows is None:
+        rows = torch.arange(positions.shape[0], device=positions.device)
+    idx = (rows[:, None], positions % S)
+    if k.dim() == 5:                                               # (L, B, S, Hkv, D)
+        idx = (slice(None),) + idx
+    k[idx] = k_new[..., -n:, :, :]
+    v[idx] = v_new[..., -n:, :, :]
+    kv_pos[idx] = positions.to(kv_pos.dtype)
 
 
 def _deferred_decode(q, k_new, v_new, k_c, v_c, step: CacheStep, window, force):
@@ -355,27 +428,21 @@ def _deferred_decode(q, k_new, v_new, k_c, v_c, step: CacheStep, window, force):
         return seg_self[0]
     seg_cache = _paged(q, k_c, v_c, step.block_tables, step.context_lens,
                        None if window is None else window - 1, force, return_lse=True)
-    return L.attention_merge2(seg_cache, seg_self, q.dtype)
+    return L.attention_merge([seg_cache, seg_self], q.dtype)
 
 
 def _apply_deferred_append(layers: Dict, new_kv: List, positions, step: CacheStep) -> None:
     """Write deferred new K/V into the cache in place, one ``index_put_`` a
-    leaf: ``layers`` is a stacked (L, B, S, ...) cache and ``new_kv`` the L
-    layers' (k, v) in order, or one layer's cache and its one (k, v).
-    positions: (n, T); the rows are ``step.rows`` on a decode, else all."""
-    k, v, kv_pos = layers["k"], layers["v"], layers["kv_pos"]
-    rows = (step.rows if step.rows is not None
-            else torch.arange(positions.shape[0], device=positions.device))[:, None]
-    idx = (rows, positions.long())
-    if k.dim() == 5:                                               # (L, B, S, Hkv, D)
-        idx = (slice(None),) + idx
+    leaf (:func:`_write_kv`): ``layers`` is a stacked (L, B, S, ...) cache
+    and ``new_kv`` the L layers' (k, v) in order, or one layer's cache and
+    its one (k, v).  positions: (n, T); the rows are ``step.rows`` on a
+    decode, else all."""
+    if layers["k"].dim() == 5:                                     # (L, B, S, Hkv, D)
         k_new = torch.stack([kv[0] for kv in new_kv])
         v_new = torch.stack([kv[1] for kv in new_kv])
     else:
         (k_new, v_new), = new_kv
-    k[idx] = k_new
-    v[idx] = v_new
-    kv_pos[idx] = positions.to(kv_pos.dtype)
+    _write_kv(layers, k_new, v_new, positions, step.rows)
 
 
 def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
@@ -393,7 +460,7 @@ def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
         ctx = ops.flash_attention(qx, k_c[:, :F], kv["v"][:, :F], causal=False, force=force)
     else:
         ctx = _paged(qx, k_c, kv["v"], step.cross_tables, step.cross_lens, None, force)
-    return L.attn_out(cp["attn"], ctx.to(x.dtype))
+    return L.attn_out(cfg, cp["attn"], ctx.to(x.dtype))
 
 
 def _recurrent_mixer(cfg: ModelConfig, kind: str, p: Dict, h, cache: Dict,
@@ -427,18 +494,45 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _page_tables(rows, S: int, batch: int, device):
-    """Block tables (n, S / PAGE_SIZE) of the listed cache rows of S
-    positions each, the rows' pages being consecutive in the cache."""
-    tables = torch.arange(batch * S // PAGE_SIZE, dtype=torch.int32,
-                          device=device).view(batch, S // PAGE_SIZE)
-    return tables[rows].contiguous()
+def _page_tables(rows, positions, S: int, batch: int, ring: bool, device):
+    """K2's view of the listed cache rows of S positions each, the rows'
+    pages being consecutive in the cache, for queries at ``positions``
+    (n,): (block tables (n, S/16) int32 — (n, S/16 + 1) for a ``ring`` —
+    and each row's first logical page, which the caller takes from the
+    context lengths, as K2 counts positions from the table's first page).
+
+    A linear row maps logical page j (positions 16j .. 16j + 15) to
+    physical page b·S/16 + j.  A ring keeps position p at p % S, so table
+    slot i of row b is logical page first + i at physical page
+    b·S/16 + (first + i) mod S/16, with first = max(0, p // 16 − S/16): the
+    last slot holds the query's own page, and the S/16 + 1 slots reach back
+    past any window W ≤ S, whose first key p − W + 1 lies on page
+    (p − W + 1) // 16 ≥ first.
+
+    K2 masks by position, so over a ring it is exact: the keys a query at p
+    sees are p − W + 1 .. p, each in the ring (written in order, slot
+    p' % S holds the newest position congruent to p', which is p' itself
+    for p' > p − S), and a slot whose page aliases a newer one lies before
+    the window, where K2 masks it or skips its partition whole.  At S = W
+    exactly, the window's first and last logical pages are one physical
+    page when p + 1 is not a multiple of 16: its slots up to p % 16 hold the
+    last page's positions, read under the last page's (≤ p), and its slots
+    after p % 16 still hold the first page's, read under the first page's
+    (≥ p − W + 1), so each slot is read once, under the position it holds."""
+    per_row = S // PAGE_SIZE
+    width = per_row + int(ring)
+    first = (positions.long() // PAGE_SIZE - (width - 1)).clamp(min=0)
+    j = (first[:, None] + torch.arange(width, device=device)[None, :]) % per_row
+    rows = torch.as_tensor(rows, device=device).long()
+    return (rows[:, None] * per_row + j).int().contiguous(), first
 
 
-def _prefill_start(cache, k, T: int, start: Optional[int] = None) -> int:
+def _prefill_start(cache, k, T: int, start: Optional[int] = None,
+                   window: Optional[int] = None) -> int:
     """The one ``cache_len`` all rows share, read on the host unless the
     caller gives it as ``start``, checked against the attention cache ``k``
-    (.., B, S, Hkv, D), which must hold T more positions."""
+    (.., B, S, Hkv, D), which must hold T more positions unless it is a
+    ring of at least the ``window`` (which keeps every key a query sees)."""
     if start is None:
         starts = set(cache["cache_len"].tolist())
         if len(starts) != 1:
@@ -446,7 +540,7 @@ def _prefill_start(cache, k, T: int, start: Optional[int] = None) -> int:
                              f"got {sorted(starts)}")
         start = starts.pop()
     S = k.shape[-3]
-    if start + T > S:
+    if start + T > S and (window is None or S < window):
         raise ValueError(f"prefill to position {start + T} overflows the "
                          f"cache of {S} positions")
     return start
@@ -469,6 +563,9 @@ class TransformerLM:
         self.stacked = ("blocks",) if self.uniform else ()
         self.has_attn = bool(kinds & set(ATTN_KINDS))
         self.recurrent = bool(kinds & set(RECURRENT_KINDS))
+        # the window is the config's, on every attention layer: all of
+        # them keep rings (cache_span)
+        self.windowed = self.has_attn and bool(cfg.sliding_window)
 
     # ------------------------------------------------------------- params --
     def init(self, generator: Optional[torch.Generator] = None,
@@ -508,14 +605,13 @@ class TransformerLM:
         if extra:
             raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
                              "always follow the cache length")
-        x = params["embed"][inputs["tokens"]]
+        x = L.embed(self.cfg, params["embed"], inputs["tokens"])
         if "frontend_embeds" in inputs:
             x = torch.cat([inputs["frontend_embeds"].to(x.dtype), x], dim=1)
         return x
 
     def _unembed(self, params, x):
-        w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return x @ w
+        return L.unembed(self.cfg, params, x)
 
     def _attn_cache(self, cache) -> Dict:
         """The cache leaves of the attention layers: the stacked ones, or
@@ -525,6 +621,15 @@ class TransformerLM:
             return layers
         return layers[self.cfg.layer_pattern.index(
             next(k for k in self.cfg.layer_pattern if k in ATTN_KINDS))]
+
+    def _kv_heads(self, params) -> Optional[int]:
+        """The KV heads of ``params``' first attention layer (all hold the
+        same), None without ``params`` or attention."""
+        if params is None or not self.has_attn:
+            return None
+        i = self.cfg.layer_pattern.index(
+            next(k for k in self.cfg.layer_pattern if k in ATTN_KINDS))
+        return _layer(params["blocks"], i)["attn"]["wk"].shape[-2]
 
     # --------------------------------------------------------------- body --
     def _run(self, params, x, positions, cache, step: CacheStep, force):
@@ -587,21 +692,26 @@ class TransformerLM:
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
-                   device=None) -> Dict[str, Any]:
-        """An empty cache of ``batch`` rows of ``cache_size`` positions, a
+                   device=None, window_slack: int = 0, params=None) -> Dict[str, Any]:
+        """An empty cache of ``batch`` rows for ``cache_size`` positions, a
         multiple of PAGE_SIZE where there is attention (``cuda`` unless
-        ``device`` says otherwise).  Recurrent rows hold a state of fixed
-        size and no positions."""
+        ``device`` says otherwise), as the reference's: a windowed attention
+        layer keeps a ring of min(cache_size, window) + ``window_slack``
+        positions (:func:`cache_span`), any other ``cache_size``; recurrent
+        rows hold a state of fixed size and no positions.  The K/V hold the
+        KV heads of ``params``' attention (a tensor-parallel rank's block of
+        them, ``launch.mesh.shard_params``), the config's without them."""
         if self.has_attn and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         device = resolve_device(device)
         cfg = self.cfg
+        kw = dict(window_slack=window_slack, kv_heads=self._kv_heads(params))
         if self.uniform:
             layers = block_cache(cfg, self.uniform, batch, cache_size, dtype, device,
-                                 lead=(cfg.num_layers,))
+                                 lead=(cfg.num_layers,), **kw)
         else:
-            layers = [block_cache(cfg, kind, batch, cache_size, dtype, device)
+            layers = [block_cache(cfg, kind, batch, cache_size, dtype, device, **kw)
                       for kind in cfg.layer_pattern]
         return {"layers": layers,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -626,7 +736,8 @@ class TransformerLM:
             logits = self._run(params, x, None, cache, CacheStep(), force)
             cache["cache_len"] += T
             return logits, cache
-        start = _prefill_start(cache, self._attn_cache(cache)["k"], T, start)
+        start = _prefill_start(cache, self._attn_cache(cache)["k"], T, start,
+                               window=self.cfg.sliding_window)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
         logits = self._run(params, x, positions, cache, CacheStep(start=start), force)
         cache["cache_len"] += T
@@ -648,12 +759,14 @@ class TransformerLM:
         step = CacheStep(rows=rows)
         if self.has_attn:
             kv = self._attn_cache(cache)["k"]
-            step.block_tables = _page_tables(rows, kv.shape[-3], kv.shape[-4], tokens.device)
-            # the keys K2 reads: the token's own is in the cache only when
-            # it is written before the attention (inline)
-            step.context_lens = (positions[:, 0]
+            step.block_tables, first = _page_tables(rows, positions[:, 0], kv.shape[-3],
+                                                    kv.shape[-4], self.windowed, tokens.device)
+            # the keys K2 reads, counted from the table's first page: the
+            # token's own is in the cache only when it is written before the
+            # attention (inline)
+            step.context_lens = (positions[:, 0] - first * PAGE_SIZE
                                  + int(self.cfg.kv_append == "inline")).int()
-        x = params["embed"][tokens]
+        x = L.embed(self.cfg, params["embed"], tokens)
         logits = self._run(params, x, positions, cache, step, force)
         cache["cache_len"][rows] += 1
         return logits
@@ -719,7 +832,7 @@ class EncDecLM:
             hn = L.apply_norm(cfg, x, p["norm1"])
             q, k, v = L.attn_qkv(cfg, p["attn"], hn, positions)
             ctx = ops.flash_attention(q, k, v, causal=False, force=force)
-            x = x + L.attn_out(p["attn"], ctx.to(x.dtype))
+            x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
             x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
         return L.apply_norm(cfg, x, params["enc_final_norm"])
 
@@ -847,9 +960,11 @@ class EncDecLM:
         n = rows.shape[0]
         step = CacheStep(
             rows=rows,
-            block_tables=_page_tables(rows, kv.shape[-3], kv.shape[-4], tokens.device),
+            block_tables=_page_tables(rows, positions[:, 0], kv.shape[-3], kv.shape[-4], False,
+                                      tokens.device)[0],
             context_lens=(positions[:, 0] + 1).int(),
-            cross_tables=_page_tables(rows, xk.shape[-3], xk.shape[-4], tokens.device),
+            cross_tables=_page_tables(rows, positions[:, 0] * 0, xk.shape[-3], xk.shape[-4],
+                                      False, tokens.device)[0],
             cross_lens=torch.full((n,), cache["cross_frames"], dtype=torch.int32,
                                   device=tokens.device))
         logits = self._decoder(params, tokens, positions, cache, step, force)

@@ -23,6 +23,13 @@ the reference's raises on or gets wrong:
   into the new slot before its prefill goes on.  A model with recurrent
   layers (SSD, RG-LRU) still raises on a hit: the prefix cache holds no
   state (ROADMAP Queue A item F4).
+
+A windowed model's slot keeps the reference's ring of ``min(max_len,
+window)`` positions a layer (``TransformerLM.init_cache``), with no
+``window_slack``: the reference's runner needs its slack (the longest
+bucket) because it writes a chunk before attending over the ring, and the
+port's prefill attends over the ring's earlier keys and the chunk's own
+before it writes, which is exact at any chunk length.
 * P — a resumed preemption re-prefills only its prompt
   (``Request.reset_for_recompute`` keeps the generated tokens), and the
   engine then appends one more output token.  Here the final prompt chunk
@@ -48,9 +55,10 @@ from .scheduler import SchedulerOutput
 class RealModelRunner:
     """Executes the PyTorch model — ground truth for fidelity runs.
 
-    A shared slot cache holds ``max_seqs`` rows of ``max_len`` positions (a
-    multiple of the model's page size), of recurrent state, or both (a mixed
-    stack), and an enc-dec model's cross K/V; it is updated in place.  A
+    A shared slot cache holds ``max_seqs`` rows for ``max_len`` positions (a
+    multiple of the model's page size; a windowed layer's ring of the
+    window), of recurrent state, or both (a mixed stack), and an enc-dec
+    model's cross K/V; it is updated in place.  A
     step runs each prefill chunk on its own slot (batch 1, exact length:
     flash attention, or the recurrence from the slot's carried state), then
     one decode over the slots that decode (paged attention, or the recurrent
@@ -59,11 +67,12 @@ class RealModelRunner:
 
     With prefix caching on, :meth:`attach_prefix_cache` gives the runner the
     engine's block manager and a KV store of ``num_blocks`` blocks a layer,
-    indexed by the engine's block ids.  When a request's prompt is complete,
-    the KV of its full prompt blocks goes from its slot to the store at its
-    table's ids, the blocks the prefix cache then inserts (and pins, so that
-    no other request takes them before they are evicted); a hit copies its
-    blocks' KV from the store into the new slot.
+    indexed by the engine's block ids.  As a prefill completes each of a
+    prompt's full blocks, its KV goes from the slot to the store at its
+    table's id, a block the prefix cache inserts when the prompt is
+    complete (and pins, so that no other request takes it before it is
+    evicted); a hit copies its blocks' KV from the store into the new slot.
+    A windowed model's slot is a ring (:meth:`_pieces`, :meth:`_load_prefix`).
     """
 
     def __init__(self, model, params, *, max_seqs: int, max_len: int,
@@ -75,6 +84,13 @@ class RealModelRunner:
         self.clock = clock
         self.device = torch.device(device)
         self.cache = model.init_cache(max_seqs, max_len, dtype, self.device)
+        # a windowed model's ring: the positions a slot row keeps, and the
+        # window, or None for a linear row (every position up to max_len)
+        self._ring = None
+        if getattr(model, "windowed", False):
+            span = model._attn_cache(self.cache)["k"].shape[-3]
+            if span < max_len:
+                self._ring = (span, model.cfg.sliding_window)
         self._slot_of: Dict[int, int] = {}
         self._free_slots = list(range(max_seqs))[::-1]
         self._slot_len = [0] * max_seqs          # tokens in each slot, host copy
@@ -154,7 +170,9 @@ class RealModelRunner:
     def _load_prefix(self, req, slot: int, start: int) -> None:
         """A prefix-cache hit: the KV of the request's first ``start //
         block_size`` blocks, from the store into positions 0 .. start − 1 of
-        its (empty) slot."""
+        its (empty) slot; on a ring, only the blocks that hold a key of the
+        window before ``start``, each position at its ring row (p % S), and
+        never more than the ring's last S positions."""
         if self._store is None:
             why = ("the model has recurrent layers, whose state the prefix cache "
                    "does not hold" if self.model.recurrent else
@@ -163,31 +181,53 @@ class RealModelRunner:
                 f"request {req.request_id}: a prefix-cache hit of {start} tokens, but "
                 f"{why} (ROADMAP Queue A item F4)")
         bs = self.block_manager.block_size
-        ids = self.block_manager.block_tables[req.request_id][:start // bs]
+        lo = 0
+        if self._ring is not None:
+            span, window = self._ring
+            lo = max(0, start - span, (start - window + 1) // bs * bs)
+        ids = self.block_manager.block_tables[req.request_id][lo // bs:start // bs]
         ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
+        pos = torch.arange(lo, start, device=self.device)
+        at = pos % self.cache["layers"]["k"].shape[-3]
         layers = self.cache["layers"]
         for key in ("k", "v"):
-            blocks = self._store[key][:, ids_t]                  # (L, n, bs, Hkv, D)
-            layers[key][:, slot, :start] = blocks.flatten(1, 2)
-        layers["kv_pos"][:, slot, :start] = torch.arange(start, dtype=torch.int32,
-                                                         device=self.device)
+            blocks = self._store[key][:, ids_t].flatten(1, 2)    # (L, n·bs, Hkv, D)
+            layers[key][:, slot, at] = blocks[:, lo - lo // bs * bs:]
+        layers["kv_pos"][:, slot, at] = pos.to(torch.int32)
         self.cache["cache_len"][slot] = start
         self._slot_len[slot] = start
 
-    def _save_prefix(self, req, slot: int) -> None:
-        """The KV of a completed prompt's full blocks, from its slot into the
-        store at its block table's ids; blocks that came from a hit are
-        there already."""
+    def _save_prefix(self, req, slot: int, a: int, b: int) -> None:
+        """The KV of the full prompt blocks that the prefill of positions
+        a .. b − 1 completed, from its slot into the store at its block
+        table's ids; blocks that came from a hit are there already.  Called
+        after each prefill piece, so that a ring still holds every position
+        of them (:meth:`_pieces`)."""
         bs = self.block_manager.block_size
-        first, n_full = req.cached_prefix_len // bs, req.prompt_len // bs
+        first = max(req.cached_prefix_len // bs, a // bs)
+        n_full = min(req.prompt_len, b) // bs
         if n_full <= first:
             return
         ids = self.block_manager.block_tables[req.request_id][first:n_full]
         ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
         layers = self.cache["layers"]
+        at = torch.arange(first * bs, n_full * bs, device=self.device) % layers["k"].shape[-3]
         for key in ("k", "v"):
-            rows = layers[key][:, slot, first * bs:n_full * bs]
+            rows = layers[key][:, slot, at]
             self._store[key][:, ids_t] = rows.unflatten(1, (n_full - first, bs))
+
+    def _pieces(self, start: int, n: int) -> List[tuple]:
+        """The prefill of ``n`` tokens from ``start`` as (a, b) position
+        ranges: the whole chunk, or, where a ring's blocks go to the prefix
+        store, pieces of at most S − block_size, so that each block a piece
+        completes is still in the ring when it is saved."""
+        if self._store is None or self._ring is None:
+            return [(start, start + n)]
+        step = self._ring[0] - self.block_manager.block_size
+        if step <= 0:
+            raise ValueError(f"a ring of {self._ring[0]} positions cannot hold a block of "
+                             f"{self.block_manager.block_size}")
+        return [(a, min(a + step, start + n)) for a in range(start, start + n, step)]
 
     # ------------------------------------------------------------ running --
     def execute(self, out: SchedulerOutput) -> Dict[int, int]:
@@ -221,14 +261,15 @@ class RealModelRunner:
             if final:
                 chunk += req.output_tokens        # a resumed preemption replays them (P)
             toks = torch.tensor([chunk], dtype=torch.long, device=self.device)
-            logits, _ = self.model.prefill(self.params, {"tokens": toks},
-                                           self._slot_view(slot))
+            for a, b in self._pieces(start, len(chunk)):
+                logits, _ = self.model.prefill(self.params, {"tokens": toks[:, a - start:b - start]},
+                                               self._slot_view(slot))
+                if self._store is not None:
+                    self._save_prefix(req, slot, a, b)
             self._slot_len[slot] = start + len(chunk)
             if final:
                 picked[req.request_id] = torch.argmax(logits[0])
                 self._keep(req.request_id, logits[0])
-                if self._store is not None:
-                    self._save_prefix(req, slot)
 
         # ---- one decode over the decoding slots only (F2, F3) ----
         if decodes:

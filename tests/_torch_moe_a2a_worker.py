@@ -87,7 +87,9 @@ def fallback():
 def serving():
     """Reduced mixtral with moe_impl="a2a" against the dropless model on the
     same weights: a 16-token prefill (the a2a path in every layer) and a
-    decode (the fallback)."""
+    decode (the fallback).  The a2a model runs on the ranks' blocks (its
+    attention on each rank's heads, its cache of those KV heads), the
+    dropless model on the whole weights under the same mesh."""
     cfg = no_drops(get_reduced_config("mixtral_8x7b"))
     out = {}
     for impl in ("ragged", "a2a"):
@@ -97,7 +99,7 @@ def serving():
         with mesh.use_mesh(make_mesh((1, 2))), torch.no_grad():
             if impl == "a2a":
                 params = mesh.shard_params(params)
-            cache = model.init_cache(2, 32, torch.float32, "cpu")
+            cache = model.init_cache(2, 32, torch.float32, "cpu", params=params)
             logits, cache = model.prefill(params, {"tokens": tokens}, cache)
             step, _ = model.decode_step(params, cache, tokens[:, -1:])
         out[impl] = (logits, step)

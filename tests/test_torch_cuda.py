@@ -744,13 +744,15 @@ def test_ssd_training_runs_through_k3_and_k3_bwd(gen):
 
 
 def test_expert_parallel_moe_two_ranks_on_the_card(gen):     # gen: skips without a card
-    """Two gloo ranks sharing the card (``repro_torch.launch.expert_parallel``)
+    """Two gloo ranks sharing the card (``repro_torch.launch.parallel``)
     at qwen3_30b_a3b's full width cut to one layer, 2 prompts of 128 tokens
     in bf16: the prefill through the all-to-all with K1 and the decode
-    through the fallback with K2, against the dropless model on the same
-    weights (relative 5e-2, as ``chip_smoke.py``'s model checks), nothing
-    dropped at the no-drop capacity (``expert_parallel.check``)."""
-    from repro_torch.launch import expert_parallel as ep
-    args = ep.parse_args(["--layers", "1", "--batch", "2", "--prompt", "128"])
-    launches = ep.check(args, ep.launch(args), ep.dropless(args), 5e-2)
+    through the fallback with K2, the attention on each rank's 16 heads,
+    against the dropless model on the same weights (relative 5e-2, as
+    ``chip_smoke.py``'s model checks), nothing dropped at the no-drop
+    capacity, each rank's blocks as its placements say (``parallel.check``)."""
+    from repro_torch.launch import parallel as ep
+    args = ep.parse_args(["--arch", "qwen3_30b_a3b", "--layers", "1", "--batch", "2",
+                          "--prompt", "128"])
+    launches = ep.check(args, ep.launch(args), ep.reference(args), 5e-2)
     assert launches["flash_attention"] == 2 * args.ranks and launches["paged_attention"] == args.ranks

@@ -151,8 +151,8 @@ def test_paged_segment_matches_jax_attention_partial(window, Hq, Hkv, D):
 
 
 def test_merge_matches_jax_attention_merge2():
-    """Two segments of one attention, merged, against the JAX merge of the
-    reference's segments and against the attention over both at once;
+    """Two segments of one attention, merged (``attention_merge``), against
+    the JAX merge of the reference's segments and against the attention over both at once;
     a segment that sees no key weighs 0."""
     rng = np.random.default_rng(7)
     B, T, S, Hq, Hkv, D, window = 2, 6, 10, 4, 2, 16, 8
@@ -169,14 +169,14 @@ def test_merge_matches_jax_attention_merge2():
     tq, tk, tv = _t(q), _t(k), _t(v)
     cache = TL.attention_partial(tq, tk[:, :S], tv[:, :S], q_offset=S, window=window)
     new = TL.attention_partial(tq, tk[:, S:], tv[:, S:], window=window)
-    got = TL.attention_merge2(cache, new, torch.float32)
+    got = TL.attention_merge([cache, new], torch.float32)
     np.testing.assert_allclose(got.numpy(), exp, **KERNEL_TOL)
     whole = tref.flash_attention_ref(tq, tk, tv, window=window)
     np.testing.assert_allclose(got.numpy(), whole.numpy(), **KERNEL_TOL)
     empty = (torch.zeros_like(new[0]), torch.full_like(new[1], -torch.inf))
-    np.testing.assert_array_equal(TL.attention_merge2(empty, new, torch.float32).numpy(),
+    np.testing.assert_array_equal(TL.attention_merge([empty, new], torch.float32).numpy(),
                                   new[0].numpy())
-    both_empty = TL.attention_merge2(empty, empty, torch.float32)
+    both_empty = TL.attention_merge([empty, empty], torch.float32)
     assert (both_empty == 0).all()
 
 
@@ -250,14 +250,16 @@ def test_defer_matches_inline_at_small_windows(window):
     the cache segment's rows past the window see no key; reduced mixtral.
     The JAX ring of ``window`` slots cannot hold a 6-token chunk, so the
     yardstick is the port's inline append, held against JAX in
-    ``tests/test_torch_window.py``."""
+    ``tests/test_torch_window.py``.  Both keep a ring of one page: the
+    window and the slack to a whole page."""
     cfg = get_reduced_config("mixtral_8x7b").replace(sliding_window=window)
     m_in, m_df = build_model(cfg), build_model(cfg.replace(kv_append="defer"))
     params = m_in.init(torch.Generator().manual_seed(3), torch.float32, "cpu")
     toks = _t(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)))
-    got = _run(m_df, params, toks, m_df.init_cache(2, 64, torch.float32, "cpu"),
+    slack = 16 - window
+    got = _run(m_df, params, toks, m_df.init_cache(2, 64, torch.float32, "cpu", slack),
                m_df.prefill, m_df.decode_step)
-    exp = _run(m_in, params, toks, m_in.init_cache(2, 64, torch.float32, "cpu"),
+    exp = _run(m_in, params, toks, m_in.init_cache(2, 64, torch.float32, "cpu", slack),
                m_in.prefill, m_in.decode_step)
     for a, b in zip(got[0], exp[0]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **LOGIT_TOL)

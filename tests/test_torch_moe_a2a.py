@@ -25,10 +25,11 @@ child gets ``PYTHONDONTWRITEBYTECODE=1`` and caps torch at 2 threads.
 * The fallbacks: T % ep (the dropless MoE on the sharded experts), no mesh,
   and a model's prefill (the all-to-all) and decode (the fallback) against
   the dropless model.
-* The launcher (``repro_torch.launch.expert_parallel``) on the CPU: reduced
+* The launcher (``repro_torch.launch.parallel``) on the CPU: reduced
   mixtral on 4 ranks of one expert each, its ranks' prefills and decode
-  against its one-process dropless model (``expert_parallel.check`` at
-  2e-4).
+  against its one-process dropless model (``parallel.check`` at 2e-4);
+  reduced qwen3_30b_a3b on more ranks than KV heads, its attention whole
+  on each rank.
 """
 
 import os
@@ -214,18 +215,38 @@ def test_train_loss_gradients_through_a2a(groups, seq):
 
 
 def test_launcher_serves_on_cpu_ranks():
-    """``expert_parallel`` as its CPU rehearsal runs it, with 4 ranks: the
+    """``launch.parallel`` as its CPU rehearsal runs it, with 4 ranks: the
     rank processes' prefills (all-to-all at the no-drop capacity and the
     config's 1.25) and decode (the fallback) against the dropless model."""
-    from repro_torch.launch import expert_parallel as ep
+    from repro_torch.launch import parallel as ep
     args = ep.parse_args(["--arch", "mixtral_8x7b", "--reduced", "--device", "cpu",
                           "--dtype", "float32", "--ranks", "4", "--batch", "2",
                           "--prompt", "16"])
-    ranks, ref = ep.launch(args), ep.dropless(args)
+    ranks, ref = ep.launch(args), ep.reference(args)
     assert ep.capacity_factors(args) == [4.0, 1.25]
     assert not any(ep.check(args, ranks, ref, TOL).values())   # no kernel on the CPU
     assert [len(r["prefill"]) for r in ranks] == [2] * 4
     assert len(ep.summary(ranks, ref)) == 3
+
+
+def test_launcher_keeps_attention_whole_past_the_kv_heads():
+    """More expert-parallel ranks than KV heads, as qwen3_30b_a3b's 4 KV
+    heads at 8 ranks: reduced, 4 query heads over 2 KV heads at 4 ranks.
+    The query heads divide and the KV heads do not, so each rank keeps the
+    attention and its cache whole, cuts the experts (one each) and the
+    vocabulary, and serves as the dropless model does."""
+    from repro_torch.launch import parallel
+    args = parallel.parse_args(["--arch", "qwen3_30b_a3b", "--reduced", "--device", "cpu", "--dtype",
+                                "float32", "--ranks", "4", "--batch", "2", "--prompt", "16"])
+    cfg = parallel.model_config(args)
+    assert cfg.num_heads % 4 == 0 and cfg.num_kv_heads < 4
+    ranks, ref = parallel.launch(args), parallel.reference(args)
+    assert not any(parallel.check(args, ranks, ref, TOL).values())
+    for r in ranks:
+        assert r["params"]["blocks/attn/wq"][-2] == cfg.num_heads
+        assert r["params"]["blocks/attn/wk"][-2] == r["cache"]["layers/k"][-2] == cfg.num_kv_heads
+        assert r["params"]["blocks/moe/w_in"][1] == 1
+        assert r["params"]["embed"][0] == cfg.vocab_size // 4
 
 
 def test_fallback_without_a_mesh():
@@ -253,7 +274,8 @@ class _FakeMesh:
 
 def test_shard_params_cuts_only_the_experts():
     """``shard_params`` at each "model" coordinate: the experts' blocks in
-    order, every other leaf the same tensor; E % ep keeps them whole."""
+    order, the router the same tensor; E % ep keeps them whole (at 3 ranks
+    the serve rules place nothing of reduced mixtral on "model")."""
     cfg = get_reduced_config("mixtral_8x7b")
     params = build_model(cfg).init(torch.Generator().manual_seed(0), torch.float32, "cpu")
     w_in = params["blocks"]["moe"]["w_in"]
