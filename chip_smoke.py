@@ -237,13 +237,31 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    decode, and each rank's ``memory_allocated()`` grown by its build and by
    its cache must be ``mesh.shard_bytes`` of its placements at a (1, 4)
    mesh up to the allocator's rounding; it prints each rank's prefill and
-   decode ms, labelled as ranks sharing one card through gloo.
+   decode ms, labelled as ranks sharing one card through gloo;
+26. qwen2_5_3b tensor-parallel as 25, at full size (36 layers, bf16, 16
+   query heads over 2 KV heads of 128, QKV biases, tied embeddings) on 4
+   ranks: each rank holds 4 query heads and a 32-wide block of head_dim of
+   both KV heads (weights and cache), gathered to whole heads for RoPE, for
+   K1 over each prefill's keys and for K2 over each decode's live rows; 4
+   prompts of 512 (numpy seed 0), 4 decodes;
+27. recurrentgemma_2b tensor-parallel as 25, at full size on 2 ranks: 5 of
+   the 10 query heads over 128 of the KV head's 256 dimensions, the ring of
+   2048 on those blocks, 1280 of the RG-LRU's 2560 channels (its conv'd
+   input gathered once a layer); 2 prompts of 3072, past the window, 4
+   decodes;
+28. whisper_base tensor-parallel as 25, at full size on 2 ranks: the
+   encoder, the decoder and the cross attention on 4 of 8 heads each, the
+   cross cache on those heads; 4 rows of 1500 random frame embeddings
+   (numpy seed 0) and 64-token prompts, 4 decodes (K1 in each encoder,
+   decoder and cross layer of the prefill, K2 in each decoder and cross
+   layer of a decode).  26-28 have 25's gates, and print the bytes each
+   rank gathered over "model" in the prefill and in each decode.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
 steps of phases 21 and 22 and the ranks' prefills and decodes of phases 23
-and 25),
+and 25-28),
 the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -1913,7 +1931,16 @@ def main() -> int:
     log("== 24. the dry-run's per-device bytes against the card's allocation")
     dry_run_bytes()
     log("== 25. llama3_70b tensor-parallel: 4 ranks sharing this card through gloo")
-    launches.update(tensor_parallel())
+    launches.update(tensor_parallel(25))
+    torch.cuda.empty_cache()
+    log("== 26. qwen2_5_3b tensor-parallel, its KV heads on head_dim: 4 ranks on this card")
+    launches.update(tensor_parallel(26))
+    torch.cuda.empty_cache()
+    log("== 27. recurrentgemma_2b tensor-parallel past its window: 2 ranks on this card")
+    launches.update(tensor_parallel(27))
+    torch.cuda.empty_cache()
+    log("== 28. whisper_base tensor-parallel with frames: 2 ranks on this card")
+    launches.update(tensor_parallel(28))
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -2518,7 +2545,8 @@ def check_moe_grouped(cfg, params):
     """The MoE of layer 0 of qwen3_30b_a3b on a 512-token chunk in bf16: the
     grouped call (``torch._grouped_mm``) against the per-expert loop, for
     the whole layer and for the first product alone (2e-2), and both timed;
-    the router's expert loads beside them."""
+    the router's expert loads beside them; four more calls of the layer,
+    which must repeat its bits (ROADMAP C1)."""
     from repro_torch.models import layers as L
     p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2526,6 +2554,11 @@ def check_moe_grouped(cfg, params):
     y, aux = L.moe(cfg, p, x)
     y_loop, _ = L.moe(cfg, p, x, force="plain")
     torch.cuda.synchronize()
+    # ROADMAP C1: the combine is a fixed-order sum, so the layer repeats its bits
+    same = sum(torch.equal(L.moe(cfg, p, x)[0], y) for _ in range(4))
+    log(f"MoE layer 0 repeated 4 times on the same chunk: {same} of 4 bit-identical to the first")
+    if same != 4:
+        raise AssertionError("the MoE layer does not repeat its bits (ROADMAP C1)")
     err = assert_close("MoE layer 0 grouped vs per-expert loop (1, 512) bfloat16", y, y_loop,
                        "bfloat16")
     _, _, idx = L.moe_route(cfg, p, x.reshape(-1, cfg.d_model))
@@ -2942,20 +2975,38 @@ def expert_parallel():
     return launches
 
 
-def tensor_parallel():
-    """Phase 25: llama3_70b at full width, 16 of its 80 layers, served by
-    the one-process model here, which is then freed, and by 4
-    tensor-parallel ranks sharing this card (``repro_torch.launch.parallel``:
-    gloo, each rank's blocks drawn leaf by leaf); see the module docstring.
-    Returns the ranks' kernel launches, summed."""
+# phase: (the launcher's arguments, what the phase serves); phases 25-28
+TENSOR_PARALLEL = {
+    25: (["--arch", "llama3_70b", "--layers", "16", "--ranks", "4", "--batch", "4",
+          "--prompt", "256", "--decodes", "4"],
+         "llama3_70b at full width, 16 of its 80 layers: 64 query heads over 8 KV heads, "
+         "each rank 16 over 2"),
+    26: (["--arch", "qwen2_5_3b", "--ranks", "4", "--batch", "4", "--prompt", "512",
+          "--decodes", "4"],
+         "qwen2_5_3b at full size: 16 query heads over 2 KV heads of 128, each rank 4 query "
+         "heads over a 32-wide block of head_dim of both KV heads"),
+    27: (["--arch", "recurrentgemma_2b", "--ranks", "2", "--batch", "2", "--prompt", "3072",
+          "--decodes", "4"],
+         "recurrentgemma_2b at full size, 3072-token prompts past its 2048-token window: each "
+         "rank 5 query heads over 128 of its KV head's 256 dimensions, 1280 of the RG-LRU's "
+         "2560 channels"),
+    28: (["--arch", "whisper_base", "--ranks", "2", "--batch", "4", "--prompt", "64",
+          "--frames", "1500", "--decodes", "4"],
+         "whisper_base at full size, 1500 frames a row: encoder, decoder and cross attention "
+         "each rank 4 of 8 heads"),
+}
+
+
+def tensor_parallel(phase):
+    """Phases 25-28: the model of ``TENSOR_PARALLEL[phase]`` served by the
+    one-process model here, which is then freed, and by tensor-parallel
+    ranks sharing this card (``repro_torch.launch.parallel``: gloo, each
+    rank's blocks drawn leaf by leaf); see the module docstring.  Returns
+    the ranks' kernel launches, summed."""
     from repro_torch.launch import parallel
-    args = parallel.parse_args(["--arch", "llama3_70b", "--layers", "16", "--ranks", "4",
-                                "--batch", "4", "--prompt", "256", "--decodes", "4"])
-    cfg = parallel.model_config(args)
-    log(f"llama3_70b at full width (d_model {cfg.d_model}, {cfg.num_heads} query heads over "
-        f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, F {cfg.d_ff}, vocabulary "
-        f"{cfg.vocab_size}), depth cut to {args.layers} of 80 layers: the one-process model, "
-        f"then {args.ranks} ranks of {cfg.num_heads // args.ranks} query heads each")
+    argv, what = TENSOR_PARALLEL[phase]
+    args = parallel.parse_args(argv)
+    log(f"{what}; the one-process model, then {args.ranks} ranks")
     t0 = time.monotonic()
     ref = parallel.reference(args)
     torch.cuda.empty_cache()
@@ -2972,12 +3023,12 @@ def tensor_parallel():
             f"mesh.shard_bytes {sum(p_sizes):,} (rounded {parallel.allocation_bounds(p_sizes)}); "
             f"cache {r['cache_bytes']:,}, shard_bytes {sum(c_sizes):,} "
             f"(rounded {parallel.allocation_bounds(c_sizes)})")
-    log("times below: 4 ranks sharing one card, the collectives host-exchanged through "
-        "gloo; not a multi-card figure")
+    log(f"times and gathered bytes below: {args.ranks} ranks sharing one card, the collectives "
+        "host-exchanged through gloo; not a multi-card figure")
     for line in parallel.summary(ranks, ref):
         log(line)
     launches = parallel.check(args, ranks, ref, 5e-2)
-    log(f"phase 25 passed: launches {dict(launches)}")
+    log(f"phase {phase} passed: launches {dict(launches)}")
     return launches
 
 

@@ -41,20 +41,19 @@ tree into one rank's: every leaf that :func:`param_specs` in "serve" mode
 places on "model" at a ("data", "model") mesh of (1, tp), cut to the rank's
 block of :func:`shard_shape` by its "model" coordinate, every other leaf
 whole.  That is Megatron's tensor parallelism for the dense layers (the
-attention's heads, the MLP's F, the vocabulary of the embeddings), which
+attention's heads, or head_dim where the heads do not split, the MLP's F,
+the RG-LRU's width, the vocabulary of the embeddings), which
 ``models.layers`` runs on the blocks, and the expert-parallel MoE's experts.
 :func:`build_params` makes the same tree leaf by leaf from a seed, so that a
 rank never holds more than its blocks and one whole leaf.  Where the rules
-place a leaf on a dimension no layer runs a block of (the heads' fallback to
-head_dim, the experts' to their width, the SSD and RG-LRU leaves, the
-encoder-decoder), :func:`model_placements` decides by what the ranks are
-for.  A tree with MoE experts is served expert-parallel: such a leaf stays
-whole on every rank, and so does an attention block whose K/V do not split
-on heads, as the experts that do not divide stay whole for the dropless
-fallback.  A dense tree has the ranks for tensor parallelism alone, so there
-it raises, and so do ``shard_params`` and ``build_params``.  The "data"
-entries the serve rules give the MoE's experts are not executed: each data
-rank keeps them whole.
+place a leaf on a dimension no layer runs a block of (the SSD's leaves, the
+experts' fallback to their FFN width), :func:`model_placements` decides by
+what the ranks are for.  A tree with MoE experts is served expert-parallel:
+such a leaf stays whole on every rank, as the experts that do not divide
+stay whole for the dropless fallback.  A dense tree has the ranks for
+tensor parallelism alone, so there it raises, and so do ``shard_params``
+and ``build_params``.  The "data" entries the serve rules give the MoE's
+experts are not executed: each data rank keeps them whole.
 
 The tree walkers (:func:`param_specs`, :func:`cache_specs`,
 :func:`batch_specs`) take the port's nested dicts and lists of tensors and
@@ -397,13 +396,23 @@ def device_mesh(axes: MeshAxes, device_type: str = "cuda"):
                             mesh_dim_names=axes.names)
 
 
-# (parent/leaf) -> the dimension, from the right, of the leaf's block that
-# the port's layers run on a "model" rank (``models.layers``: attn_qkv,
-# attn_out, mlp, embed, unembed, moe_a2a), and what it is
-EXECUTED = {"embed": (-2, "vocabulary"), "unembed": (-1, "vocabulary"),
-            "attn/wq": (-2, "heads"), "attn/wk": (-2, "heads"), "attn/wv": (-2, "heads"),
-            "attn/wo": (-3, "heads"), "mlp/wi": (-1, "F"), "mlp/wg": (-1, "F"),
-            "mlp/wo": (-2, "F"), "moe/w_in": (-3, "experts"), "moe/w_out": (-3, "experts")}
+# (parent/leaf) -> {the dimension, from the right, of the leaf's block that
+# the port's layers run on a "model" rank: what it is} (``models.layers``:
+# attn_qkv, attn_out and AttnHeads, mlp, embed, unembed, rglru, moe_a2a); an
+# encoder's, a decoder's and a cross attention's leaves alike
+_HEADS = {-2: "heads", -1: "head_dim"}
+_WIDTH = {-1: "width"}
+EXECUTED = {"embed": {-2: "vocabulary"}, "unembed": {-1: "vocabulary"},
+            "attn/wq": _HEADS, "attn/wk": _HEADS, "attn/wv": _HEADS,
+            "attn/wo": {-3: "heads", -2: "head_dim"},
+            "mlp/wi": {-1: "F"}, "mlp/wg": {-1: "F"}, "mlp/wo": {-2: "F"},
+            "rglru/w_x": _WIDTH, "rglru/w_gate_in": _WIDTH, "rglru/w_a": _WIDTH,
+            "rglru/w_i": _WIDTH, "rglru/w_out": {-2: "width"},
+            "moe/w_in": {-3: "experts"}, "moe/w_out": {-3: "experts"}}
+# (wq, wk, wv, wo) dimensions an attention block runs with: whole; everything
+# on heads; q and o on heads, k and v on head_dim; everything on head_dim
+ATTENTION_SPLITS = {(None, None, None, None), (-2, -2, -2, -3), (-2, -1, -1, -3),
+                    (-1, -1, -1, -2)}
 
 
 def _role(name: str) -> str:
@@ -426,45 +435,39 @@ def model_placements(params: Any, tp: int) -> Dict[str, Optional[int]]:
     whole} for every leaf of ``params``: where the serve rules
     (:func:`param_specs` at a ("data", "model") mesh of (1, ``tp``)) place
     the leaf on "model" and a layer of the port runs that block
-    (``EXECUTED``).  An attention block is split only whole: its q, k, v
-    and o projections all on heads (the rank's query heads need their KV
-    heads), or none.
+    (``EXECUTED``): the attention's projections on heads or head_dim, in
+    the combinations the rules make (``ATTENTION_SPLITS``), an encoder's,
+    decoder's and cross attention's as a decoder's; the MLP's F; the
+    RG-LRU's width; the vocabulary; the experts.
 
-    Where the rules place a leaf that no layer runs a block of, or split an
-    attention block only in part, a tree with MoE experts (served
-    expert-parallel) keeps the leaf, or the attention block, whole on every
-    rank; a tree without (whose ranks are for tensor parallelism alone)
-    raises ``ValueError``, naming the leaf and the rule, as it does for any
-    placement of an encoder-decoder's."""
+    Where the rules place a leaf that no layer runs a block of, a tree with
+    MoE experts (served expert-parallel) keeps the leaf whole on every rank
+    (experts that do not divide, on their FFN width, for the dropless
+    fallback); a tree without (whose ranks are for tensor parallelism
+    alone: the SSD's leaves) raises ``ValueError``, naming the leaf and the
+    rule."""
     axes = MeshAxes(("data", "model"), (1, tp))
     leaves = list(leaves_with_names(params))
     experts = any(_role(name) == "moe/w_in" for name, _ in leaves)
-    enc_dec = isinstance(params, dict) and "cross" in params
     dims: Dict[str, Optional[int]] = {}
     for name, leaf in leaves:
         shape = tuple(leaf.shape)
         dim = _model_dim(_param_spec(name, shape, axes, "serve"), len(shape))
-        run = EXECUTED.get(_role(name))
-        if dim is not None and (enc_dec or run is None or run[0] != dim):
+        run = EXECUTED.get(_role(name), {})
+        if dim is not None and dim not in run:
             if not experts:
-                what = ("the encoder-decoder runs whole on each rank" if enc_dec else
-                        "no layer of the port runs a block of this leaf" if run is None else
-                        f"the port runs its block on {run[1]} (dimension {run[0]}) only")
+                what = ("no layer of the port runs a block of this leaf" if not run else
+                        "the port runs its block on " + " or ".join(
+                            f"{v} (dimension {k})" for k, v in run.items()) + " only")
                 raise ValueError(f"{name} {shape}: the serve rules (launch.mesh._param_spec) "
                                  f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
             dim = None                          # whole, as expert parallelism runs it
         dims[name] = dim
     for name in [n for n in dims if n.endswith("attn/wq")]:
-        block = [name[:-2] + w for w in ("wq", "wk", "wv", "wo")]
-        split = [dims[n] is not None for n in block]
-        if any(split) and not all(split):
-            if not experts:
-                whole = block[split.index(False)]
-                raise ValueError(
-                    f"{whole}: the serve rules place it on 'model' nowhere at {tp} ranks, "
-                    f"but {block[split.index(True)]} on its heads: a rank's query heads "
-                    f"need their KV heads")
-            dims.update((n, None) for n in block)
+        split = tuple(dims[name[:-2] + w] for w in ("wq", "wk", "wv", "wo"))
+        if split not in ATTENTION_SPLITS:
+            raise ValueError(f"{name[:-3]}: the serve rules place wq, wk, wv, wo on dimensions "
+                             f"{split} at {tp} ranks, a split no attention layer of the port runs")
     return dims
 
 

@@ -4,33 +4,43 @@
         --arch llama3_70b --layers 16 --ranks 4 --batch 4 --prompt 256 --decodes 4
     PYTHONPATH=src python -m repro_torch.launch.parallel \\
         --arch qwen3_30b_a3b --layers 8 --ranks 2 --batch 4 --prompt 512
+    PYTHONPATH=src python -m repro_torch.launch.parallel \\
+        --arch whisper_base --ranks 2 --batch 4 --prompt 64 --frames 1500 --decodes 4
 
 It starts ``--ranks`` processes of itself, which meet in a gloo group
 through a ``FileStore`` in a temporary directory, on a ("data", "model")
 mesh of (1, ranks).  Each rank builds only its blocks of the model from
 seed 0 (``launch.mesh.build_params``: each leaf that the serve rules place
-on "model" — the attention's heads, the MLP's F, the embeddings'
-vocabulary, the MoE's experts — drawn whole as the one-process model draws
-it and cut to the rank's block at once; an MoE's attention whose K/V do not
-split on heads, and experts that do not divide, stay whole, as
-``launch.mesh.model_placements`` says) and the cache of its blocks' KV heads
-(``init_cache(..., params=)``), then prefills ``--batch`` prompts of
-``--prompt`` random tokens (numpy seed 0) into the fresh cache and decodes
-``--decodes`` more tokens (drawn after the prompts) through
-``decode_slots``.  The dense layers run Megatron's split
-(``models.layers``): a rank's query heads over their KV heads, K1 and K2 on
-those heads; the attention's and the MLP's partial outputs reduced over
-"model" in fp32; the vocabulary's logits gathered.  An MoE model also runs
+on "model" — the attention's heads, or head_dim where the heads do not
+split, the MLP's F, the RG-LRU's width, the embeddings' vocabulary, the
+MoE's experts — drawn whole as the one-process model draws it and cut to
+the rank's block at once; experts that do not divide stay whole, as
+``launch.mesh.model_placements`` says) and the cache of its blocks
+(``init_cache(..., params=)``: KV heads or head_dim, the RG-LRU states'
+width), then prefills ``--batch`` prompts of ``--prompt`` random tokens
+(numpy seed 0) into the fresh cache, after ``--frames`` random frame
+embeddings a row for an encoder-decoder (numpy seed 0, a generator of their
+own), and decodes ``--decodes`` more tokens (drawn after the prompts)
+through ``decode_slots``.  The dense layers run Megatron's split
+(``models.layers``): a rank's query heads (every one where they do not
+split) over their KV heads, gathered to whole heads where the cache holds a
+block of head_dim, K1 and K2 on those heads; the RG-LRU on its block of the
+width, its conv'd input gathered; the attention's, the MLP's and the
+RG-LRU's partial outputs reduced over "model" in fp32; the vocabulary's
+logits gathered.  An MoE model also runs
 ``moe_impl="a2a"`` and prefills once more into a fresh cache for each
 capacity factor (:func:`capacity_factors`): a prefill runs
 ``layers.moe_a2a`` in every MoE layer (the all-to-all: the ranks split the
 sequence), a decode its dropless fallback on the sharded experts.
 
 Each rank saves its logits at every step, the milliseconds of its prefills
-and decodes (the host's clock, the device synchronised), each MoE layer's
-milliseconds and dropped pairs, its kernel launch counts, its leaves' and
-cache's shapes and, on the card, the bytes its parameters and its cache
-hold (``torch.cuda.memory_allocated()`` grown by building each).  The
+and decodes (the host's clock, the device synchronised) and of each
+decode's K2 calls, gathers and all-reduces (:func:`timing`), the bytes it
+received through the head_dim and RG-LRU gathers in each
+(``layers.GATHERED``), each MoE layer's milliseconds and dropped pairs, its
+kernel launch counts, its leaves' and cache's shapes and, on the card, the
+bytes its parameters and its cache hold (``torch.cuda.memory_allocated()``
+grown by building each).  The
 launcher then runs :func:`reference`, prints :func:`summary` and applies
 :func:`check`; it exits non-zero if a rank fails or a check does.
 
@@ -83,6 +93,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--decodes", type=int, default=1)
+    ap.add_argument("--frames", type=int, default=0,
+                    help="frame embeddings a row for an encoder-decoder (0: none)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--rank", type=int, default=-1, help=argparse.SUPPRESS)
@@ -128,43 +140,87 @@ def tokens(args: argparse.Namespace, vocab: int, device):
     return torch.from_numpy(prompt).to(device), torch.from_numpy(fed).to(device)
 
 
+def frames(args: argparse.Namespace, d_model: int, device, dtype):
+    """The frame embeddings (batch, frames, d_model) of an encoder-decoder,
+    standard normal from a numpy generator of seed 0 of their own; None
+    without ``--frames``."""
+    import torch
+    if not args.frames:
+        return None
+    fe = np.random.default_rng(SEED).standard_normal((args.batch, args.frames, d_model))
+    return torch.from_numpy(fe.astype(np.float32)).to(device=device, dtype=dtype)
+
+
 def cache_len(args: argparse.Namespace) -> int:
     return -(-(args.prompt + args.decodes) // 16) * 16
 
 
+def _init_cache(args, model, dtype, device, params):
+    extra = {"enc_frames": args.frames} if args.frames else {}
+    return model.init_cache(args.batch, cache_len(args), dtype, device, params=params, **extra)
+
+
+MOE_FNS = ("moe", "moe_a2a")
+# what a decode step's time is split into: K2, and the collectives over
+# "model" that the model's own layers call
+PARTS = {"paged_attention": "K2", "_all_gather": "gathers", "_all_reduce": "reduces"}
+
+
 @contextlib.contextmanager
-def moe_timing(device):
-    """Record each MoE block's milliseconds (host clock around the call,
-    the device synchronised before and after) and its ``dropped`` count
-    while the block runs: ``layers.moe`` and ``layers.moe_a2a``, which the
-    model looks up at each call, are wrapped and restored after."""
+def timing(device):
+    """Record the milliseconds of each call (host clock around it, the
+    device synchronised before and after) to ``layers.moe``,
+    ``layers.moe_a2a`` (with its ``dropped`` count), ``ops.paged_attention``
+    (K2) and the gathers and all-reduces over "model" (``layers._all_gather``,
+    ``layers._all_reduce``) while the model runs: the model looks each up at
+    each call, so each is wrapped and restored after.  A call inside a timed
+    call (an MoE block's collectives) is not timed apart."""
+    from repro_torch.kernels import ops
     from repro_torch.models import layers as L
+    targets = [(L, name) for name in MOE_FNS + ("_all_gather", "_all_reduce")]
+    targets.append((ops, "paged_attention"))
     calls: List[Dict] = []
     depth = [0]
 
-    def wrap(fn):
-        def timed(cfg, p, x, **kw):
-            if depth[0]:                    # a fallback inside a timed call
-                return fn(cfg, p, x, **kw)
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
             depth[0] += 1
             _sync(device)
             t0 = time.perf_counter()
             try:
-                y, aux = fn(cfg, p, x, **kw)
+                out = fn(*a, **kw)
                 _sync(device)
             finally:
                 depth[0] -= 1
-            calls.append({"fn": fn.__name__, "ms": (time.perf_counter() - t0) * 1e3,
+            aux = out[1] if name in MOE_FNS else {}
+            calls.append({"fn": name, "ms": (time.perf_counter() - t0) * 1e3,
                           "dropped": int(aux["dropped"]) if "dropped" in aux else None})
-            return y, aux
+            return out
         return timed
 
-    originals = L.moe, L.moe_a2a
-    L.moe, L.moe_a2a = wrap(L.moe), wrap(L.moe_a2a)
+    originals = [getattr(mod, name) for mod, name in targets]
+    for (mod, name), fn in zip(targets, originals):
+        setattr(mod, name, wrap(name, fn))
     try:
         yield calls
     finally:
-        L.moe, L.moe_a2a = originals
+        for (mod, name), fn in zip(targets, originals):
+            setattr(mod, name, fn)
+
+
+def _moe_calls(calls: List[Dict]) -> List[Dict]:
+    return [c for c in calls if c["fn"] in MOE_FNS]
+
+
+def _parts_ms(calls: List[Dict]) -> Dict[str, float]:
+    """{"K2", "gathers", "reduces": milliseconds summed over ``calls``}."""
+    out = dict.fromkeys(PARTS.values(), 0.0)
+    for c in calls:
+        if c["fn"] in PARTS:
+            out[PARTS[c["fn"]]] += c["ms"]
+    return out
 
 
 def _sync(device) -> None:
@@ -189,48 +245,62 @@ def _serve(args, cfg_of, params, device, dtype) -> Dict:
     each capacity factor into a fresh cache (the model of ``cfg_of(cf)``),
     and decode ``--decodes`` tokens of every row through ``decode_slots``
     after the first.  Returns {"prefill": [{"cf", "logits", "moe",
-    "launches", "ms"}], "decode": {"logits": [...], "ms": [...], "moe",
-    "launches"}, "cache": the first cache's leaf shapes, "cache_bytes"}."""
+    "launches", "ms", "gathered"}], "decode": {"logits": [...], "ms": [...],
+    "gathered": [...], "parts": [...], "moe", "launches"}, "cache": the
+    first cache's leaf shapes, "cache_bytes"}; "gathered" is {what: bytes}
+    received through ``layers.GATHERED``'s gathers in the prefill or each
+    decode, "parts" each decode's :func:`_parts_ms`."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.models import layers
     from repro_torch.models.transformer import build_model
     out: Dict = {"prefill": []}
     cf_list = capacity_factors(args)
-    prompt, fed = tokens(args, cfg_of(cf_list[0]).vocab_size, device)
+    cfg = cfg_of(cf_list[0])
+    prompt, fed = tokens(args, cfg.vocab_size, device)
+    fe = frames(args, cfg.d_model, device, dtype)
+    inputs = {"tokens": prompt} if fe is None else {"tokens": prompt, "frontend_embeds": fe}
     rows = torch.arange(args.batch, device=device)
     with torch.no_grad():                    # a warm-up, so that no timed call is a first one
-        model = build_model(cfg_of(cf_list[0]))
-        cache = model.init_cache(args.batch, cache_len(args), dtype, device, params=params)
-        model.prefill(params, {"tokens": prompt}, cache)
+        model = build_model(cfg)
+        cache = _init_cache(args, model, dtype, device, params)
+        model.prefill(params, inputs, cache)
         model.decode_slots(params, cache, fed[0], rows)
         del cache
     for i, cf in enumerate(cf_list):
         model = build_model(cfg_of(cf))
         before = _allocated(device)
-        cache = model.init_cache(args.batch, cache_len(args), dtype, device, params=params)
+        cache = _init_cache(args, model, dtype, device, params)
         if i == 0:
             out.update(cache=_shapes(cache), cache_bytes=_allocated(device) - before)
         ops.reset_launch_counts()
-        with torch.no_grad(), moe_timing(device) as calls:
+        layers.GATHERED.clear()
+        with torch.no_grad(), timing(device) as calls:
             t0 = time.perf_counter()
-            logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+            logits, cache = model.prefill(params, inputs, cache)
             _sync(device)
             ms = (time.perf_counter() - t0) * 1e3
-        out["prefill"].append({"cf": cf, "logits": logits.float().cpu(), "moe": calls,
-                               "launches": ops.launch_counts(), "ms": ms})
+        out["prefill"].append({"cf": cf, "logits": logits.float().cpu(),
+                               "moe": _moe_calls(calls), "launches": ops.launch_counts(),
+                               "ms": ms, "gathered": dict(layers.GATHERED)})
         if i == 0:
-            steps, step_ms = [], []
+            steps, step_ms, gathered, parts = [], [], [], []
             ops.reset_launch_counts()
-            with torch.no_grad(), moe_timing(device) as calls:
+            with torch.no_grad(), timing(device) as calls:
                 for t in range(args.decodes):
+                    layers.GATHERED.clear()
+                    first = len(calls)
                     t0 = time.perf_counter()
                     step = model.decode_slots(params, cache, fed[t], rows)
                     _sync(device)
                     step_ms.append((time.perf_counter() - t0) * 1e3)
                     steps.append(step.float().cpu())
-            out["decode"] = {"logits": steps, "ms": step_ms, "moe": calls,
-                             "launches": ops.launch_counts()}
+                    gathered.append(dict(layers.GATHERED))
+                    parts.append(_parts_ms(calls[first:]))
+            out["decode"] = {"logits": steps, "ms": step_ms, "moe": _moe_calls(calls),
+                             "launches": ops.launch_counts(), "gathered": gathered,
+                             "parts": parts}
         del cache
     return out
 
@@ -306,7 +376,8 @@ def launch(args: argparse.Namespace) -> List[Dict]:
         base = [sys.executable, "-m", "repro_torch.launch.parallel",
                 "--arch", args.arch, "--layers", str(args.layers), "--ranks", str(args.ranks),
                 "--batch", str(args.batch), "--prompt", str(args.prompt),
-                "--decodes", str(args.decodes), "--device", args.device, "--dtype", args.dtype,
+                "--decodes", str(args.decodes), "--frames", str(args.frames),
+                "--device", args.device, "--dtype", args.dtype,
                 "--out", str(out), "--store", str(out / "store")]
         base += (["--reduced"] if args.reduced else []) + [
             a for kv in args.config for a in ("--config", kv)]
@@ -360,6 +431,8 @@ def summary(ranks: List[Dict], ref: Dict) -> List[str]:
             line += (f"; {dropped} (token, choice) pairs dropped over {len(pre['moe'])} MoE "
                      f"layers; MoE ms by rank {moe_ms}, dropless "
                      f"{sum(c['ms'] for c in ref_pre['moe']):.3f}")
+        if pre["gathered"]:
+            line += f"; gathered by each rank {pre['gathered']} bytes"
         lines.append(line)
     dec, ref_dec = ranks[0]["decode"], ref["decode"]
     worst = max((_rel(g, e) for g, e in zip(dec["logits"], ref_dec["logits"])), default=0.0)
@@ -367,6 +440,10 @@ def summary(ranks: List[Dict], ref: Dict) -> List[str]:
             f"{[[round(ms, 3) for ms in r['decode']['ms']] for r in ranks]}, one process "
             f"{[round(ms, 3) for ms in ref_dec['ms']]}; logits at most {worst:.3e} from the "
             "one-process model's")
+    if any(dec["gathered"]):
+        line += f"; gathered by each rank a step {dec['gathered']} bytes"
+    line += ("; of each step, ms in " + "/".join(PARTS.values()) + " by rank "
+             f"{[[[round(ms, 3) for ms in p.values()] for p in r['decode']['parts']] for r in ranks]}")
     if dec["moe"]:
         line += (f"; MoE ms by rank "
                  f"{[round(sum(c['ms'] for c in r['decode']['moe']), 3) for r in ranks]}")
@@ -378,25 +455,22 @@ def expected(args: argparse.Namespace):
     """What a rank must hold: ({leaf: shape} of its parameters and of its
     cache, and the bytes of each tensor), from the whole trees on the meta
     device: each leaf the :func:`~repro_torch.launch.mesh.shard_shape` of its
-    serve placement at a (1, ranks) mesh, or whole where
-    :func:`~repro_torch.launch.mesh.model_placements` keeps it whole (an
-    expert-parallel model's attention whose K/V do not split on heads, and
-    then the cache's K/V too)."""
+    serve placement at a (1, ranks) mesh (the cache's by the cache rules),
+    or whole where :func:`~repro_torch.launch.mesh.model_placements` keeps
+    it whole (an expert-parallel model's experts that do not divide)."""
     import torch
 
     from repro_torch.launch import mesh
     from repro_torch.models.transformer import build_model
     axes = mesh.MeshAxes(("data", "model"), (1, args.ranks))
     dtype = getattr(torch, args.dtype)
+    cfg = model_config(args)
     with mesh.use_mesh(None):
-        model = build_model(model_config(args))
+        model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), dtype, device="meta")
-        cache = model.init_cache(args.batch, cache_len(args), dtype, device="meta")
+        cache = _init_cache(args, model, dtype, "meta", None)
     dims = mesh.model_placements(params, args.ranks)
-    kv_split = any(dims[n] is not None for n in dims if n.endswith("attn/wk"))
-    whole = {"params": {n for n, d in dims.items() if d is None},
-             "cache": {n for n, _ in mesh.leaves_with_names(cache)
-                       if not kv_split and n.rsplit("/", 1)[-1] in ("k", "v")}}
+    whole = {"params": {n for n, d in dims.items() if d is None}, "cache": set()}
     out = []
     for what, tree, specs in (("params", params, mesh.param_specs(params, axes, "serve")),
                               ("cache", cache, mesh.cache_specs(cache, axes, batch=args.batch))):
@@ -408,6 +482,18 @@ def expected(args: argparse.Namespace):
                  for name, leaf in mesh.leaves_with_names(tree)]
         out.append((shapes, sizes))
     return out
+
+
+def kernel_launches(args: argparse.Namespace):
+    """(K1 launches a prefill, K2 launches a decode) of every rank on the
+    card: one a prefill and one a decode in each attention layer, and for an
+    encoder-decoder also each cross attention and, given frames, each
+    encoder layer's K1."""
+    cfg = model_config(args)
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    if not cfg.is_enc_dec:
+        return n_attn, n_attn
+    return 2 * n_attn + (cfg.encoder.num_layers if args.frames else 0), 2 * n_attn
 
 
 def allocation_bounds(sizes: List[int]):
@@ -424,7 +510,9 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     of the parameters and of the cache (the shapes of its placements; on the
     card, the allocation's bytes within :func:`allocation_bounds` of them);
     every prefill ran, on the card, K1 once an attention layer, and the
-    decodes K2 once an attention layer a decode; the ranks' logits agree
+    decodes K2 once an attention layer a decode (:func:`kernel_launches`:
+    an encoder-decoder's cross attention and encoder too); the ranks'
+    logits agree
     (1e-6 of the largest) at every step; the prefill's logits (an MoE's at
     the first capacity factor, where nothing may drop, and through
     ``moe_a2a`` in every layer) and every decode's lie within ``tol`` of the
@@ -432,7 +520,7 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     (batch, vocab).  Returns the ranks' kernel launches, summed."""
     import torch
     cfg = model_config(args)
-    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
+    k1, k2 = kernel_launches(args)
     cuda = args.device != "cpu"
     (p_shapes, p_sizes), (c_shapes, c_sizes) = expected(args)
     launches: collections.Counter = collections.Counter()
@@ -453,7 +541,7 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
         for i, pre in enumerate(r["prefill"]):
             if cfg.moe is not None and [c["fn"] for c in pre["moe"]] != ["moe_a2a"] * cfg.num_layers:
                 raise AssertionError(f"{who} prefill {i}: MoE calls {pre['moe']}")
-            if cuda and pre["launches"]["flash_attention"] != n_attn:
+            if cuda and pre["launches"]["flash_attention"] != k1:
                 raise AssertionError(f"{who} prefill {i}: K1 launched "
                                      f"{pre['launches']}, not once an attention layer")
             apart = _rel(pre["logits"], ranks[0]["prefill"][i]["logits"])
@@ -464,7 +552,7 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
             apart = _rel(step, ranks[0]["decode"]["logits"][t])
             if apart > 1e-6:
                 raise AssertionError(f"{who}'s decode {t} logits are {apart} from rank 0's")
-        if cuda and r["decode"]["launches"]["paged_attention"] != n_attn * args.decodes:
+        if cuda and r["decode"]["launches"]["paged_attention"] != k2 * args.decodes:
             raise AssertionError(f"{who} decodes: K2 launched {r['decode']['launches']}")
         launches.update(r["decode"]["launches"])
     first = ranks[0]["prefill"][0]

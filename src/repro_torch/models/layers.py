@@ -26,19 +26,24 @@ MoE over the ``torch.distributed`` ranks of the ambient mesh's "model"
 axis (:func:`use_mesh`, :func:`ambient_mesh`; the mesh itself and the
 weights' cut come from :mod:`repro_torch.launch.mesh`).  The dense layers
 (:func:`attn_qkv`, :func:`attn_out`, :func:`mlp`, :func:`embed`,
-:func:`unembed`) run on a rank's block of their weights wherever they are
-given one (:func:`tp_group`): Megatron's tensor parallelism over the same
-ranks.  :func:`rglru` runs
+:func:`unembed`) and :func:`rglru` run on a rank's block of their weights
+wherever they are given one (:func:`tp_group`): Megatron's tensor
+parallelism over the same ranks, the attention's on its heads or on
+head_dim where the heads do not split (:class:`AttnHeads`), the RG-LRU's
+on its width.  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import math
 import threading
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -269,25 +274,141 @@ def _proj_heads(x, w):
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def attn_qkv(cfg: ModelConfig, p, x, positions):
-    """q, k, v (B, T, heads, D) of x (B, T, d).  A rank that holds its block
-    of the heads (``wq`` with Hq / tp of them; :func:`tp_group`) computes
-    query heads [m·Hq/tp, (m+1)·Hq/tp) and KV heads [m·Hkv/tp, (m+1)·Hkv/tp),
-    whose contiguous blocks keep each query head with its KV head; x enters
-    through ``_Copy`` and the replicated biases give the rank their heads'
-    slice."""
-    group = tp_group(p["wq"].shape[-2], cfg.num_heads)
-    if group is not None:
-        x = _Copy.apply(x, group)
-    q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
-    if cfg.qkv_bias:
-        bq, bk, bv = p["bq"], p["bk"], p["bv"]
-        if group is not None:
-            bq, bk, bv = (_own_block(_Copy.apply(b, group), -2, w.shape[-2], group)
-                          for b, w in ((bq, p["wq"]), (bk, p["wk"]), (bv, p["wv"])))
-        q, k, v = q + bq, k + bk, v + bv
+# bytes this process received through the gathers of a tensor-parallel rank,
+# by what they gathered: "head_dim" (the attention's projections and cache
+# on head_dim) and "rglru" (the RG-LRU's conv'd input); read and reset by
+# the caller (``launch.parallel``)
+GATHERED: collections.Counter = collections.Counter()
+
+
+@dataclass
+class AttnHeads:
+    """How a rank holds one attention layer, read from its projections'
+    shapes (``launch.mesh.shard_params`` cuts them by the serve rules):
+
+    * every projection whole (``group`` None), or
+    * ``wq``/``wo`` on the query heads or, where they do not split over the
+      "model" ranks, on head_dim (``q_dh``: the rank then attends for every
+      query head and keeps its block of the context's head_dim for its rows
+      of ``wo``), and
+    * ``wk``/``wv`` on the KV heads or on head_dim (``kv_dh``: the rank's
+      cache holds its block of head_dim of every KV head).
+
+    Attention needs whole heads, so a head_dim block is gathered over
+    "model" (:func:`attn_qkv`, :meth:`gathered`).  Rank m's query heads
+    are [m·hq, (m+1)·hq) of the Hq (all of them where ``q_dh``); ``kv_sel``
+    picks, from the KV heads that k holds, those heads' KV heads in the
+    order K1 and K2 pair them (query head i with KV head i // (hq / n) of n):
+    None where that is all of them, else the slice of them that the rank's
+    queries read evenly."""
+
+    group: Any
+    rank: int
+    tp: int
+    head_dim: int
+    q_dh: bool
+    kv_dh: bool
+    kv_sel: Any
+
+    def dh_block(self, t):
+        """This rank's block of the last dimension (head_dim) of ``t``."""
+        n = self.head_dim // self.tp
+        return t.narrow(-1, self.rank * n, n)
+
+    def cached(self, k):
+        """What this rank's cache keeps of ``k`` (.., KV heads, D)."""
+        return self.dh_block(k) if self.kv_dh else k
+
+    def attended(self, k):
+        """The KV heads of ``k`` (.., KV heads, D) this rank's queries read,
+        dense past the batch dimension where they are not all of them, as
+        K1 and K2 take them."""
+        return k if self.kv_sel is None else k[..., self.kv_sel, :].contiguous()
+
+    def gathered(self, kc):
+        """The attended KV heads, whole, of a block of this rank's cache
+        (.., KV heads, D or its block of D): its head_dim blocks gathered
+        over "model" where the cache is on head_dim (contiguous)."""
+        if self.kv_dh:
+            GATHERED["head_dim"] += kc.numel() * kc.element_size() * (self.tp - 1)
+            kc = _all_gather(kc, kc.dim() - 1, self.group)
+        return self.attended(kc)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_heads(head_dim: int) -> AttnHeads:
+    return AttnHeads(group=None, rank=0, tp=1, head_dim=head_dim, q_dh=False, kv_dh=False,
+                     kv_sel=None)
+
+
+def attn_heads(cfg: ModelConfig, p) -> AttnHeads:
+    """:class:`AttnHeads` of the attention parameters ``p`` (a rank's blocks
+    or the whole layer).  Raises where the rank's query heads would read
+    their KV heads unevenly, which K1 and K2 cannot pair."""
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, dq = p["wq"].shape[-2:]
+    hk, dk = p["wk"].shape[-2:]
+    group = tp_group(hq * dq, Hq * D)
+    if group is None:
+        group = tp_group(hk * dk, Hkv * D)
+    if group is None:
+        return _whole_heads(D)
+    m, tp = _rank_and_size(group)
+    G = Hq // Hkv
+    q0, k0 = (m * hq if hq != Hq else 0), (m * hk if hk != Hkv else 0)
+    if q0 % G == 0 and hq % G == 0:
+        n = hq // G                     # whole groups of G query heads
+    elif G % hq == 0:
+        n = 1                           # a part of one KV head's group
+    else:
+        raise ValueError(f"query heads {q0}..{q0 + hq - 1} of {Hq} read their KV heads "
+                         f"(groups of {G}) unevenly")
+    first = q0 // G - k0
+    if first < 0 or first + n > hk:
+        raise ValueError(f"query heads {q0}..{q0 + hq - 1} of {Hq} need KV heads "
+                         f"{first}..{first + n - 1} counted from {k0}, not among the {hk} "
+                         "a rank holds")
+    sel = None if (first, n) == (0, hk) else slice(first, first + n)
+    return AttnHeads(group=group, rank=m, tp=tp, head_dim=D, q_dh=dq != D, kv_dh=dk != D,
+                     kv_sel=sel)
+
+
+def attn_project(p, x, name: str, heads: AttnHeads, *, bias: bool = True, whole: bool = True):
+    """``x @ p["w" + name]`` (B, T, heads, D): the rank's block of the
+    projection, plus the same block of the replicated bias ``b<name>``
+    where there is one and ``bias``; a head_dim block is gathered over
+    "model" into whole heads unless ``whole`` is False."""
+    w = p["w" + name]
+    y = _proj_heads(x, w)
+    b = p.get("b" + name) if bias else None
+    if b is not None:
+        if heads.group is not None:
+            b = _Copy.apply(b, heads.group)
+            for dim in (-2, -1):
+                if w.shape[dim] != b.shape[dim]:
+                    b = _own_block(b, dim, w.shape[dim], heads.group)
+        y = y + b
+    if whole and w.shape[-1] != heads.head_dim:
+        GATHERED["head_dim"] += y.numel() * y.element_size() * (heads.tp - 1)
+        y = _Gather.apply(y, y.dim() - 1, heads.group)
+    return y
+
+
+def attn_qkv(cfg: ModelConfig, p, x, positions, heads: Optional[AttnHeads] = None):
+    """q, k, v (B, T, heads, D) of x (B, T, d), each over the whole head_dim
+    D.  On a rank (:class:`AttnHeads`) each projection is its block, plus
+    the bias's block, and a head_dim block is gathered over "model" before
+    RoPE, which rotates the halves of the whole head_dim: q holds the
+    rank's query heads (every one where ``wq`` is on head_dim), k and v the
+    KV heads of its weights (every one where ``wk`` is on head_dim), of
+    which ``AttnHeads.cached`` and ``attended`` take what the cache keeps
+    and what the queries read.  x enters through ``_Copy``.  ``heads`` is
+    :func:`attn_heads` of ``p``, where the caller has it."""
+    if heads is None:
+        heads = attn_heads(cfg, p)
+    if heads.group is not None:
+        x = _Copy.apply(x, heads.group)
+    q, k, v = (attn_project(p, x, name, heads) for name in "qkv")
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -295,11 +416,16 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
 
 
 def attn_out(cfg: ModelConfig, p, ctx):
-    """einsum("bthk,hkd->btd") as one matmul over the flattened heads; a
-    rank's block of the heads gives a partial sum, reduced over "model"."""
+    """einsum("bthk,hkd->btd") as one matmul over the flattened heads.  A
+    rank's block of ``wo`` gives a partial sum, reduced over "model": its
+    query heads' rows, or, on head_dim, its block of every head's D rows,
+    which take the same block of the whole-head context."""
     h, k, d = p["wo"].shape[-3:]
+    group = tp_group(h * k, cfg.num_heads * cfg.head_dim)
+    if k != ctx.shape[-1]:
+        ctx = _own_block(ctx, ctx.dim() - 1, k, group)
     y = ctx.flatten(-2) @ p["wo"].reshape(h * k, d)
-    return _reduce_partial(y, tp_group(h, cfg.num_heads))
+    return _reduce_partial(y, group)
 
 
 # --------------------------------------------------------------------------
@@ -425,12 +551,23 @@ def grouped_mm_loop(x, w, group_sizes):
     return out
 
 
+def _combine(pairs, gate):
+    """Each token's K expert outputs ``pairs`` (n·K, d), in the order of its
+    choices, weighted by ``gate`` (n, K) and summed: (n, d) in their type.
+    A sum over a fixed axis, not the reference's scatter-add, whose
+    ``index_add_`` on the card adds in whatever order the atomics land and
+    so rounds a bf16 row differently from run to run (ROADMAP C1)."""
+    n, K = gate.shape
+    return (pairs.view(n, K, -1) * gate[..., None].to(pairs.dtype)).sum(dim=1)
+
+
 def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     """Dropless MoE, as the reference: route, sort the (token, choice) pairs
-    by expert (stable), two grouped products, scatter-add back weighted by
-    the gates.  x: (B, T, d) -> (y (B, T, d), {"moe_aux_loss",
-    "expert_load"}), the Switch-style load-balance loss and each expert's
-    share of the n·K choices.  ``force="plain"`` runs the per-expert loop."""
+    by expert (stable), two grouped products, then each token's outputs
+    weighted by the gates and summed (:func:`_combine`).  x: (B, T, d) ->
+    (y (B, T, d), {"moe_aux_loss", "expert_load"}), the Switch-style
+    load-balance loss and each expert's share of the n·K choices.
+    ``force="plain"`` runs the per-expert loop."""
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape
@@ -452,10 +589,7 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     else:
         h = F.gelu(h, approximate="tanh")
     ys = grouped_mm(h, p["w_out"], group_sizes, force=force)         # (n*K, d)
-
-    flat_gate = gate.reshape(-1)[sort_idx]
-    ys = ys * flat_gate[:, None].to(ys.dtype)
-    out = torch.zeros((n, d), dtype=ys.dtype, device=x.device).index_add_(0, token_of, ys)
+    out = _combine(torch.empty_like(ys).index_copy(0, sort_idx, ys), gate)  # in pair order
 
     me = probs.mean(dim=0)                                            # (E,)
     ce = group_sizes.float() / (n * K)
@@ -671,7 +805,7 @@ def moe_a2a(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
       slot) with an all-to-all, runs its experts' two grouped products on
       the received rows sorted by expert, and sends the results back with
       a second one;
-    * scatter-adds them weighted by gate × keep.
+    * sums each token's results weighted by gate × keep (:func:`_combine`).
 
     The blocks are then all-gathered over "model", so every rank holds the
     whole (B, T, d) output again: the port's counterpart of the resharding
@@ -730,8 +864,7 @@ def moe_a2a(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     local_id = _exchange(send_e, group)
     back = _exchange(_local_experts(cfg, p, rows, local_id, E_loc, force), group)
 
-    got = back[at] * (gate.reshape(-1) * keep)[:, None].to(back.dtype)
-    y = torch.zeros((n_loc, d), dtype=got.dtype, device=x.device).index_add_(0, tok_of, got)
+    y = _combine(back[at], gate * keep.view(n_loc, K))
     y = _Gather.apply(y.reshape(B, T_loc, d), 1, group)
 
     load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
@@ -773,9 +906,7 @@ def _moe_expert_sharded(cfg: ModelConfig, p, x, group, m: int, ep: int, force):
     local_id = torch.where(flat_e // E_loc == m, flat_e - m * E_loc, -1)
     token_of = torch.arange(n * K, device=x.device) // K
     ys = _local_experts(cfg, p, xf[token_of], local_id, E_loc, force)
-    ys = ys * gate.reshape(-1)[:, None].to(ys.dtype)
-    part = torch.zeros((n, d), dtype=ys.dtype, device=x.device).index_add_(0, token_of, ys)
-    y = _reduce_partial(part, group)
+    y = _reduce_partial(_combine(ys, gate), group)
 
     load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
@@ -856,21 +987,40 @@ def rglru(cfg: ModelConfig, p, x, h0=None, conv_state=None):
 
     h_t = a_t ⊙ h_{t−1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ u_t) with
     a_t = exp(−8 · softplus(Λ) · r_t), the r and i gates from the conv'd
-    input branch; the recurrence runs in fp32 (:func:`rglru_scan`)."""
+    input branch; the recurrence runs in fp32 (:func:`rglru_scan`).
+
+    A rank that holds its block of the width W (the columns of ``w_x``,
+    ``w_gate_in``, ``w_a`` and ``w_i``, the rows of ``w_out``) runs its W/tp
+    channels, the recurrence being elementwise in W: its slice of the
+    replicated ``conv`` and Λ, its states (h0 and the conv state: (B, W/tp)
+    and (B, K−1, W/tp)), and the gates' products over the whole conv'd
+    input, gathered over "model" once a call; its partial output is reduced
+    in fp32."""
     B, T, _ = x.shape
+    W_loc = p["w_x"].shape[-1]
+    group = tp_group(W_loc, cfg.rglru.lru_width)
+    conv, log_lambda = p["conv"], p["log_lambda"]
+    if group is not None:
+        x = _Copy.apply(x, group)
+        conv = _own_block(_Copy.apply(conv, group), -1, W_loc, group)
+        log_lambda = _own_block(_Copy.apply(log_lambda, group), -1, W_loc, group)
     u = x @ p["w_x"]                                       # (B,T,W)
     g = F.silu(x @ p["w_gate_in"])                         # gate branch
-    u_conv, conv_state = _causal_conv1d(u, p["conv"], conv_state)
-    r = torch.sigmoid(u_conv @ p["w_a"]).float()
-    i = torch.sigmoid(u_conv @ p["w_i"]).float()
-    log_a = -8.0 * F.softplus(p["log_lambda"]) * r         # (B,T,W) fp32
+    u_conv, conv_state = _causal_conv1d(u, conv, conv_state)
+    u_whole = u_conv
+    if group is not None:
+        GATHERED["rglru"] += u_conv.numel() * u_conv.element_size() * (dist.get_world_size(group) - 1)
+        u_whole = _Gather.apply(u_conv, u_conv.dim() - 1, group)
+    r = torch.sigmoid(u_whole @ p["w_a"]).float()
+    i = torch.sigmoid(u_whole @ p["w_i"]).float()
+    log_a = -8.0 * F.softplus(log_lambda) * r              # (B,T,W) fp32
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * i * u_conv.float()
     if h0 is None:
         h0 = torch.zeros((B, u.shape[-1]), dtype=torch.float32, device=x.device)
     h = rglru_scan(log_a, b, h0)
     y = (h.to(x.dtype) * g) @ p["w_out"]
-    return y, h[:, -1, :], conv_state
+    return _reduce_partial(y, group), h[:, -1, :], conv_state
 
 
 def rglru_step(cfg: ModelConfig, p, x_t, h_prev, conv_state):

@@ -46,9 +46,15 @@ tables (:func:`_page_tables`).
 
 Given a rank's blocks of the parameters (``launch.mesh.shard_params``,
 under an ambient mesh of more than one "model" rank: ``layers.use_mesh``),
-the model runs on them: its attention heads, MLP width and vocabulary rows,
-Megatron's tensor parallelism in :mod:`.layers`.  ``init_cache`` given those
-parameters holds their KV heads, and K1 and K2 run on the rank's heads.
+the model runs on them: its attention heads (or, where the heads do not
+split, its block of head_dim), MLP width, RG-LRU width and vocabulary
+rows, Megatron's tensor parallelism in :mod:`.layers`.  ``init_cache``
+given those parameters holds their blocks: KV heads or head_dim, and the
+RG-LRU states' width.  K1 and K2 run on the rank's query heads (every one
+where the query heads do not split), over K/V gathered to whole heads
+where the cache holds a block of head_dim (``layers.AttnHeads``): each
+prefill chunk's keys and its cached prefix, each decode's live rows
+(:func:`_decode_view`), the encoder-decoder's cross cache alike.
 
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
 with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
@@ -192,13 +198,15 @@ def cache_span(cfg: ModelConfig, kind: str, cache_size: int, window_slack: int =
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
-                device=None, lead=(), window_slack: int = 0, kv_heads: Optional[int] = None
+                device=None, lead=(), window_slack: int = 0, p: Optional[Dict] = None
                 ) -> Dict:
     """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0.
-    An attention block's rows hold :func:`cache_span` positions of
-    ``kv_heads`` heads (the config's by default; a tensor-parallel rank's
-    block of them).  SSD and RG-LRU states are fp32 whatever ``dtype`` is,
-    and take no ``cache_size``."""
+    An attention block's rows hold :func:`cache_span` positions of its KV
+    heads, an RG-LRU block's states its width: the config's, or those of
+    the block's parameters ``p`` where given (a tensor-parallel rank's
+    blocks: its KV heads or its block of head_dim, its block of the width).
+    SSD and RG-LRU states are fp32 whatever ``dtype`` is, and take no
+    ``cache_size``."""
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "ssd":
         ssm = cfg.ssm
@@ -210,13 +218,14 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                                     **f32)}
     if kind == "rglru":
         rg = cfg.rglru
+        width = rg.lru_width if p is None else p["rglru"]["w_x"].shape[-1]
         lead = tuple(lead) + (batch,)
-        return {"state": torch.zeros(lead + (rg.lru_width,), **f32),
-                "conv": torch.zeros(lead + (rg.conv_width - 1, rg.lru_width), **f32)}
+        return {"state": torch.zeros(lead + (width,), **f32),
+                "conv": torch.zeros(lead + (rg.conv_width - 1, width), **f32)}
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    shape = tuple(lead) + (batch, cache_span(cfg, kind, cache_size, window_slack),
-                           kv_heads or cfg.num_kv_heads, cfg.head_dim)
+    heads = (cfg.num_kv_heads, cfg.head_dim) if p is None else tuple(p["attn"]["wk"].shape[-2:])
+    shape = tuple(lead) + (batch, cache_span(cfg, kind, cache_size, window_slack)) + heads
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "kv_pos": torch.full(shape[:-2], -1, dtype=torch.int32, device=device)}
@@ -234,6 +243,7 @@ class CacheStep:
     context_lens: Optional[torch.Tensor] = None  # (n,) int32
     cross_tables: Optional[torch.Tensor] = None  # (n, F_pad / PAGE_SIZE) int32, enc-dec
     cross_lens: Optional[torch.Tensor] = None    # (n,) int32: F, enc-dec
+    live: Optional[int] = None                   # positions a decode gathers (_decode_view)
 
 
 def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optional[Dict],
@@ -261,32 +271,45 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
         return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    q, k_new, v_new = L.attn_qkv(cfg, p["attn"], h, positions)
+    heads = L.attn_heads(cfg, p["attn"])
+    q, k_new, v_new = L.attn_qkv(cfg, p["attn"], h, positions, heads)
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
     k_new, v_new = k_new.to(k_c.dtype), v_new.to(v_c.dtype)
+    # what the rank's cache keeps, and the whole heads its queries read
+    k_own, v_own = heads.cached(k_new), heads.cached(v_new)
+    k_new, v_new = heads.attended(k_new), heads.attended(v_new)
     T, S = positions.shape[1], k_c.shape[1]
     window = cfg.sliding_window
     if deferred is not None:
-        deferred.append((k_new, v_new))
+        deferred.append((k_own, v_own))
     if step.start is None:
+        if deferred is None:
+            _write_kv(cache, k_own, v_own, positions, step.rows)
+        kc, vc, tables = _decode_view(heads, k_c, v_c, step, positions, bool(window))
         if deferred is not None:
-            ctx = _deferred_decode(q, k_new, v_new, k_c, v_c, step, window, force)
+            ctx = _deferred_decode(q, k_new, v_new, kc, vc, tables, step.context_lens, window,
+                                   force)
         else:
-            _write_kv(cache, k_new, v_new, positions, step.rows)
-            ctx = _paged(q, k_c, v_c, step.block_tables, step.context_lens, window, force)
+            ctx = _paged(q, kc, vc, tables, step.context_lens, window, force)
     elif deferred is None and step.start + T <= S:
         # no position of the row has wrapped: write the chunk, then attend
         s0, s1 = step.start, step.start + T
-        k_c[:, s0:s1] = k_new
-        v_c[:, s0:s1] = v_new
+        k_c[:, s0:s1] = k_own
+        v_c[:, s0:s1] = v_own
         kv_pos[:, s0:s1] = positions.to(kv_pos.dtype)
-        ctx = ops.flash_attention(q, k_c[:, :s1], v_c[:, :s1], causal=True,
-                                  window=window, force=force)
+        if heads.kv_dh:
+            # the cached prefix gathered to whole heads, then the chunk's own
+            k_all, v_all = (torch.cat([heads.gathered(c[:, :s0]), new], 1) if s0 else new
+                            for c, new in ((k_c, k_new), (v_c, v_new)))
+        else:
+            k_all, v_all = heads.attended(k_c[:, :s1]), heads.attended(v_c[:, :s1])
+        ctx = ops.flash_attention(q, k_all, v_all, causal=True, window=window, force=force)
     else:
-        ctx = _prefill_segments(q, k_new, v_new, k_c, v_c, step.start, window, force)
+        ctx = _prefill_segments(q, k_new, v_new, k_c, v_c, step.start, window, force,
+                                view=heads.gathered)
         if deferred is None:
-            _write_kv(cache, k_new, v_new, positions, None)
+            _write_kv(cache, k_own, v_own, positions, None)
     x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
     if cross is not None:
         x = x + _cross_attention(cfg, *cross, x, step, force)
@@ -312,8 +335,10 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
         return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"])), None
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions)
-    ctx = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, force=force)
+    heads = L.attn_heads(cfg, p["attn"])
+    q, k, v = L.attn_qkv(cfg, p["attn"], h, positions, heads)
+    ctx = ops.flash_attention(q, heads.attended(k), heads.attended(v), causal=True,
+                              window=cfg.sliding_window, force=force)
     x = x + L.attn_out(cfg, p["attn"], ctx)
     if cross is not None:
         cp, (ek, ev) = cross
@@ -363,7 +388,7 @@ def _paged(q, k_c, v_c, tables, lens, window, force, return_lse=False):
     return res[:, None]
 
 
-def _prefill_segments(q, k_new, v_new, k_c, v_c, s0: int, window, force):
+def _prefill_segments(q, k_new, v_new, k_c, v_c, s0: int, window, force, view=None):
     """Attention of a prefill chunk at positions s0 .. s0 + T − 1 over the
     cached keys before s0 and the chunk's own, without writing the cache
     (the deferred append's decomposition, and a ring's): K1 over the chunk's
@@ -378,14 +403,18 @@ def _prefill_segments(q, k_new, v_new, k_c, v_c, s0: int, window, force):
     of rows, split where p crosses a multiple of S; they are all still
     there, since S ≥ window wherever a row wraps.  The chunk's own keys are
     never read from the cache, so a chunk longer than its ring (or than the
-    reference's ``window_slack``) loses nothing."""
+    reference's ``window_slack``) loses nothing.  ``view`` maps a range of
+    cache rows to the keys the queries read (a tensor-parallel rank's:
+    ``layers.AttnHeads.gathered``); the rows themselves by default."""
     S = k_c.shape[1]
+    view = view or (lambda t: t)
     segs = [L.attention_partial(q, k_new, v_new, window=window, force=force)]
     a = 0 if window is None else max(0, s0 - window + 1)
     while a < s0:                       # no range when no cached key is visible
         b = min(s0, (a // S + 1) * S)
         i = a % S
-        segs.insert(-1, L.attention_partial(q, k_c[:, i:i + b - a], v_c[:, i:i + b - a],
+        segs.insert(-1, L.attention_partial(q, view(k_c[:, i:i + b - a]),
+                                            view(v_c[:, i:i + b - a]),
                                             q_offset=s0 - a, window=window, force=force))
         a = b
     if len(segs) == 1:
@@ -415,20 +444,43 @@ def _write_kv(layers: Dict, k_new, v_new, positions, rows) -> None:
     kv_pos[idx] = positions.to(kv_pos.dtype)
 
 
-def _deferred_decode(q, k_new, v_new, k_c, v_c, step: CacheStep, window, force):
+def _deferred_decode(q, k_new, v_new, k_c, v_c, tables, lens, window, force):
     """Attention of one decoded token at pos over [cache[:pos] ‖ itself]
-    without writing the cache: K2 over the cache (``step.context_lens`` is
-    pos in defer mode; the window less one, since the token itself is one of
-    the ``window`` keys it sees) and the token's own key, merged."""
+    without writing the cache: K2 over the cache's pages ``tables``
+    (``lens`` is pos in defer mode; the window less one, since the token
+    itself is one of the ``window`` keys it sees) and the token's own key,
+    merged."""
     G = q.shape[2] // k_new.shape[2]
     k_self = k_new.repeat_interleave(G, dim=2)                     # (n, 1, Hq, D)
     seg_self = (v_new.repeat_interleave(G, dim=2).to(q.dtype),
                 (q.float() * k_self.float()).sum(-1) / math.sqrt(q.shape[-1]))
     if window == 1:
         return seg_self[0]
-    seg_cache = _paged(q, k_c, v_c, step.block_tables, step.context_lens,
-                       None if window is None else window - 1, force, return_lse=True)
+    seg_cache = _paged(q, k_c, v_c, tables, lens, None if window is None else window - 1,
+                       force, return_lse=True)
     return L.attention_merge([seg_cache, seg_self], q.dtype)
+
+
+def _decode_view(heads: L.AttnHeads, k_c, v_c, step: CacheStep, positions, ring: bool):
+    """What K2 reads for a decode at ``positions`` (n, 1) into the rows
+    ``step.rows``: (keys, values, block tables).  The cache itself and the
+    step's tables, or, where the rank's cache holds a block of head_dim,
+    the decoded rows gathered over "model" to whole heads: a cache of n
+    rows (renumbered 0 .. n − 1) of the positions they hold, a ring's
+    whole row and a linear row's pages up to the furthest position (read on
+    the host once a step), with tables over it; K2's context lengths are
+    the step's in both."""
+    if not heads.kv_dh:
+        return heads.attended(k_c), heads.attended(v_c), step.block_tables
+    rows = step.rows
+    S = k_c.shape[1]
+    if step.live is None:
+        step.live = S if ring else min(S, (int(positions.max()) // PAGE_SIZE + 1) * PAGE_SIZE)
+    kc = heads.gathered(k_c[rows, :step.live])
+    vc = heads.gathered(v_c[rows, :step.live])
+    n = rows.shape[0]
+    local = torch.arange(n, device=rows.device)
+    return kc, vc, _page_tables(local, positions[:, 0], step.live, n, ring, rows.device)[0]
 
 
 def _apply_deferred_append(layers: Dict, new_kv: List, positions, step: CacheStep) -> None:
@@ -451,15 +503,24 @@ def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
     reference's: a norm, the query projection (no bias, no RoPE), attention
     over every one of the F frames, the output projection.  A prefill (all
     rows of the cache) runs K1 with ``causal=False``; a decode (``step.rows``)
-    runs K2 over those rows' cross cache, F keys each."""
+    runs K2 over those rows' cross cache, F keys each.  On a rank whose
+    cross cache holds a block of head_dim, those keys are gathered to whole
+    heads first, as the self-attention's are."""
+    heads = L.attn_heads(cfg, cp["attn"])
     hx = L.apply_norm(cfg, x, cp["norm"])
+    if heads.group is not None:
+        hx = L._Copy.apply(hx, heads.group)
     k_c = kv["k"]
-    qx = L._proj_heads(hx, cp["attn"]["wq"]).to(k_c.dtype)
+    qx = L.attn_project(cp["attn"], hx, "q", heads, bias=False).to(k_c.dtype)
     if step.rows is None:
         F = kv["frames"]
-        ctx = ops.flash_attention(qx, k_c[:, :F], kv["v"][:, :F], causal=False, force=force)
+        ctx = ops.flash_attention(qx, heads.gathered(k_c[:, :F]), heads.gathered(kv["v"][:, :F]),
+                                  causal=False, force=force)
     else:
-        ctx = _paged(qx, k_c, kv["v"], step.cross_tables, step.cross_lens, None, force)
+        # every row's F frames: the whole padded row, pages counted from 0
+        frames = CacheStep(rows=step.rows, block_tables=step.cross_tables, live=k_c.shape[1])
+        kc, vc, tables = _decode_view(heads, k_c, kv["v"], frames, step.rows[:, None] * 0, False)
+        ctx = _paged(qx, kc, vc, tables, step.cross_lens, None, force)
     return L.attn_out(cfg, cp["attn"], ctx.to(x.dtype))
 
 
@@ -622,15 +683,6 @@ class TransformerLM:
         return layers[self.cfg.layer_pattern.index(
             next(k for k in self.cfg.layer_pattern if k in ATTN_KINDS))]
 
-    def _kv_heads(self, params) -> Optional[int]:
-        """The KV heads of ``params``' first attention layer (all hold the
-        same), None without ``params`` or attention."""
-        if params is None or not self.has_attn:
-            return None
-        i = self.cfg.layer_pattern.index(
-            next(k for k in self.cfg.layer_pattern if k in ATTN_KINDS))
-        return _layer(params["blocks"], i)["attn"]["wk"].shape[-2]
-
     # --------------------------------------------------------------- body --
     def _run(self, params, x, positions, cache, step: CacheStep, force):
         cfg = self.cfg
@@ -698,21 +750,24 @@ class TransformerLM:
         ``device`` says otherwise), as the reference's: a windowed attention
         layer keeps a ring of min(cache_size, window) + ``window_slack``
         positions (:func:`cache_span`), any other ``cache_size``; recurrent
-        rows hold a state of fixed size and no positions.  The K/V hold the
-        KV heads of ``params``' attention (a tensor-parallel rank's block of
-        them, ``launch.mesh.shard_params``), the config's without them."""
+        rows hold a state of fixed size and no positions.  Each layer's
+        leaves take their heads, head_dim and width from ``params`` (a
+        tensor-parallel rank's blocks, ``launch.mesh.shard_params``), the
+        config's without them."""
         if self.has_attn and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         device = resolve_device(device)
         cfg = self.cfg
-        kw = dict(window_slack=window_slack, kv_heads=self._kv_heads(params))
+        blocks = None if params is None else params["blocks"]
         if self.uniform:
             layers = block_cache(cfg, self.uniform, batch, cache_size, dtype, device,
-                                 lead=(cfg.num_layers,), **kw)
+                                 lead=(cfg.num_layers,), window_slack=window_slack, p=blocks)
         else:
-            layers = [block_cache(cfg, kind, batch, cache_size, dtype, device, **kw)
-                      for kind in cfg.layer_pattern]
+            layers = [block_cache(cfg, kind, batch, cache_size, dtype, device,
+                                  window_slack=window_slack,
+                                  p=None if blocks is None else blocks[i])
+                      for i, kind in enumerate(cfg.layer_pattern)]
         return {"layers": layers,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -830,18 +885,26 @@ class EncDecLM:
         for i in range(cfg.encoder.num_layers):
             p = _layer(enc, i)
             hn = L.apply_norm(cfg, x, p["norm1"])
-            q, k, v = L.attn_qkv(cfg, p["attn"], hn, positions)
-            ctx = ops.flash_attention(q, k, v, causal=False, force=force)
+            heads = L.attn_heads(cfg, p["attn"])
+            q, k, v = L.attn_qkv(cfg, p["attn"], hn, positions, heads)
+            ctx = ops.flash_attention(q, heads.attended(k), heads.attended(v), causal=False,
+                                      force=force)
             x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
             x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
         return L.apply_norm(cfg, x, params["enc_final_norm"])
 
     def _cross_kv(self, params, enc_out):
         """Every decoder layer's cross-attention K and V of the encoder
-        states: two (L, B, F, Hkv, D) tensors."""
-        cps = [_layer(params["cross"], i)["attn"] for i in range(self.cfg.num_layers)]
-        ks = [L._proj_heads(enc_out, cp["wk"]) for cp in cps]
-        vs = [L._proj_heads(enc_out, cp["wv"]) for cp in cps]
+        states: two (L, B, F, Hkv, D) tensors, a rank's block of them where
+        it holds the layers' blocks (its KV heads, or its block of head_dim:
+        no RoPE, so the rank's own projection is what its cache keeps)."""
+        ks, vs = [], []
+        for i in range(self.cfg.num_layers):
+            cp = _layer(params["cross"], i)["attn"]
+            heads = L.attn_heads(self.cfg, cp)
+            x = enc_out if heads.group is None else L._Copy.apply(enc_out, heads.group)
+            ks.append(L.attn_project(cp, x, "k", heads, bias=False, whole=False))
+            vs.append(L.attn_project(cp, x, "v", heads, bias=False, whole=False))
         return torch.stack(ks), torch.stack(vs)
 
     # ------------------------------------------------------------- train --
@@ -882,11 +945,15 @@ class EncDecLM:
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
-                   device=None, *, enc_frames: Optional[int] = None) -> Dict[str, Any]:
+                   device=None, *, enc_frames: Optional[int] = None,
+                   params=None) -> Dict[str, Any]:
         """The decoder's self-attention cache, as :class:`TransformerLM`'s,
         and the cross-attention K/V of ``enc_frames`` frames (the encoder's
         ``max_source_positions`` by default) a row, padded to a whole number
-        of K2's pages: ``cross_k``/``cross_v`` (L, B, F_pad, Hkv, D), zeros."""
+        of K2's pages: ``cross_k``/``cross_v`` (L, B, F_pad, Hkv, D), zeros.
+        The K/V take their heads and head_dim from ``params`` (a
+        tensor-parallel rank's blocks of the decoder's and the cross
+        attention's), the config's without them."""
         if cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
@@ -894,17 +961,19 @@ class EncDecLM:
         cfg = self.cfg
         F = enc_frames or cfg.encoder.max_source_positions
         F_pad = -(-F // PAGE_SIZE) * PAGE_SIZE
-        xk = torch.zeros((cfg.num_layers, batch, F_pad, cfg.num_kv_heads, cfg.head_dim),
-                         dtype=dtype, device=device)
+        heads = ((cfg.num_kv_heads, cfg.head_dim) if params is None
+                 else tuple(params["cross"]["attn"]["wk"].shape[-2:]))
+        xk = torch.zeros((cfg.num_layers, batch, F_pad) + heads, dtype=dtype, device=device)
         return {"layers": block_cache(cfg, "attn", batch, cache_size, dtype, device,
-                                      lead=(cfg.num_layers,)),
+                                      lead=(cfg.num_layers,),
+                                      p=None if params is None else params["decoder"]),
                 "cross_k": xk, "cross_v": torch.zeros_like(xk), "cross_frames": F,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
     def _decoder(self, params, tokens, positions, cache, step: CacheStep, force):
         cfg = self.cfg
         pos = torch.clamp(positions, 0, cfg.max_seq_len - 1)
-        x = params["embed"][tokens] + params["pos_embed"][pos]
+        x = L.embed(cfg, params["embed"], tokens) + params["pos_embed"][pos]
         for i in range(cfg.num_layers):
             kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i],
                   "frames": cache["cross_frames"]}
@@ -912,7 +981,7 @@ class EncDecLM:
                           _layer(cache["layers"], i), step=step, force=force,
                           cross=(_layer(params["cross"], i), kv))
         x = L.apply_norm(cfg, x[:, -1:, :], params["final_norm"])
-        return (x @ params["embed"].T)[:, 0, :]
+        return L.unembed(cfg, params, x)[:, 0, :]       # whisper ties its embeddings
 
     def prefill(self, params, inputs, cache, *, force: Optional[str] = None,
                 start: Optional[int] = None):

@@ -667,6 +667,19 @@ def test_flash_bwd_kernel_is_the_same_bits_every_run(gen, dtype):
             assert torch.equal(a, b)
 
 
+def test_moe_is_the_same_bits_every_run(gen):
+    """ROADMAP C1: the dropless MoE in bf16 on the card (grouped products,
+    each token's outputs summed over a fixed axis, no atomic adds) gives the
+    same bits on the same inputs in every call."""
+    from repro_torch.models import layers as L
+    cfg = get_reduced_config("qwen3_30b_a3b")
+    p = L.moe_params(cfg, gen, torch.bfloat16, "cuda")
+    x = torch.randn((4, 128, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    first = L.moe(cfg, p, x)[0]
+    for _ in range(4):
+        assert torch.equal(L.moe(cfg, p, x)[0], first)
+
+
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 

@@ -148,3 +148,37 @@ def test_moe_rejects_an_unknown_force():
     cfg, _, tmoe = _layer("mixtral_8x7b", 0)
     with pytest.raises(ValueError, match="force"):
         TL.moe(cfg, tmoe, torch.zeros((1, 2, cfg.d_model)), force="kernel")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_combine_is_a_fixed_order_sum(arch, monkeypatch):
+    """ROADMAP C1: the combine of each token's K weighted expert outputs is a
+    sum over a fixed axis, not a floating-point ``index_add_``, whose atomic
+    adds on the card land in a varying order and round a bf16 row
+    differently from run to run.  The MoE runs with such an ``index_add_``
+    refused, and equals the per-token sum of its choices' gated expert
+    outputs at 1e-5."""
+    real = torch.Tensor.index_add_
+
+    def integer_only(self, *args, **kw):
+        assert not self.is_floating_point(), "a floating-point index_add_"
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", integer_only)
+    cfg, _, p = _layer(arch, 3)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 9, cfg.d_model))
+                         .astype(np.float32))
+    y, _ = TL.moe(cfg, p, x)
+    xf = x.reshape(-1, cfg.d_model)
+    _, gate, idx = TL.moe_route(cfg, p, xf)
+    outs = []
+    for k in range(cfg.moe.top_k):               # each choice's expert, one token at a time
+        rows = []
+        for t in range(xf.shape[0]):
+            e = int(idx[t, k])
+            h = xf[t:t + 1] @ p["w_in"][e]
+            hi, hg = torch.chunk(h, 2, dim=-1)
+            rows.append((torch.nn.functional.silu(hi) * hg) @ p["w_out"][e])
+        outs.append(torch.cat(rows))
+    expect = (torch.stack(outs, 1) * gate[..., None]).sum(1)
+    torch.testing.assert_close(y.reshape(-1, cfg.d_model), expect, **TOL)

@@ -28,7 +28,7 @@ child gets ``PYTHONDONTWRITEBYTECODE=1`` and caps torch at 2 threads.
 * The launcher (``repro_torch.launch.parallel``) on the CPU: reduced
   mixtral on 4 ranks of one expert each, its ranks' prefills and decode
   against its one-process dropless model (``parallel.check`` at 2e-4);
-  reduced qwen3_30b_a3b on more ranks than KV heads, its attention whole
+  reduced qwen3_30b_a3b on more ranks than KV heads, its K/V on head_dim
   on each rank.
 """
 
@@ -232,9 +232,12 @@ def test_launcher_serves_on_cpu_ranks():
 def test_launcher_keeps_attention_whole_past_the_kv_heads():
     """More expert-parallel ranks than KV heads, as qwen3_30b_a3b's 4 KV
     heads at 8 ranks: reduced, 4 query heads over 2 KV heads at 4 ranks.
-    The query heads divide and the KV heads do not, so each rank keeps the
-    attention and its cache whole, cuts the experts (one each) and the
-    vocabulary, and serves as the dropless model does."""
+    The query heads divide and the KV heads do not, so each rank holds one
+    query head and, as the serve rules place them, a block of head_dim of
+    both KV heads (in its weights and its cache): the attention is whole
+    past the KV heads only once gathered, each rank's heads whole for K1
+    and K2.  It cuts the experts (one each) and the vocabulary, and serves
+    as the dropless model does."""
     from repro_torch.launch import parallel
     args = parallel.parse_args(["--arch", "qwen3_30b_a3b", "--reduced", "--device", "cpu", "--dtype",
                                 "float32", "--ranks", "4", "--batch", "2", "--prompt", "16"])
@@ -243,8 +246,9 @@ def test_launcher_keeps_attention_whole_past_the_kv_heads():
     ranks, ref = parallel.launch(args), parallel.reference(args)
     assert not any(parallel.check(args, ranks, ref, TOL).values())
     for r in ranks:
-        assert r["params"]["blocks/attn/wq"][-2] == cfg.num_heads
-        assert r["params"]["blocks/attn/wk"][-2] == r["cache"]["layers/k"][-2] == cfg.num_kv_heads
+        assert r["params"]["blocks/attn/wq"][-2:] == (cfg.num_heads // 4, cfg.head_dim)
+        assert (r["params"]["blocks/attn/wk"][-2:] == r["cache"]["layers/k"][-2:]
+                == (cfg.num_kv_heads, cfg.head_dim // 4))
         assert r["params"]["blocks/moe/w_in"][1] == 1
         assert r["params"]["embed"][0] == cfg.vocab_size // 4
 

@@ -19,12 +19,13 @@ ranks' cut (``launch.mesh.shard_params``).
 * ``build_params`` gives each rank the blocks ``shard_params`` cuts from the
   whole tree that ``model.init`` draws from the same seed.
 * In a dense tree a placement the port does not run raises a ``ValueError``
-  that names the leaf: the heads' fallback to head_dim (reduced llama3_70b
-  at tp 4), an SSD or RG-LRU leaf, the encoder-decoder; in
-  ``shard_params`` and ``build_params``.  An MoE tree, served
-  expert-parallel, keeps such an attention block whole and experts that do
-  not divide whole (full qwen3_30b_a3b, mixtral_8x7b and dbrx_132b on the
-  meta device), and the cache takes its KV heads from the weights.
+  that names the leaf: an SSD leaf; in ``shard_params`` and
+  ``build_params`` (the heads' fallback to head_dim, the RG-LRU and the
+  encoder-decoder run since, in ``tests/test_torch_tp_fallback.py``).  An
+  MoE tree, served expert-parallel, splits its attention as the rules do
+  and keeps experts that do not divide whole (full qwen3_30b_a3b,
+  mixtral_8x7b and dbrx_132b on the meta device), and the cache takes its
+  KV heads and head_dim from the weights.
 * The launcher (``repro_torch.launch.parallel``) on 4 CPU ranks: the
   8-over-4-head config, its ranks against its one-process model
   (``parallel.check`` at 2e-4: shapes, logits at every step).
@@ -199,10 +200,7 @@ def test_build_params_draws_the_blocks_of_the_whole_init(arch):
         assert got["blocks/attn/wq"].shape[-2] == 2
 
 
-@pytest.mark.parametrize("arch,tp,leaf", [("llama3_70b", 4, "blocks/attn/wk"),
-                                          ("mamba2_370m", 2, "blocks/ssd/"),
-                                          ("recurrentgemma_2b", 2, "blocks/0/rglru/"),
-                                          ("whisper_base", 2, "embed")])
+@pytest.mark.parametrize("arch,tp,leaf", [("mamba2_370m", 2, "blocks/ssd/")])
 def test_unexecuted_placements_raise_naming_the_leaf(arch, tp, leaf):
     """A dense tree's ranks are for tensor parallelism alone: a placement no
     layer runs raises in ``shard_params`` and in ``build_params``, which
@@ -216,32 +214,33 @@ def test_unexecuted_placements_raise_naming_the_leaf(arch, tp, leaf):
                           mesh=_FakeMesh(0, tp))
 
 
-# arch, "model" ranks: the attention and the experts a rank keeps whole
-EXPERT_PARALLEL = [("qwen3_30b_a3b", 8, True, False),      # 32 query heads over 4 KV heads
-                   ("mixtral_8x7b", 16, True, True),       # 8 KV heads, 8 experts
-                   ("dbrx_132b", 16, True, False),         # 48 over 8, 16 experts
-                   ("dbrx_132b", 8, False, False)]
+# arch, "model" ranks, whether a rank keeps the experts whole
+EXPERT_PARALLEL = [("qwen3_30b_a3b", 8, False),     # 32 query heads over 4 KV heads
+                   ("mixtral_8x7b", 16, True),      # 8 KV heads, 8 experts
+                   ("dbrx_132b", 16, False),        # 48 over 8, 16 experts
+                   ("dbrx_132b", 8, False)]
 
 
-@pytest.mark.parametrize("arch,tp,attn_whole,experts_whole", EXPERT_PARALLEL)
-def test_expert_parallel_placements_at_full_size(arch, tp, attn_whole, experts_whole):
-    """An MoE tree is served expert-parallel: where its K/V do not split on
-    heads, the whole attention block stays whole on each rank (and so does
-    its cache, ``init_cache(params=)``), and experts that do not divide stay
-    whole for the dropless fallback; nothing raises.  The full configs on
-    the meta device."""
+@pytest.mark.parametrize("arch,tp,experts_whole", EXPERT_PARALLEL)
+def test_expert_parallel_placements_at_full_size(arch, tp, experts_whole):
+    """An MoE tree is served expert-parallel: its attention is split as the
+    serve rules place it, the K/V on head_dim where they do not split on
+    heads (and so is its cache, ``init_cache(params=)``), and experts that
+    do not divide stay whole for the dropless fallback; nothing raises.  The
+    full configs on the meta device."""
     cfg = get_config(arch).replace(num_layers=1, layer_pattern=None)
     model = build_model(cfg)
     whole = model.init(torch.Generator().manual_seed(0), torch.bfloat16, "meta")
     dims = mesh.model_placements(whole, tp)
     for w in ("wq", "wk", "wv", "wo"):
-        assert (dims[f"blocks/attn/{w}"] is None) == attn_whole, w
+        assert dims[f"blocks/attn/{w}"] is not None, w
     assert (dims["blocks/moe/w_in"] is None) == experts_whole
     assert dims["embed"] == -2
     rank = mesh.shard_params(whole, _FakeMesh(0, tp))
     cache = model.init_cache(1, 16, torch.bfloat16, "meta", params=rank)
-    heads = cfg.num_kv_heads if attn_whole else cfg.num_kv_heads // tp
-    assert cache["layers"]["k"].shape[-2] == rank["blocks"]["attn"]["wk"].shape[-2] == heads
+    heads = ((cfg.num_kv_heads // tp, cfg.head_dim) if cfg.num_kv_heads % tp == 0
+             else (cfg.num_kv_heads, cfg.head_dim // tp))
+    assert cache["layers"]["k"].shape[-2:] == rank["blocks"]["attn"]["wk"].shape[-2:] == heads
 
 
 def test_whole_weights_under_a_mesh_keep_a_whole_cache():
