@@ -43,17 +43,19 @@ block of :func:`shard_shape` by its "model" coordinate, every other leaf
 whole.  That is Megatron's tensor parallelism for the dense layers (the
 attention's heads, or head_dim where the heads do not split, the MLP's F,
 the RG-LRU's width, the vocabulary of the embeddings), which
-``models.layers`` runs on the blocks, and the expert-parallel MoE's experts.
-:func:`build_params` makes the same tree leaf by leaf from a seed, so that a
-rank never holds more than its blocks and one whole leaf.  Where the rules
-place a leaf on a dimension no layer runs a block of (the SSD's leaves, the
-experts' fallback to their FFN width), :func:`model_placements` decides by
-what the ranks are for.  A tree with MoE experts is served expert-parallel:
-such a leaf stays whole on every rank, as the experts that do not divide
-stay whole for the dropless fallback.  A dense tree has the ranks for
-tensor parallelism alone, so there it raises, and so do ``shard_params``
-and ``build_params``.  The "data" entries the serve rules give the MoE's
-experts are not executed: each data rank keeps them whole.
+``models.layers`` runs on the blocks; the SSD's packed ``w_in`` columns
+and its ``w_out`` rows (K3 on each rank's heads); and the MoE's experts,
+or their FFN width where the experts do not divide.  Each block is the
+contiguous one the reference's ``NamedSharding`` puts on that device, so
+where a packed axis mixes what a rank needs from several blocks (the
+SSD's [z | x | B | C | dt], the experts' [gate | up]) the layers exchange
+columns over "model" (``layers._fetch_columns``), a cost the rules name
+and ``layers.GATHERED`` counts.  :func:`build_params` makes the same tree
+leaf by leaf from a seed, so that a rank never holds more than its blocks
+and one whole leaf.  A placement that no layer runs (:func:`model_placements`)
+raises, naming the leaf, and so do ``shard_params`` and ``build_params``.
+The "data" entries the serve rules give the MoE's experts are not
+executed: each data rank keeps them whole.
 
 The tree walkers (:func:`param_specs`, :func:`cache_specs`,
 :func:`batch_specs`) take the port's nested dicts and lists of tensors and
@@ -398,8 +400,9 @@ def device_mesh(axes: MeshAxes, device_type: str = "cuda"):
 
 # (parent/leaf) -> {the dimension, from the right, of the leaf's block that
 # the port's layers run on a "model" rank: what it is} (``models.layers``:
-# attn_qkv, attn_out and AttnHeads, mlp, embed, unembed, rglru, moe_a2a); an
-# encoder's, a decoder's and a cross attention's leaves alike
+# attn_qkv, attn_out and AttnHeads, mlp, embed, unembed, rglru, the SSD's
+# _ssd_in, moe and moe_a2a); an encoder's, a decoder's and a cross
+# attention's leaves alike
 _HEADS = {-2: "heads", -1: "head_dim"}
 _WIDTH = {-1: "width"}
 EXECUTED = {"embed": {-2: "vocabulary"}, "unembed": {-1: "vocabulary"},
@@ -408,7 +411,9 @@ EXECUTED = {"embed": {-2: "vocabulary"}, "unembed": {-1: "vocabulary"},
             "mlp/wi": {-1: "F"}, "mlp/wg": {-1: "F"}, "mlp/wo": {-2: "F"},
             "rglru/w_x": _WIDTH, "rglru/w_gate_in": _WIDTH, "rglru/w_a": _WIDTH,
             "rglru/w_i": _WIDTH, "rglru/w_out": {-2: "width"},
-            "moe/w_in": {-3: "experts"}, "moe/w_out": {-3: "experts"}}
+            "ssd/w_in": {-1: "packed columns"}, "ssd/w_out": {-2: "heads' channels"},
+            "moe/w_in": {-3: "experts", -1: "FFN width"},
+            "moe/w_out": {-3: "experts", -2: "FFN width"}}
 # (wq, wk, wv, wo) dimensions an attention block runs with: whole; everything
 # on heads; q and o on heads, k and v on head_dim; everything on head_dim
 ATTENTION_SPLITS = {(None, None, None, None), (-2, -2, -2, -3), (-2, -1, -1, -3),
@@ -434,34 +439,28 @@ def model_placements(params: Any, tp: int) -> Dict[str, Optional[int]]:
     "model" ranks holds its block of, or None where it holds the leaf
     whole} for every leaf of ``params``: where the serve rules
     (:func:`param_specs` at a ("data", "model") mesh of (1, ``tp``)) place
-    the leaf on "model" and a layer of the port runs that block
-    (``EXECUTED``): the attention's projections on heads or head_dim, in
-    the combinations the rules make (``ATTENTION_SPLITS``), an encoder's,
-    decoder's and cross attention's as a decoder's; the MLP's F; the
-    RG-LRU's width; the vocabulary; the experts.
+    the leaf on "model", that dimension, which a layer of the port runs a
+    block of (``EXECUTED``): the attention's projections on heads or
+    head_dim, in the combinations the rules make (``ATTENTION_SPLITS``), an
+    encoder's, decoder's and cross attention's as a decoder's; the MLP's F;
+    the RG-LRU's width; the SSD's packed ``w_in`` columns and ``w_out``
+    rows; the vocabulary; the experts, or their FFN width where the experts
+    do not divide.  Every other leaf is whole.
 
-    Where the rules place a leaf that no layer runs a block of, a tree with
-    MoE experts (served expert-parallel) keeps the leaf whole on every rank
-    (experts that do not divide, on their FFN width, for the dropless
-    fallback); a tree without (whose ranks are for tensor parallelism
-    alone: the SSD's leaves) raises ``ValueError``, naming the leaf and the
-    rule."""
+    A placement that no layer runs raises ``ValueError``, naming the leaf
+    and the rule: nothing is kept whole against the rules."""
     axes = MeshAxes(("data", "model"), (1, tp))
-    leaves = list(leaves_with_names(params))
-    experts = any(_role(name) == "moe/w_in" for name, _ in leaves)
     dims: Dict[str, Optional[int]] = {}
-    for name, leaf in leaves:
+    for name, leaf in leaves_with_names(params):
         shape = tuple(leaf.shape)
         dim = _model_dim(_param_spec(name, shape, axes, "serve"), len(shape))
         run = EXECUTED.get(_role(name), {})
         if dim is not None and dim not in run:
-            if not experts:
-                what = ("no layer of the port runs a block of this leaf" if not run else
-                        "the port runs its block on " + " or ".join(
-                            f"{v} (dimension {k})" for k, v in run.items()) + " only")
-                raise ValueError(f"{name} {shape}: the serve rules (launch.mesh._param_spec) "
-                                 f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
-            dim = None                          # whole, as expert parallelism runs it
+            what = ("no layer of the port runs a block of this leaf" if not run else
+                    "the port runs its block on " + " or ".join(
+                        f"{v} (dimension {k})" for k, v in run.items()) + " only")
+            raise ValueError(f"{name} {shape}: the serve rules (launch.mesh._param_spec) "
+                             f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
         dims[name] = dim
     for name in [n for n in dims if n.endswith("attn/wq")]:
         split = tuple(dims[name[:-2] + w] for w in ("wq", "wk", "wv", "wo"))

@@ -6,37 +6,43 @@
         --arch qwen3_30b_a3b --layers 8 --ranks 2 --batch 4 --prompt 512
     PYTHONPATH=src python -m repro_torch.launch.parallel \\
         --arch whisper_base --ranks 2 --batch 4 --prompt 64 --frames 1500 --decodes 4
+    PYTHONPATH=src python -m repro_torch.launch.parallel \\
+        --arch mamba2_370m --ranks 4 --batch 2 --prompt 1000 --decodes 4
 
 It starts ``--ranks`` processes of itself, which meet in a gloo group
 through a ``FileStore`` in a temporary directory, on a ("data", "model")
 mesh of (1, ranks).  Each rank builds only its blocks of the model from
 seed 0 (``launch.mesh.build_params``: each leaf that the serve rules place
 on "model" — the attention's heads, or head_dim where the heads do not
-split, the MLP's F, the RG-LRU's width, the embeddings' vocabulary, the
-MoE's experts — drawn whole as the one-process model draws it and cut to
-the rank's block at once; experts that do not divide stay whole, as
-``launch.mesh.model_placements`` says) and the cache of its blocks
-(``init_cache(..., params=)``: KV heads or head_dim, the RG-LRU states'
-width), then prefills ``--batch`` prompts of ``--prompt`` random tokens
-(numpy seed 0) into the fresh cache, after ``--frames`` random frame
-embeddings a row for an encoder-decoder (numpy seed 0, a generator of their
-own), and decodes ``--decodes`` more tokens (drawn after the prompts)
-through ``decode_slots``.  The dense layers run Megatron's split
-(``models.layers``): a rank's query heads (every one where they do not
-split) over their KV heads, gathered to whole heads where the cache holds a
-block of head_dim, K1 and K2 on those heads; the RG-LRU on its block of the
-width, its conv'd input gathered; the attention's, the MLP's and the
-RG-LRU's partial outputs reduced over "model" in fp32; the vocabulary's
-logits gathered.  An MoE model also runs
-``moe_impl="a2a"`` and prefills once more into a fresh cache for each
-capacity factor (:func:`capacity_factors`): a prefill runs
-``layers.moe_a2a`` in every MoE layer (the all-to-all: the ranks split the
-sequence), a decode its dropless fallback on the sharded experts.
+split, the MLP's F, the RG-LRU's width, the SSD's packed ``w_in`` columns
+and ``w_out`` rows, the embeddings' vocabulary, the MoE's experts or,
+where they do not divide, their FFN width — drawn whole as the one-process
+model draws it and cut to the rank's block at once) and the cache of its
+blocks (``init_cache(..., params=)``: KV heads or head_dim, the RG-LRU
+states' width, the SSD state's heads and conv channels), then prefills
+``--batch`` prompts of ``--prompt`` random tokens (numpy seed 0) into the
+fresh cache, after ``--frames`` random frame embeddings a row for an
+encoder-decoder (numpy seed 0, a generator of their own), and decodes
+``--decodes`` more tokens (drawn after the prompts) through
+``decode_slots``.  The layers run Megatron's split (``models.layers``): a
+rank's query heads (every one where they do not split) over their KV
+heads, gathered to whole heads where the cache holds a block of head_dim,
+K1 and K2 on those heads; the RG-LRU on its block of the width, its
+conv'd input gathered; the SSD on its heads (K3 over them), the columns
+its heads need exchanged out of the packed projection and out of the
+conv's blocks; experts on their FFN width with the gate and up columns of
+a rank's rows exchanged; the partial outputs reduced over "model" in fp32;
+the vocabulary's logits gathered.  An MoE model also runs
+``moe_impl="a2a"`` and, where its experts divide over the ranks, prefills
+once more into a fresh cache for each capacity factor
+(:func:`capacity_factors`): a prefill runs ``layers.moe_a2a`` in every MoE
+layer (the all-to-all: the ranks split the sequence), a decode its
+dropless fallback on the sharded experts.
 
 Each rank saves its logits at every step, the milliseconds of its prefills
 and decodes (the host's clock, the device synchronised) and of each
-decode's K2 calls, gathers and all-reduces (:func:`timing`), the bytes it
-received through the head_dim and RG-LRU gathers in each
+decode's K2 calls, gathers, all-reduces and exchanges (:func:`timing`), the bytes it
+received through the gathers and exchanges of the layers in each
 (``layers.GATHERED``), each MoE layer's milliseconds and dropped pairs, its
 kernel launch counts, its leaves' and cache's shapes and, on the card, the
 bytes its parameters and its cache hold (``torch.cuda.memory_allocated()``
@@ -47,7 +53,9 @@ launcher then runs :func:`reference`, prints :func:`summary` and applies
 On one card every rank runs on it (``cuda`` is device ``rank % count``):
 NCCL refuses two ranks on one device, and gloo moves the collectives'
 bytes through host memory while the layers stay on the card.  Times taken
-so are of ranks sharing one card, not of several cards.
+so are of ranks sharing one card, not of several cards.  Ranks that share
+a card build their blocks one after another, so that only one whole leaf
+is drawn on it at a time.
 
 :func:`reference` serves the same tokens through the one-process model
 (the dropless MoE for an MoE) on the same weights, the reference the ranks
@@ -121,11 +129,13 @@ def model_config(args: argparse.Namespace, moe_impl: str = "a2a", capacity_facto
 
 
 def capacity_factors(args: argparse.Namespace) -> List[Optional[float]]:
-    """An MoE's: the ranks' count, at which a destination has room for all
-    of a rank's pairs (cap = n_loc·K: nothing drops), and the config's own;
-    a dense model's one prefill has none."""
+    """An expert-parallel MoE's: the ranks' count, at which a destination
+    has room for all of a rank's pairs (cap = n_loc·K: nothing drops), and
+    the config's own; the one prefill of a dense model, or of an MoE whose
+    experts do not divide over the ranks (dropless on their FFN width), has
+    none."""
     cfg = model_config(args)
-    if cfg.moe is None:
+    if cfg.moe is None or cfg.moe.num_experts % args.ranks:
         return [None]
     return [float(args.ranks), cfg.moe.capacity_factor]
 
@@ -163,7 +173,8 @@ def _init_cache(args, model, dtype, device, params):
 MOE_FNS = ("moe", "moe_a2a")
 # what a decode step's time is split into: K2, and the collectives over
 # "model" that the model's own layers call
-PARTS = {"paged_attention": "K2", "_all_gather": "gathers", "_all_reduce": "reduces"}
+PARTS = {"paged_attention": "K2", "_all_gather": "gathers", "_all_reduce": "reduces",
+         "_exchange": "exchanges"}
 
 
 @contextlib.contextmanager
@@ -171,13 +182,14 @@ def timing(device):
     """Record the milliseconds of each call (host clock around it, the
     device synchronised before and after) to ``layers.moe``,
     ``layers.moe_a2a`` (with its ``dropped`` count), ``ops.paged_attention``
-    (K2) and the gathers and all-reduces over "model" (``layers._all_gather``,
-    ``layers._all_reduce``) while the model runs: the model looks each up at
-    each call, so each is wrapped and restored after.  A call inside a timed
-    call (an MoE block's collectives) is not timed apart."""
+    (K2) and the gathers, all-reduces and all-to-all exchanges over "model"
+    (``layers._all_gather``, ``layers._all_reduce``, ``layers._exchange``)
+    while the model runs: the model looks each up at each call, so each is
+    wrapped and restored after.  A call inside a timed call (an MoE block's
+    collectives) is not timed apart."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    targets = [(L, name) for name in MOE_FNS + ("_all_gather", "_all_reduce")]
+    targets = [(L, name) for name in MOE_FNS + ("_all_gather", "_all_reduce", "_exchange")]
     targets.append((ops, "paged_attention"))
     calls: List[Dict] = []
     depth = [0]
@@ -215,7 +227,8 @@ def _moe_calls(calls: List[Dict]) -> List[Dict]:
 
 
 def _parts_ms(calls: List[Dict]) -> Dict[str, float]:
-    """{"K2", "gathers", "reduces": milliseconds summed over ``calls``}."""
+    """{"K2", "gathers", "reduces", "exchanges": milliseconds summed over
+    ``calls``}."""
     out = dict.fromkeys(PARTS.values(), 0.0)
     for c in calls:
         if c["fn"] in PARTS:
@@ -346,14 +359,26 @@ def run_rank(args: argparse.Namespace) -> None:
         dm = mesh.device_mesh(mesh.MeshAxes(("data", "model"), (1, args.ranks)), device.type)
         with mesh.use_mesh(dm):
             model = build_model(model_config(args))
-            before = _allocated(device)
-            t0 = time.perf_counter()
-            # raises for a placement no layer runs (model_placements)
-            params = mesh.build_params(model, torch.Generator(device).manual_seed(SEED), dtype)
-            param_bytes = _allocated(device) - before
-            built = time.perf_counter() - t0
-            if device.type == "cuda":
-                torch.cuda.empty_cache()      # the whole leaves' blocks, for the other ranks
+            # ranks that share a card take turns, each drawing its whole leaves
+            # alone, once every rank has its CUDA context and has used the meta
+            # device, whose first use costs seconds of imports (all at once)
+            model.init(torch.Generator().manual_seed(SEED), dtype, device="meta")
+            _allocated(device)
+            shared = device.type == "cuda" and torch.cuda.device_count() < args.ranks
+            turns = args.ranks if shared else 1
+            for turn in range(turns):
+                if turn == args.rank % turns:
+                    before = _allocated(device)
+                    t0 = time.perf_counter()
+                    # raises for a placement no layer runs (model_placements)
+                    params = mesh.build_params(model, torch.Generator(device).manual_seed(SEED),
+                                               dtype)
+                    param_bytes = _allocated(device) - before
+                    built = time.perf_counter() - t0
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()  # the whole leaves' blocks, for the others
+                if turns > 1:
+                    dist.barrier()
             res = _serve(args, lambda cf: model_config(args, "a2a", cf), params, device, dtype)
         res.update(rank=args.rank, build_seconds=built, params=_shapes(params),
                    param_bytes=param_bytes,
@@ -456,8 +481,8 @@ def expected(args: argparse.Namespace):
     cache, and the bytes of each tensor), from the whole trees on the meta
     device: each leaf the :func:`~repro_torch.launch.mesh.shard_shape` of its
     serve placement at a (1, ranks) mesh (the cache's by the cache rules),
-    or whole where :func:`~repro_torch.launch.mesh.model_placements` keeps
-    it whole (an expert-parallel model's experts that do not divide)."""
+    after :func:`~repro_torch.launch.mesh.model_placements` has said that a
+    layer runs every placement."""
     import torch
 
     from repro_torch.launch import mesh
@@ -469,14 +494,12 @@ def expected(args: argparse.Namespace):
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), dtype, device="meta")
         cache = _init_cache(args, model, dtype, "meta", None)
-    dims = mesh.model_placements(params, args.ranks)
-    whole = {"params": {n for n, d in dims.items() if d is None}, "cache": set()}
+    mesh.model_placements(params, args.ranks)
     out = []
-    for what, tree, specs in (("params", params, mesh.param_specs(params, axes, "serve")),
-                              ("cache", cache, mesh.cache_specs(cache, axes, batch=args.batch))):
+    for tree, specs in ((params, mesh.param_specs(params, axes, "serve")),
+                        (cache, mesh.cache_specs(cache, axes, batch=args.batch))):
         spec_of = mesh.named_specs(specs)
-        shapes = {name: tuple(leaf.shape) if name in whole[what] else
-                  mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
+        shapes = {name: mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
                   for name, leaf in mesh.leaves_with_names(tree)}
         sizes = [int(np.prod(shapes[name])) * leaf.element_size()
                  for name, leaf in mesh.leaves_with_names(tree)]
@@ -485,15 +508,18 @@ def expected(args: argparse.Namespace):
 
 
 def kernel_launches(args: argparse.Namespace):
-    """(K1 launches a prefill, K2 launches a decode) of every rank on the
-    card: one a prefill and one a decode in each attention layer, and for an
-    encoder-decoder also each cross attention and, given frames, each
-    encoder layer's K1."""
+    """The kernel launches of every rank on the card, ({kernel: count} a
+    prefill, {kernel: count} a decode): K1 once a prefill and K2 once a
+    decode in each attention layer, and for an encoder-decoder also each
+    cross attention and, given frames, each encoder layer's K1; K3 once a
+    prefill in each SSD layer."""
     cfg = model_config(args)
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
-    if not cfg.is_enc_dec:
-        return n_attn, n_attn
-    return 2 * n_attn + (cfg.encoder.num_layers if args.frames else 0), 2 * n_attn
+    n_ssd = sum(kind == "ssd" for kind in cfg.layer_pattern)
+    k1 = n_attn if not cfg.is_enc_dec else (
+        2 * n_attn + (cfg.encoder.num_layers if args.frames else 0))
+    k2 = n_attn if not cfg.is_enc_dec else 2 * n_attn
+    return {"flash_attention": k1, "ssd_scan": n_ssd}, {"paged_attention": k2}
 
 
 def allocation_bounds(sizes: List[int]):
@@ -509,10 +535,10 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     """Raise unless the ranks served as they should: each holds its blocks
     of the parameters and of the cache (the shapes of its placements; on the
     card, the allocation's bytes within :func:`allocation_bounds` of them);
-    every prefill ran, on the card, K1 once an attention layer, and the
-    decodes K2 once an attention layer a decode (:func:`kernel_launches`:
-    an encoder-decoder's cross attention and encoder too); the ranks'
-    logits agree
+    every prefill ran, on the card, K1 once an attention layer and K3 once
+    an SSD layer, and the decodes K2 once an attention layer a decode
+    (:func:`kernel_launches`: an encoder-decoder's cross attention and
+    encoder too); the ranks' logits agree
     (1e-6 of the largest) at every step; the prefill's logits (an MoE's at
     the first capacity factor, where nothing may drop, and through
     ``moe_a2a`` in every layer) and every decode's lie within ``tol`` of the
@@ -520,7 +546,7 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     (batch, vocab).  Returns the ranks' kernel launches, summed."""
     import torch
     cfg = model_config(args)
-    k1, k2 = kernel_launches(args)
+    per_prefill, per_decode = kernel_launches(args)
     cuda = args.device != "cpu"
     (p_shapes, p_sizes), (c_shapes, c_sizes) = expected(args)
     launches: collections.Counter = collections.Counter()
@@ -541,9 +567,9 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
         for i, pre in enumerate(r["prefill"]):
             if cfg.moe is not None and [c["fn"] for c in pre["moe"]] != ["moe_a2a"] * cfg.num_layers:
                 raise AssertionError(f"{who} prefill {i}: MoE calls {pre['moe']}")
-            if cuda and pre["launches"]["flash_attention"] != k1:
-                raise AssertionError(f"{who} prefill {i}: K1 launched "
-                                     f"{pre['launches']}, not once an attention layer")
+            if cuda and any(pre["launches"][k] != n for k, n in per_prefill.items()):
+                raise AssertionError(f"{who} prefill {i}: launched {pre['launches']}, not "
+                                     f"{per_prefill}")
             apart = _rel(pre["logits"], ranks[0]["prefill"][i]["logits"])
             if apart > 1e-6:
                 raise AssertionError(f"{who}'s prefill logits are {apart} from rank 0's")
@@ -552,8 +578,10 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
             apart = _rel(step, ranks[0]["decode"]["logits"][t])
             if apart > 1e-6:
                 raise AssertionError(f"{who}'s decode {t} logits are {apart} from rank 0's")
-        if cuda and r["decode"]["launches"]["paged_attention"] != k2 * args.decodes:
-            raise AssertionError(f"{who} decodes: K2 launched {r['decode']['launches']}")
+        if cuda and any(r["decode"]["launches"][k] != n * args.decodes
+                        for k, n in per_decode.items()):
+            raise AssertionError(f"{who} decodes: launched {r['decode']['launches']}, not "
+                                 f"{per_decode} a decode")
         launches.update(r["decode"]["launches"])
     first = ranks[0]["prefill"][0]
     if any(c["dropped"] for c in first["moe"]):

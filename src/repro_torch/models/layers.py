@@ -26,11 +26,13 @@ MoE over the ``torch.distributed`` ranks of the ambient mesh's "model"
 axis (:func:`use_mesh`, :func:`ambient_mesh`; the mesh itself and the
 weights' cut come from :mod:`repro_torch.launch.mesh`).  The dense layers
 (:func:`attn_qkv`, :func:`attn_out`, :func:`mlp`, :func:`embed`,
-:func:`unembed`) and :func:`rglru` run on a rank's block of their weights
-wherever they are given one (:func:`tp_group`): Megatron's tensor
-parallelism over the same ranks, the attention's on its heads or on
-head_dim where the heads do not split (:class:`AttnHeads`), the RG-LRU's
-on its width.  :func:`rglru` runs
+:func:`unembed`), :func:`rglru`, the SSD and :func:`moe` run on a rank's
+block of their weights wherever they are given one (:func:`tp_group`):
+Megatron's tensor parallelism over the same ranks, the attention's on its
+heads or on head_dim where the heads do not split (:class:`AttnHeads`), the
+RG-LRU's on its width, the SSD's on its heads and the MoE's on its experts'
+FFN width, where the columns a rank needs of a packed projection come from
+the ranks that hold them (:func:`_fetch_columns`).  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -274,10 +276,11 @@ def _proj_heads(x, w):
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-# bytes this process received through the gathers of a tensor-parallel rank,
-# by what they gathered: "head_dim" (the attention's projections and cache
-# on head_dim) and "rglru" (the RG-LRU's conv'd input); read and reset by
-# the caller (``launch.parallel``)
+# bytes this process received through the gathers and exchanges of a
+# tensor-parallel rank, by what they moved: "head_dim" (the attention's
+# projections and cache on head_dim), "rglru" (the RG-LRU's conv'd input),
+# "ssd" (the SSD's packed columns) and "moe_ffn" (the experts' gate and up
+# columns); read and reset by the caller (``launch.parallel``)
 GATHERED: collections.Counter = collections.Counter()
 
 
@@ -567,12 +570,27 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     weighted by the gates and summed (:func:`_combine`).  x: (B, T, d) ->
     (y (B, T, d), {"moe_aux_loss", "expert_load"}), the Switch-style
     load-balance loss and each expert's share of the n·K choices.
-    ``force="plain"`` runs the per-expert loop."""
+    ``force="plain"`` runs the per-expert loop.
+
+    A rank that holds its block of every expert's FFN width (the serve
+    rules where the experts do not divide over "model": ``w_in``'s packed
+    [gate | up] columns and ``w_out``'s rows, each cut into contiguous
+    blocks) runs every token through it: the replicated router, its block
+    of ``w_in``, then one exchange (:func:`_fetch_columns`,
+    ``GATHERED["moe_ffn"]``) that brings it the gate and up columns of its
+    own rows of ``w_out`` from the ranks that computed them, and its partial
+    output reduced over "model" in fp32.  The statistics are every token's
+    on every rank."""
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape
     n = B * T
     xf = x.reshape(n, d)
+    F_e, F_loc = moe_cfg.d_ff_expert, p["w_out"].shape[-2]
+    group, tp = tp_group(F_loc, F_e), F_e // F_loc
+    if group is not None:
+        xf = _Copy.apply(xf, group)
+        p = {**p, "router": _Copy.apply(p["router"], group)}   # its gradient summed over "model"
     probs, gate, idx = moe_route(cfg, p, xf)
     flat_expert = idx.reshape(-1)                                     # (n*K,)
     sort_idx = torch.argsort(flat_expert, stable=True)
@@ -584,9 +602,13 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
 
     h = grouped_mm(xs, p["w_in"], group_sizes, force=force)          # (n*K, n_in*F_e)
     if cfg.mlp_act == "swiglu":
+        if group is not None:        # the gate and up columns of this rank's rows of w_out
+            h = _fetch_columns(h, [[(j * F_loc, (j + 1) * F_loc),
+                                    (F_e + j * F_loc, F_e + (j + 1) * F_loc)]
+                                   for j in range(tp)], group, "moe_ffn")
         hi, hg = torch.chunk(h, 2, dim=-1)
         h = F.silu(hi) * hg
-    else:
+    else:                            # one block of F_e columns: the rows of w_out
         h = F.gelu(h, approximate="tanh")
     ys = grouped_mm(h, p["w_out"], group_sizes, force=force)         # (n*K, d)
     out = _combine(torch.empty_like(ys).index_copy(0, sort_idx, ys), gate)  # in pair order
@@ -594,6 +616,11 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     me = probs.mean(dim=0)                                            # (E,)
     ce = group_sizes.float() / (n * K)
     aux_loss = E * torch.sum(me * ce)
+    if group is not None:
+        out = _reduce_partial(out, group)
+        # every rank has the whole loss: a 1/tp share a rank sums to one
+        # loss's gradient over the ranks (the router's _Copy)
+        aux_loss = _Reduce.apply(aux_loss / tp, group)
     return out.reshape(B, T, d), {"moe_aux_loss": aux_loss, "expert_load": ce}
 
 
@@ -751,17 +778,44 @@ class _Copy(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
-def _exchange(x, group):
+def _exchange(x, group, sent=None, got=None):
     """``all_to_all_single`` over ``group``: dim 0 of ``x`` in as many equal
-    blocks as ranks, block j to rank j, block i of the result from rank i;
-    its gradient is the reverse exchange."""
+    blocks as ranks (or of ``sent[j]`` rows), block j to rank j, block i of
+    the result from rank i (of ``got[i]`` rows); its gradient is the reverse
+    exchange."""
     import warnings
 
     import torch.distributed.nn.functional as dist_fn
+    out = torch.empty_like(x) if got is None else x.new_empty((sum(got),) + x.shape[1:])
     with warnings.catch_warnings():
         # newer torch marks the autograd form deprecated for a private module
         warnings.simplefilter("ignore", FutureWarning)
-        return dist_fn.all_to_all_single(torch.empty_like(x), x.contiguous(), group=group)
+        return dist_fn.all_to_all_single(out, x.contiguous(), got, sent, group=group)
+
+
+def _overlap(ranges, lo: int, hi: int):
+    """The parts of the sorted, disjoint column ``ranges`` inside [lo, hi)."""
+    return [(max(a, lo), min(b, hi)) for a, b in ranges if max(a, lo) < min(b, hi)]
+
+
+def _fetch_columns(y, wants, group, what: str):
+    """Columns of a packed last axis that the ranks of ``group`` hold in
+    contiguous equal blocks, rank j the j-th (the serve rules' cut; ``y`` is
+    this rank's block): ``wants[j]`` lists the sorted, disjoint (start,
+    stop) column ranges that rank j needs, and this rank gets its own, in
+    order, (..., their widths summed), dense.  One all-to-all moves every
+    rank's pieces; what this rank receives from the others is counted in
+    ``GATHERED[what]``.  The gradient is the reverse exchange."""
+    m, tp = _rank_and_size(group)
+    c = y.shape[-1]
+    cols = y.movedim(-1, 0)                         # the exchange splits dimension 0
+    send = [(j, a, b) for j in range(tp) for a, b in _overlap(wants[j], m * c, (m + 1) * c)]
+    sent = [sum(b - a for k, a, b in send if k == j) for j in range(tp)]
+    got = [sum(b - a for a, b in _overlap(wants[m], i * c, (i + 1) * c)) for i in range(tp)]
+    pieces = torch.cat([cols[a - m * c:b - m * c] for _, a, b in send]) if send else cols[:0]
+    GATHERED[what] += (sum(got) - got[m]) * (y.numel() // c) * y.element_size()
+    # dense again in the packed axis, as K3 takes its operands
+    return _exchange(pieces, group, sent, got).movedim(0, -1).contiguous()
 
 
 def _local_experts(cfg: ModelConfig, p, rows, local_id, E_loc: int, force):
@@ -1076,6 +1130,66 @@ def _ssd_split(cfg: ModelConfig, p, x):
     return z, xbc, dt, d_in, nheads
 
 
+def _ssd_in(cfg: ModelConfig, p, x, conv_state):
+    """The SSD block up to the scan: the projection, the depthwise conv and
+    its SiLU.  Returns (z (B,T,H·P), xh (B,T,H,P), Bmat, Cmat (B,T,N), dt
+    (B,T,H) raw, the new conv state, the per-head leaves {A_log, D,
+    dt_bias, norm_scale}, the "model" group or None).
+
+    A rank that holds its block of ``w_in``'s packed [z | x | B | C | dt]
+    columns (the serve rules' contiguous cut) runs H/tp heads, heads
+    m·H/tp .. of rank m, the rows of its block of ``w_out``: one exchange
+    (:func:`_fetch_columns`) brings it z and dt of those heads and its
+    block of the conv's d_inner + 2N channels, the block its conv state
+    holds (the cache rules' cut), which it convolves with its block of the
+    replicated conv weight; a second brings it x of its heads, and B and C
+    whole, from the ranks whose blocks convolved them.  Both count in
+    ``GATHERED["ssd"]``."""
+    ssm = cfg.ssm
+    d_in, N, P = ssm.d_inner(cfg.d_model), ssm.state_dim, ssm.head_dim
+    H = ssm.num_heads(cfg.d_model)
+    C = d_in + 2 * N                                      # conv channels: x, B, C
+    group = tp_group(p["w_in"].shape[-1], d_in + C + H)
+    conv = p["conv"]
+    heads = {k: p[k] for k in ("A_log", "D", "dt_bias", "norm_scale")}
+    if group is None:
+        z, xbc, dt = _ssd_split(cfg, p, x)[:3]
+    else:
+        tp = dist.get_world_size(group)
+        Hl, Cl = H // tp, C // tp
+        x = _Copy.apply(x, group)
+        z, xbc, dt = torch.split(_fetch_columns(
+            x @ p["w_in"], [[(j * Hl * P, (j + 1) * Hl * P), (d_in + j * Cl, d_in + (j + 1) * Cl),
+                             (d_in + C + j * Hl, d_in + C + (j + 1) * Hl)] for j in range(tp)],
+            group, "ssd"), [Hl * P, Cl, Hl], dim=-1)
+        conv = _own_block(_Copy.apply(conv, group), -1, Cl, group)
+        heads = {k: _own_block(_Copy.apply(v, group), -1, v.shape[-1] // tp, group)
+                 for k, v in heads.items()}
+    xbc, conv_state = _causal_conv1d(xbc, conv, conv_state)
+    xbc = F.silu(xbc)
+    if group is not None:
+        xbc = _fetch_columns(xbc, [[(j * Hl * P, (j + 1) * Hl * P), (d_in, C)]
+                                   for j in range(tp)], group, "ssd")
+    xs, Bmat, Cmat = torch.split(xbc, [xbc.shape[-1] - 2 * N, N, N], dim=-1)
+    xh = xs.unflatten(-1, (xs.shape[-1] // P, P))
+    return z, xh, Bmat, Cmat, dt, conv_state, heads, group
+
+
+def _ssd_out(y, z, heads, group, dtype):
+    """The SSD block between the scan and ``w_out``: y (B,T,H,P) fp32, the
+    skip D·x added, cast to ``dtype``, gated by SiLU(z) and normalised over
+    d_inner (fp32 RMSNorm with ``norm_scale``).  On a rank, whose y holds
+    its heads' channels, the squares are summed over its channels and that
+    sum over "model" (fp32) before the norm."""
+    y = y.flatten(-2).to(dtype) * F.silu(z)
+    if group is None:
+        return rms_norm(y, heads["norm_scale"])
+    y32 = y.float()
+    ss = _Reduce.apply(torch.sum(y32 * y32, dim=-1, keepdim=True), group)
+    mean = ss / (y.shape[-1] * dist.get_world_size(group))
+    return (y32 * torch.rsqrt(mean + 1e-6) * heads["norm_scale"].float()).to(dtype)
+
+
 def ssd_prefill(cfg: ModelConfig, p, x, state=None, conv_state=None, *,
                 force: Optional[str] = None):
     """Mamba2 block over a sequence (chunked SSD).  x: (B,T,d), any T >= 1.
@@ -1083,24 +1197,17 @@ def ssd_prefill(cfg: ModelConfig, p, x, state=None, conv_state=None, *,
     Returns (y, final_state (B,H,N,P) fp32, conv_state (B,K-1,d_conv)).  The
     scan goes through ``ops.ssd_scan`` with ``state`` as its initial state;
     B and C are handed over as fp32 views of the projection (no copy in fp32).
+    On a "model" rank (:func:`_ssd_in`) the scan runs over its heads from its
+    block of the state, and the states are its blocks.
     """
-    ssm = cfg.ssm
-    B, T, _ = x.shape
-    z, xbc, dt, d_in, H = _ssd_split(cfg, p, x)
-    xbc, conv_state = _causal_conv1d(xbc, p["conv"], conv_state)
-    xbc = F.silu(xbc)
-    xs, Bmat, Cmat = torch.split(xbc, [d_in, ssm.state_dim, ssm.state_dim], dim=-1)
-    P = ssm.head_dim
-    xh = xs.reshape(B, T, H, P)
-    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B,T,H)
-    A = -torch.exp(p["A_log"])                                        # (H,)
+    z, xh, Bmat, Cmat, dt, conv_state, hp, group = _ssd_in(cfg, p, x, conv_state)
+    dt = F.softplus(dt.float() + hp["dt_bias"])                       # (B,T,H)
+    A = -torch.exp(hp["A_log"])                                       # (H,)
     y, state = ops.ssd_scan(xh.float() * dt[..., None], dt * A, Bmat.float(), Cmat.float(),
-                            chunk=ssm.chunk_size, initial_state=state, force=force)
-    y = y + xh.float() * p["D"][None, None, :, None]
-    y = y.reshape(B, T, d_in).to(x.dtype)
-    y = y * F.silu(z)
-    y = rms_norm(y, p["norm_scale"])
-    return y @ p["w_out"], state, conv_state
+                            chunk=cfg.ssm.chunk_size, initial_state=state, force=force)
+    y = y + xh.float() * hp["D"][None, None, :, None]
+    y = _ssd_out(y, z, hp, group, x.dtype)
+    return _reduce_partial(y @ p["w_out"], group), state, conv_state
 
 
 def ssd_chunked_ref(xh, dt, A, Bmat, Cmat, *, chunk: int, initial_state=None):
@@ -1114,25 +1221,18 @@ def ssd_chunked_ref(xh, dt, A, Bmat, Cmat, *, chunk: int, initial_state=None):
 
 
 def ssd_decode_step(cfg: ModelConfig, p, x_t, state, conv_state):
-    """Single-token SSD update.  x_t: (B,1,d); state: (B,H,N,P)."""
-    ssm = cfg.ssm
-    B = x_t.shape[0]
-    z, xbc, dt, d_in, H = _ssd_split(cfg, p, x_t)
-    xbc, conv_state = _causal_conv1d(xbc, p["conv"], conv_state)
-    xbc = F.silu(xbc)
-    xs, Bmat, Cmat = torch.split(xbc, [d_in, ssm.state_dim, ssm.state_dim], dim=-1)
-    P = ssm.head_dim
-    xh = xs.reshape(B, H, P).float()
-    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])                  # (B,H)
-    A = -torch.exp(p["A_log"])
+    """Single-token SSD update.  x_t: (B,1,d); state: (B,H,N,P): a rank's
+    heads on a "model" rank, as :func:`ssd_prefill`."""
+    z, xh, Bmat, Cmat, dt, conv_state, hp, group = _ssd_in(cfg, p, x_t, conv_state)
+    xh = xh[:, 0].float()                                              # (B,H,P)
+    dt1 = F.softplus(dt[:, 0].float() + hp["dt_bias"])                 # (B,H)
+    A = -torch.exp(hp["A_log"])
     a = torch.exp(dt1 * A[None, :])                                    # (B,H)
     Bv = Bmat[:, 0].float()                                            # (B,N)
     Cv = Cmat[:, 0].float()
     dx = xh * dt1[..., None]                                           # (B,H,P)
     state = state * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", Bv, dx)
     y = torch.einsum("bn,bhnp->bhp", Cv, state)
-    y = y + xh * p["D"][None, :, None]
-    y = y.reshape(B, 1, d_in).to(x_t.dtype)
-    y = y * F.silu(z)
-    y = rms_norm(y, p["norm_scale"])
-    return y @ p["w_out"], state, conv_state
+    y = y + xh * hp["D"][None, :, None]
+    y = _ssd_out(y[:, None], z, hp, group, x_t.dtype)
+    return _reduce_partial(y @ p["w_out"], group), state, conv_state

@@ -47,14 +47,16 @@ tables (:func:`_page_tables`).
 Given a rank's blocks of the parameters (``launch.mesh.shard_params``,
 under an ambient mesh of more than one "model" rank: ``layers.use_mesh``),
 the model runs on them: its attention heads (or, where the heads do not
-split, its block of head_dim), MLP width, RG-LRU width and vocabulary
-rows, Megatron's tensor parallelism in :mod:`.layers`.  ``init_cache``
-given those parameters holds their blocks: KV heads or head_dim, and the
-RG-LRU states' width.  K1 and K2 run on the rank's query heads (every one
-where the query heads do not split), over K/V gathered to whole heads
-where the cache holds a block of head_dim (``layers.AttnHeads``): each
-prefill chunk's keys and its cached prefix, each decode's live rows
-(:func:`_decode_view`), the encoder-decoder's cross cache alike.
+split, its block of head_dim), MLP width, RG-LRU width, SSD heads (K3 on
+the rank's heads), experts or experts' FFN width, and vocabulary rows,
+Megatron's tensor parallelism in :mod:`.layers`.  ``init_cache`` given
+those parameters holds their blocks: KV heads or head_dim, the RG-LRU
+states' width, the SSD state's heads and the conv state's channels.  K1
+and K2 run on the rank's query heads (every one where the query heads do
+not split), over K/V gathered to whole heads where the cache holds a block
+of head_dim (``layers.AttnHeads``): each prefill chunk's keys and its
+cached prefix, each decode's live rows (:func:`_decode_view`), the
+encoder-decoder's cross cache alike.
 
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
 with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
@@ -202,20 +204,22 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
                 ) -> Dict:
     """Cache leaves of one block; ``lead=(L,)`` stacks L blocks on axis 0.
     An attention block's rows hold :func:`cache_span` positions of its KV
-    heads, an RG-LRU block's states its width: the config's, or those of
+    heads, an RG-LRU block's states its width, an SSD block's state its
+    heads and its conv state its conv channels: the config's, or those of
     the block's parameters ``p`` where given (a tensor-parallel rank's
-    blocks: its KV heads or its block of head_dim, its block of the width).
-    SSD and RG-LRU states are fp32 whatever ``dtype`` is, and take no
-    ``cache_size``."""
+    blocks: its KV heads or its block of head_dim, its block of the width;
+    an SSD rank's H/tp heads and its block of the d_inner + 2N channels,
+    tp being how many blocks of ``w_in`` make the whole).  SSD and RG-LRU
+    states are fp32 whatever ``dtype`` is, and take no ``cache_size``."""
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "ssd":
         ssm = cfg.ssm
+        d_in, H = ssm.d_inner(cfg.d_model), ssm.num_heads(cfg.d_model)
+        channels = d_in + 2 * ssm.state_dim
+        tp = 1 if p is None else (d_in + channels + H) // p["ssd"]["w_in"].shape[-1]
         lead = tuple(lead) + (batch,)
-        return {"state": torch.zeros(lead + (ssm.num_heads(cfg.d_model), ssm.state_dim,
-                                             ssm.head_dim), **f32),
-                "conv": torch.zeros(lead + (ssm.conv_width - 1,
-                                            ssm.d_inner(cfg.d_model) + 2 * ssm.state_dim),
-                                    **f32)}
+        return {"state": torch.zeros(lead + (H // tp, ssm.state_dim, ssm.head_dim), **f32),
+                "conv": torch.zeros(lead + (ssm.conv_width - 1, channels // tp), **f32)}
     if kind == "rglru":
         rg = cfg.rglru
         width = rg.lru_width if p is None else p["rglru"]["w_x"].shape[-1]

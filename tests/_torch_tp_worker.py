@@ -11,10 +11,12 @@ case may give ``chunks``, the lengths of the prompt's prefill chunks (the
 whole prompt at once by default).  For each case the rank cuts its blocks
 (``launch.mesh.shard_params``), builds the cache of their blocks
 (``init_cache(..., params=)``), prefills the prompts chunk by chunk (after
-the frames) and decodes 3 tokens of every row through ``decode_slots``,
-and saves its leaves' and cache's shapes, its logits after each chunk and
-each decode and the bytes it gathered (``layers.GATHERED``) to
-OUT/rank<RANK>.pt.  It imports torch and the port only.
+the frames) and decodes the case's fed tokens of every row through
+``decode_slots``, and saves its leaves' and cache's shapes, its logits
+after each chunk and each decode and the bytes it gathered
+(``layers.GATHERED``) to OUT/rank<RANK>.pt; a case with ``keep_cache``
+also saves the cache's values after the prefill and after the decodes.
+It imports torch and the port only.
 """
 
 import sys
@@ -49,11 +51,18 @@ def serve(case, world):
             logits.append(model.prefill(params, inputs, cache)[0])
             inputs.pop("frontend_embeds", None)
             s0 += n
+        kept = [_values(cache)] if case.get("keep_cache") else []
         for t in range(fed.shape[0]):
             logits.append(model.decode_slots(params, cache, fed[t], rows))
     shapes = {what: {name: tuple(leaf.shape) for name, leaf in mesh.leaves_with_names(tree)}
               for what, tree in (("params", params), ("cache", cache))}
-    return dict(shapes, logits=logits, gathered=dict(layers.GATHERED))
+    if kept:
+        kept.append(_values(cache))
+    return dict(shapes, logits=logits, gathered=dict(layers.GATHERED), cache_values=kept)
+
+
+def _values(cache):
+    return {name: leaf.clone() for name, leaf in mesh.leaves_with_names(cache)}
 
 
 def main(world, rank, store, out, cases):

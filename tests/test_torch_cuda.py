@@ -309,6 +309,22 @@ def test_ssd_kernel_matches_plain(gen, B, T, H, P, N, chunk, dtype, tol, carry):
     torch.testing.assert_close(state, s_exp, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("H", [8, 2])
+def test_ssd_kernel_at_a_ranks_heads(gen, H):
+    """K3 at a tensor-parallel rank's heads of mamba2_370m (8 of 32 at 4
+    "model" ranks, 2 at 16): two rows of 1000 tokens, a ragged last chunk,
+    from a carried state, against ``ref.ssd_scan_chunked``."""
+    from repro_torch.kernels import ref
+    xdt, dA, Bm, Cm = _ssd_inputs(gen, 2, 1000, H, 64, 128, torch.float32)
+    s0 = torch.randn((2, H, 128, 64), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    y, state = ops.ssd_scan(xdt, dA, Bm, Cm, chunk=128, initial_state=s0)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    y_exp, s_exp = ref.ssd_scan_chunked(xdt, dA, Bm, Cm, chunk=128, initial_state=s0)
+    torch.testing.assert_close(y, y_exp, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, s_exp, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("tile", [16, 32, 64])
 def test_ssd_kernel_every_column_tile(gen, tile, monkeypatch):
     """Each tile of state columns a block may own, on a ragged T with a

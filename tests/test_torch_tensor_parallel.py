@@ -18,14 +18,16 @@ ranks' cut (``launch.mesh.shard_params``).
   ranks' logits are the same.
 * ``build_params`` gives each rank the blocks ``shard_params`` cuts from the
   whole tree that ``model.init`` draws from the same seed.
-* In a dense tree a placement the port does not run raises a ``ValueError``
-  that names the leaf: an SSD leaf; in ``shard_params`` and
-  ``build_params`` (the heads' fallback to head_dim, the RG-LRU and the
-  encoder-decoder run since, in ``tests/test_torch_tp_fallback.py``).  An
-  MoE tree, served expert-parallel, splits its attention as the rules do
-  and keeps experts that do not divide whole (full qwen3_30b_a3b,
-  mixtral_8x7b and dbrx_132b on the meta device), and the cache takes its
-  KV heads and head_dim from the weights.
+* A placement the port does not run raises a ``ValueError`` that names the
+  leaf, in ``shard_params`` and ``build_params``: a leaf under the SSD that
+  no layer runs (the heads' fallback to head_dim, the RG-LRU and the
+  encoder-decoder run since, in ``tests/test_torch_tp_fallback.py``; the
+  SSD's own leaves and the experts' FFN width in
+  ``tests/test_torch_tp_packed.py``).  An MoE tree splits its attention as
+  the rules do and its experts on the expert axis, or on their FFN width
+  where they do not divide (full qwen3_30b_a3b, mixtral_8x7b and dbrx_132b
+  on the meta device), and the cache takes its KV heads and head_dim from
+  the weights.
 * The launcher (``repro_torch.launch.parallel``) on 4 CPU ranks: the
   8-over-4-head config, its ranks against its one-process model
   (``parallel.check`` at 2e-4: shapes, logits at every step).
@@ -200,12 +202,27 @@ def test_build_params_draws_the_blocks_of_the_whole_init(arch):
         assert got["blocks/attn/wq"].shape[-2] == 2
 
 
+class _WithUnrunLeaf:
+    """A model whose tree has one more leaf, ``blocks/ssd/w_x`` (an RG-LRU
+    name under the SSD), which the serve rules place on "model" and no
+    layer runs."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, generator, dtype=torch.float32, device=None):
+        from repro_torch.models.layers import dense_init
+        p = self.model.init(generator, dtype, device)
+        p["blocks"]["ssd"]["w_x"] = dense_init((64, 64), generator, dtype=dtype, device=device)
+        return p
+
+
 @pytest.mark.parametrize("arch,tp,leaf", [("mamba2_370m", 2, "blocks/ssd/")])
 def test_unexecuted_placements_raise_naming_the_leaf(arch, tp, leaf):
-    """A dense tree's ranks are for tensor parallelism alone: a placement no
-    layer runs raises in ``shard_params`` and in ``build_params``, which
-    checks on the meta tree before it draws a leaf."""
-    model = build_model(get_reduced_config(arch))
+    """A placement no layer runs raises in ``shard_params`` and in
+    ``build_params``, which checks on the meta tree before it draws a
+    leaf."""
+    model = _WithUnrunLeaf(build_model(get_reduced_config(arch)))
     whole = model.init(torch.Generator().manual_seed(0), torch.float32, "meta")
     with pytest.raises(ValueError, match=leaf):
         mesh.shard_params(whole, _FakeMesh(0, tp))
@@ -214,27 +231,28 @@ def test_unexecuted_placements_raise_naming_the_leaf(arch, tp, leaf):
                           mesh=_FakeMesh(0, tp))
 
 
-# arch, "model" ranks, whether a rank keeps the experts whole
+# arch, "model" ranks, whether the experts are on their FFN width
 EXPERT_PARALLEL = [("qwen3_30b_a3b", 8, False),     # 32 query heads over 4 KV heads
                    ("mixtral_8x7b", 16, True),      # 8 KV heads, 8 experts
                    ("dbrx_132b", 16, False),        # 48 over 8, 16 experts
                    ("dbrx_132b", 8, False)]
 
 
-@pytest.mark.parametrize("arch,tp,experts_whole", EXPERT_PARALLEL)
-def test_expert_parallel_placements_at_full_size(arch, tp, experts_whole):
-    """An MoE tree is served expert-parallel: its attention is split as the
-    serve rules place it, the K/V on head_dim where they do not split on
-    heads (and so is its cache, ``init_cache(params=)``), and experts that
-    do not divide stay whole for the dropless fallback; nothing raises.  The
-    full configs on the meta device."""
+@pytest.mark.parametrize("arch,tp,on_ffn_width", EXPERT_PARALLEL)
+def test_expert_parallel_placements_at_full_size(arch, tp, on_ffn_width):
+    """An MoE tree's attention is split as the serve rules place it, the
+    K/V on head_dim where they do not split on heads (and so is its cache,
+    ``init_cache(params=)``), and its experts on the expert axis, or on
+    their FFN width (``w_in``'s columns, ``w_out``'s rows) where they do not
+    divide; nothing raises.  The full configs on the meta device."""
     cfg = get_config(arch).replace(num_layers=1, layer_pattern=None)
     model = build_model(cfg)
     whole = model.init(torch.Generator().manual_seed(0), torch.bfloat16, "meta")
     dims = mesh.model_placements(whole, tp)
     for w in ("wq", "wk", "wv", "wo"):
         assert dims[f"blocks/attn/{w}"] is not None, w
-    assert (dims["blocks/moe/w_in"] is None) == experts_whole
+    assert (dims["blocks/moe/w_in"], dims["blocks/moe/w_out"]) == ((-1, -2) if on_ffn_width
+                                                                   else (-3, -3))
     assert dims["embed"] == -2
     rank = mesh.shard_params(whole, _FakeMesh(0, tp))
     cache = model.init_cache(1, 16, torch.bfloat16, "meta", params=rank)

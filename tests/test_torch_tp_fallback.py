@@ -31,11 +31,12 @@ prefill chunk and of 3 decodes through ``decode_slots`` lie within 2e-4 of the
 one-process port model's (fp32) and within 2e-3 of the JAX model's at
 every step, the same on every rank.  A walk over the 13 full configs on the
 meta device at 2, 4, 8 and 16 ranks holds ``model_placements`` to the serve
-rules: it raises only for the SSD's leaves, and keeps whole only an MoE's
-experts that the rules place on their FFN width.  The launcher
-(``repro_torch.launch.parallel``) serves reduced qwen2_5_3b on 4 CPU ranks
-and recurrentgemma_2b and whisper_base (with frames) on 2, as phases 26-28
-do on the card, against its one-process model (``parallel.check``).
+rules: every leaf is placed as the rules place it (the SSD's leaves and an
+MoE's experts on their FFN width included), and a leaf that no layer runs
+raises.  The launcher (``repro_torch.launch.parallel``) serves reduced
+qwen2_5_3b and mamba2_370m on 4 CPU ranks and recurrentgemma_2b and
+whisper_base (with frames) on 2, as phases 26-29 do on the card, against
+its one-process model (``parallel.check``).
 """
 
 import jax
@@ -205,28 +206,30 @@ def test_rank_logits_match_one_process_and_jax(groups, name):
 def test_full_size_placements_follow_the_rules(arch):
     """Every full config on the meta device (one layer of a uniform stack)
     at 2, 4, 8 and 16 "model" ranks: each leaf's placement is the serve
-    rules' dimension, but for an MoE's experts that the rules put on their
-    FFN width (kept whole for the dropless fallback); the SSD's leaves
-    raise, naming the leaf.  A rank's cache from its blocks has the rules'
-    blocks of every leaf."""
+    rules' dimension, none kept whole against them (the SSD's packed
+    ``w_in`` and its ``w_out``, mixtral's experts on their FFN width at 16
+    ranks); one more leaf that the rules place and no layer runs raises,
+    naming it.  A rank's cache from its blocks has the rules' blocks of
+    every leaf, an SSD's state and conv state included."""
     cfg = get_config(arch)
     if len(set(cfg.layer_pattern)) == 1:
         cfg = cfg.replace(num_layers=1, layer_pattern=None)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), torch.bfloat16, "meta")
     names = dict(mesh.leaves_with_names(params))
+    unrun = {**params, "unrun": {"w_x": torch.empty((cfg.d_model, 256), device="meta")}}
     for tp in (2, 4, 8, 16):
         axes = mesh.MeshAxes(("data", "model"), (1, tp))
-        if cfg.ssm is not None:
-            with pytest.raises(ValueError, match="ssd/w_in"):
-                mesh.model_placements(params, tp)
-            continue
+        with pytest.raises(ValueError, match="unrun/w_x .* no layer of the port runs"):
+            mesh.model_placements(unrun, tp)
         dims = mesh.model_placements(params, tp)
         ruled = {n: mesh._model_dim(mesh._param_spec(n, tuple(leaf.shape), axes, "serve"),
                                     leaf.dim()) for n, leaf in names.items()}
-        unrun = {n for n in dims if dims[n] != ruled[n]}
-        assert all(dims[n] is None and n.endswith(("moe/w_in", "moe/w_out")) for n in unrun)
-        assert bool(unrun) == (arch == "mixtral_8x7b" and tp == 16)
+        assert dims == ruled
+        if cfg.ssm is not None:
+            assert dims["blocks/ssd/w_in"] == -1 and dims["blocks/ssd/w_out"] == -2
+        if arch == "mixtral_8x7b":
+            assert dims["blocks/moe/w_in"] == (-1 if tp == 16 else -3)
         rank = mesh.shard_params(params, _FakeMesh(tp - 1, tp))
         extra = {"enc_frames": 16} if cfg.is_enc_dec else {}
         cache = model.init_cache(2, 16, torch.bfloat16, "meta", params=rank, **extra)
@@ -240,14 +243,16 @@ def test_full_size_placements_follow_the_rules(arch):
 @pytest.mark.parametrize("argv", [
     ["--arch", "qwen2_5_3b", "--ranks", "4", "--prompt", "24"],
     ["--arch", "recurrentgemma_2b", "--ranks", "2", "--prompt", "80"],
-    ["--arch", "whisper_base", "--ranks", "2", "--prompt", "12", "--frames", "32"]])
+    ["--arch", "whisper_base", "--ranks", "2", "--prompt", "12", "--frames", "32"],
+    ["--arch", "mamba2_370m", "--ranks", "4", "--prompt", "40"]])
 def test_launcher_on_cpu_ranks(argv):
     """``launch.parallel`` as its CPU rehearsal runs these archs (phases
-    26-28 at reduced size): each rank's blocks and cache by the rules
-    (``check``, whisper's cross cache among them), the logits of a prefill
-    (after random frames for whisper) and 3 decodes within 2e-4 of the
-    one-process model's, and the bytes each step gathered where a block of
-    head_dim or of the RG-LRU's width crosses "model"."""
+    26-29 at reduced size): each rank's blocks and cache by the rules
+    (``check``, whisper's cross cache and mamba2's SSD states among them),
+    the logits of a prefill (after random frames for whisper) and 3 decodes
+    within 2e-4 of the one-process model's, and the bytes each step
+    gathered where a block of head_dim, of the RG-LRU's width or of the
+    SSD's packed columns crosses "model"."""
     from repro_torch.launch import parallel
     args = parallel.parse_args(argv + ["--reduced", "--device", "cpu", "--dtype", "float32",
                                        "--batch", "2", "--decodes", "3"])
@@ -255,7 +260,7 @@ def test_launcher_on_cpu_ranks(argv):
     assert not any(parallel.check(args, ranks, ref, 2e-4).values())   # no kernel on the CPU
     gathered = ranks[0]["prefill"][0]["gathered"]
     assert set(gathered) == {"qwen2_5_3b": {"head_dim"}, "recurrentgemma_2b": {"head_dim", "rglru"},
-                             "whisper_base": set()}[args.arch]
+                             "whisper_base": set(), "mamba2_370m": {"ssd"}}[args.arch]
     assert all(step == ranks[0]["decode"]["gathered"][0] for step in ranks[0]["decode"]["gathered"])
     if args.frames:
         assert ranks[0]["cache"]["cross_k"][2:] == (32, 2, 16)           # 2 of 4 heads a rank
