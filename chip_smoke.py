@@ -226,10 +226,10 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    give);
 25. llama3_70b tensor-parallel (``repro_torch.launch.parallel``): at full
    width (d_model 8192, 64 query heads over 8 KV heads of 128, F 28672,
-   vocabulary 128256, bf16) cut to 16 of its 80 layers, first as the
-   one-process model in this process (31.6 GB of weights), freed, then as 4
+   vocabulary 128256, bf16) cut to 8 of its 80 layers, first as the
+   one-process model in this process (17.9 GB of weights), freed, then as 4
    rank processes sharing this card through gloo (TP = 4: 16 query heads
-   over 2 KV heads, F 7168 and 32064 rows of the vocabulary each, 7.9 GB a
+   over 2 KV heads, F 7168 and 32064 rows of the vocabulary each, 4.5 GB a
    rank, each rank drawing its blocks leaf by leaf from the same seed), each
    prefilling 4 prompts of 256 tokens (numpy seed 0) and decoding 4 tokens
    through ``decode_slots``.  Every step's logits must lie within the
@@ -239,8 +239,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    its cache must be ``mesh.shard_bytes`` of its placements at a (1, 4)
    mesh up to the allocator's rounding; it prints each rank's prefill and
    decode ms, labelled as ranks sharing one card through gloo;
-26. qwen2_5_3b tensor-parallel as 25, at full size (36 layers, bf16, 16
-   query heads over 2 KV heads of 128, QKV biases, tied embeddings) on 4
+26. qwen2_5_3b tensor-parallel as 25, at full width cut to 12 of its 36
+   layers (bf16, 16 query heads over 2 KV heads of 128, QKV biases, tied embeddings) on 4
    ranks: each rank holds 4 query heads and a 32-wide block of head_dim of
    both KV heads (weights and cache), gathered to whole heads for RoPE, for
    K1 over each prefill's keys and for K2 over each decode's live rows; 4
@@ -257,7 +257,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    decoder and cross layer of the prefill, K2 in each decoder and cross
    layer of a decode).  26-28 have 25's gates, and print the bytes each
    rank gathered over "model" in the prefill and in each decode;
-29. mamba2_370m tensor-parallel as 25, at full size in fp32 on 4 ranks:
+29. mamba2_370m tensor-parallel as 25, at full width in fp32 cut to 24 of
+   its 48 layers on 4 ranks:
    each rank holds 1096 of ``w_in``'s 4384 packed [z | x | B | C | dt]
    columns, 512 of ``w_out``'s 2048 rows, 8 of the state's 32 heads and
    576 of the conv state's 2304 channels, exchanges the columns its heads
@@ -271,13 +272,39 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    width (1792 of ``w_in``'s 28672 [gate | up] columns, 896 of ``w_out``'s
    14336 rows; the gate and up columns of a rank's rows exchanged); 4
    prompts of 256, 4 decodes, the card's peak memory in use by every
-   process logged.  29-30 print the bytes each rank exchanged.
+   process logged.  29-30 print the bytes each rank exchanged;
+31. training on a ("data", "model") mesh of (2, 2), the reference's
+   ``train_4k`` program (``repro_torch.launch.train --mesh 2,2``): 4 rank
+   processes sharing this card through gloo, qwen2_5_3b at full width cut
+   to 4 of its 36 layers in fp32, batch 8 of 512 tokens in 2 microbatches
+   with remat (phase 21's batch), 2 steps.  Each rank holds its blocks of
+   the parameters and of both AdamW moments by the "train" rules (8 of the
+   16 query heads over 1 of the 2 KV heads, half of F and of the
+   vocabulary, and d cut again over "data"), gathers each leaf over "data"
+   where a layer uses it and reduces its gradient back to its block (FSDP),
+   and runs its block of each microbatch's rows through K1 and K1-bwd on
+   its heads; then the one-process model takes the same steps on the same
+   weights and batches.  Each step's loss must lie within 1e-4 and its
+   grad_norm within 1e-3 of the one process's (relative), the same on
+   every rank; step 1's gradient of every leaf, put together from the
+   blocks, within 1e-3 of the leaf's largest entry; K1 16 and K1-bwd 8
+   launches a step on every rank; each rank's allocated parameter and
+   moment bytes ``mesh.shard_bytes`` of the train specs at (2, 2) up to the
+   allocator's rounding.  It prints each step's ms by rank and the bytes a
+   rank gathered and reduced over "data";
+32. mamba2_370m the same way at full size (48 layers, 368,227,840
+   parameters) in fp32, batch 8 of 512 tokens (phase 22's batch at a
+   quarter of its T): K3 and K3-bwd on each rank's 16 of the 32 heads, 192
+   and 96 launches a step on every rank.  Then the one process's step 1 in
+   float64 through the plain versions (``train.witness``): every leaf of
+   the ranks' step-1 gradient must lie no farther from it than 1.5 times
+   the one process's fp32 gradient, plus 1e-5 of its largest entry.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
-steps of phases 21 and 22 and the ranks' prefills and decodes of phases 23
-and 25-30),
+steps of phases 21 and 22, the ranks' prefills and decodes of phases 23
+and 25-30 and the ranks' training steps of phases 31-32),
 the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -286,6 +313,7 @@ code is not 0; without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -772,13 +800,55 @@ def pass_ms(fn, names, iters=20):
             fn()
         torch.cuda.synchronize()
     out = dict.fromkeys(names, 0.0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for key, _, ns in device_events(prof.profiler.kineto_results.events()):
         for name in names:
-            if name in evt.key:
-                out[name] += getattr(evt, "self_device_time_total", 0) / 1e3 / iters
+            if name in key:
+                out[name] += ns / 1e6 / iters
     return out
+
+
+def device_events(raw, ranges=()):
+    """(name, start ns, duration ns) of every kernel, copy and fill among
+    ``raw``, a finished torch.profiler run's kineto events as they are
+    (``prof.profiler.kineto_results.events()``).  The profiler's own event lists
+    (``events()``, ``key_averages()``) build a tree of every event first,
+    which for a serving run's hundred thousand launches costs minutes of host
+    time.  As there, records of allocations are left out and launches that
+    kineto closed with no duration are counted; so are the device-side spans
+    of ``record_function`` ranges named in ``ranges`` (no work of their
+    own)."""
+    out = []
+    for e in raw:
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        if (name in ranges or name in ("[memory]", "[OutOfMemory]")
+                or getattr(e, "activity_type", str)() == "gpu_user_annotation"):
+            continue
+        out.append((name, e.start_ns(), max(e.duration_ns(), 0)))
+    return out
+
+
+def range_spans(raw, ranges):
+    """{range name: [(start ns, end ns), ...]}: among kineto's events ``raw``,
+    the device-side span of each call of a ``record_function`` range named
+    in ``ranges``, from the first start to the last end of the kernels
+    launched inside it."""
+    spans = collections.defaultdict(list)
+    for e in raw:
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() in ranges:
+            spans[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return spans
+
+
+def kernel_table(events):
+    """[(ms, calls, name)] of ``device_events`` summed by name, for each
+    name with some device time."""
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for name, _, ns in events:
+        by_name[name][0] += ns
+        by_name[name][1] += 1
+    return [(ns / 1e6, n, name) for name, (ns, n) in by_name.items() if ns > 0]
 
 
 def kernel_resources(log: str, name: str):
@@ -827,8 +897,7 @@ def cuda_kernel_names(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({evt.key for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+    return sorted({name for name, _, _ in device_events(prof.profiler.kineto_results.events())})
 
 
 def new_kernel_resources():
@@ -1986,6 +2055,14 @@ def main() -> int:
         "this card")
     launches.update(tensor_parallel(30))
     torch.cuda.empty_cache()
+    log("== 31. qwen2_5_3b trained on a (2, 2) mesh: FSDP over 'data', Megatron over 'model', "
+        "K1 and K1-bwd on every rank")
+    launches.update(train_mesh(31))
+    torch.cuda.empty_cache()
+    log("== 32. mamba2_370m trained on a (2, 2) mesh: K3 and K3-bwd on each rank's 16 of 32 "
+        "heads")
+    launches.update(train_mesh(32))
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2358,8 +2435,7 @@ def device_ms(serve) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return sum(ns for _, _, ns in device_events(prof.profiler.kineto_results.events())) / 1e6
 
 
 def serve_deferred(cfg, model, params, deferred):
@@ -2665,11 +2741,12 @@ def profile_serving(serve, ranges=()) -> None:
     function of ``repro_torch.models.layers`` named in ``ranges`` (``moe``,
     ``rglru_scan``) runs inside a ``record_function`` range of its name, and
     operators are recorded too: a range's device time is that of every
-    kernel launched inside it (for the MoE: routing, sort, gather, the
+    kernel that ran within the device-side span of one of its calls (one
+    stream, stepped in this thread: for the MoE, routing, sort, gather, the
     grouped products, named ``*group*``, the activation and the scatter-add;
     for the RG-LRU recurrence, its elementwise kernels and reductions).
-    (Without ranges only the device is traced: turning a serving run's
-    operator records into events costs about a minute of host time.)"""
+    Without ranges only the device is traced.  The events are read as
+    kineto gives them (:func:`device_events`)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import layers as L
@@ -2685,7 +2762,7 @@ def profile_serving(serve, ranges=()) -> None:
         setattr(L, name, in_range(name, fn))
     try:
         activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
-        with profile(activities=activities, acc_events=True) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.monotonic()
             serve()
             torch.cuda.synchronize()
@@ -2693,21 +2770,18 @@ def profile_serving(serve, ranges=()) -> None:
     finally:
         for name, fn in originals.items():
             setattr(L, name, fn)
-    # the ranges: operator events of this thread, whose device time is that
-    # of every kernel launched inside them
-    in_ranges = collections.defaultdict(lambda: [0.0, 0])
-    for e in (prof.events() if ranges else ()):
-        if e.name in originals and e.device_type == torch.autograd.DeviceType.CPU:
-            in_ranges[e.name][0] += e.device_time_total / 1e3
-            in_ranges[e.name][1] += 1
-    kernels = []
-    for evt in prof.key_averages():
-        # a range's device-side annotation spans kernels; it is none itself
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in originals:
-            continue
-        ms = getattr(evt, "self_device_time_total", 0) / 1e3
-        if ms > 0:
-            kernels.append((ms, evt.count, evt.key))
+    raw = prof.profiler.kineto_results.events()
+    events = device_events(raw, tuple(originals))
+    kernels = kernel_table(events)
+    # the ranges: the kernels that started within a call's span on the device
+    in_ranges = {}
+    ordered = sorted(events, key=lambda e: e[1])
+    starts = [start for _, start, _ in ordered]
+    prefix = list(itertools.accumulate((ns for _, _, ns in ordered), initial=0))
+    for name, spans in range_spans(raw, tuple(originals)).items():
+        ns = sum(prefix[bisect.bisect_right(starts, end)] - prefix[bisect.bisect_left(starts, a)]
+                 for a, end in spans)
+        in_ranges[name] = [ns / 1e6, len(spans)]
     total = sum(ms for ms, _, _ in kernels)
     if not kernels:
         log("profiler saw no device time")
@@ -2897,11 +2971,11 @@ def profile_training(model, params, opt, cfg, args, groups):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     events_ms = start.elapsed_time(end)
-    ranges = [e.time_range for e in prof.events() if e.device_type ==
-              torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start]
-    span_ms = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e3 if ranges else 0.0
+    events = device_events(prof.profiler.kineto_results.events())
+    timed = [(a, ns) for _, a, ns in events if ns > 0]
+    span_ms = (max(a + ns for a, ns in timed) - min(a for a, _ in timed)) / 1e6 if timed else 0.0
     scale = events_ms / span_ms if span_ms > 0 else 1.0
-    log(f"the profiler's device clock: {len(ranges)} device events over {span_ms:.1f} ms from the "
+    log(f"the profiler's device clock: {len(timed)} device events over {span_ms:.1f} ms from the "
         f"first start to the last end; CUDA events around the step {events_ms:.1f} ms "
         f"(ratio {scale:.4f})")
     if abs(scale - 1) <= 0.05:
@@ -2911,15 +2985,11 @@ def profile_training(model, params, opt, cfg, args, groups):
             f"multiplied by {scale:.4f}")
     shares = dict.fromkeys(list(groups) + ["matrix products", "other"], 0.0)
     kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = scale * getattr(evt, "self_device_time_total", 0) / 1e3
-        if ms <= 0:
-            continue
-        kernels.append((ms, evt.count, evt.key))
-        low = evt.key.lower()
-        label = next((g for g, name in groups.items() if name in evt.key), None)
+    for ms, n, key in kernel_table(events):
+        ms *= scale
+        kernels.append((ms, n, key))
+        low = key.lower()
+        label = next((g for g, name in groups.items() if name in key), None)
         if label is not None:
             shares[label] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
@@ -3021,14 +3091,14 @@ def expert_parallel():
 
 # phase: (the launcher's arguments, what the phase serves); phases 25-28
 TENSOR_PARALLEL = {
-    25: (["--arch", "llama3_70b", "--layers", "16", "--ranks", "4", "--batch", "4",
+    25: (["--arch", "llama3_70b", "--layers", "8", "--ranks", "4", "--batch", "4",
           "--prompt", "256", "--decodes", "4"],
-         "llama3_70b at full width, 16 of its 80 layers: 64 query heads over 8 KV heads, "
+         "llama3_70b at full width, 8 of its 80 layers: 64 query heads over 8 KV heads, "
          "each rank 16 over 2"),
-    26: (["--arch", "qwen2_5_3b", "--ranks", "4", "--batch", "4", "--prompt", "512",
-          "--decodes", "4"],
-         "qwen2_5_3b at full size: 16 query heads over 2 KV heads of 128, each rank 4 query "
-         "heads over a 32-wide block of head_dim of both KV heads"),
+    26: (["--arch", "qwen2_5_3b", "--layers", "12", "--ranks", "4", "--batch", "4",
+          "--prompt", "512", "--decodes", "4"],
+         "qwen2_5_3b at full width, 12 of its 36 layers: 16 query heads over 2 KV heads of "
+         "128, each rank 4 query heads over a 32-wide block of head_dim of both KV heads"),
     27: (["--arch", "recurrentgemma_2b", "--ranks", "2", "--batch", "2", "--prompt", "3072",
           "--decodes", "4"],
          "recurrentgemma_2b at full size, 3072-token prompts past its 2048-token window: each "
@@ -3038,11 +3108,11 @@ TENSOR_PARALLEL = {
           "--frames", "1500", "--decodes", "4"],
          "whisper_base at full size, 1500 frames a row: encoder, decoder and cross attention "
          "each rank 4 of 8 heads"),
-    29: (["--arch", "mamba2_370m", "--ranks", "4", "--batch", "2", "--prompt", "1000",
-          "--decodes", "4", "--dtype", "float32"],
-         "mamba2_370m at full size in fp32, 2 prompts of 1000 tokens (a ragged last chunk of "
-         "K3's 128): each rank 8 of the 32 heads (K3 over them), 1096 of w_in's 4384 packed "
-         "columns, 576 of the 2304 conv channels"),
+    29: (["--arch", "mamba2_370m", "--layers", "24", "--ranks", "4", "--batch", "2",
+          "--prompt", "1000", "--decodes", "4", "--dtype", "float32"],
+         "mamba2_370m at full width in fp32, 24 of its 48 layers, 2 prompts of 1000 tokens (a "
+         "ragged last chunk of K3's 128): each rank 8 of the 32 heads (K3 over them), 1096 of "
+         "w_in's 4384 packed columns, 576 of the 2304 conv channels"),
     30: (["--arch", "mixtral_8x7b", "--layers", "2", "--ranks", "16", "--batch", "4",
           "--prompt", "256", "--decodes", "4"],
          "mixtral_8x7b at full width, 2 of its 32 layers: each rank 2 of 32 query heads over "
@@ -3120,6 +3190,111 @@ def tensor_parallel(phase):
     launches = parallel.check(args, ranks, ref, tol)
     log(f"phase {phase} passed at {tol}: launches {dict(launches)}")
     return launches
+
+
+# phase: (the training launcher's arguments, what the phase trains)
+TRAIN_MESH = {
+    31: (["--arch", "qwen2_5_3b", "--full-config", "--layers", "4", "--mesh", "2,2",
+          "--steps", "2", "--batch", "8", "--seq", "512", "--microbatches", "2",
+          "--log-every", "1"],
+         "qwen2_5_3b at full width, 4 of its 36 layers, fp32: each rank 8 of the 16 query "
+         "heads over 1 of the 2 KV heads, 5504 of F's 11008, 75968 of the 151936 vocabulary "
+         "rows, and d cut again over 'data'"),
+    32: (["--arch", "mamba2_370m", "--full-config", "--mesh", "2,2", "--steps", "2",
+          "--batch", "8", "--seq", "512", "--microbatches", "2", "--log-every", "1"],
+         "mamba2_370m at full size (48 layers), fp32, batch 8 of 512 tokens: each rank 16 of "
+         "the 32 SSD heads (K3 and K3-bwd over them), 2192 of w_in's 4384 packed columns, "
+         "and d cut again over 'data'"),
+}
+
+
+def train_mesh(phase):
+    """Phases 31-32: the model of ``TRAIN_MESH[phase]`` trained by 4 ranks
+    of a (2, 2) mesh sharing this card (``repro_torch.launch.train``:
+    gloo, each rank's blocks drawn leaf by leaf, the ranks one after
+    another), then by the one-process model here, which is then freed;
+    ``train.check`` holds the ranks to it.  Returns the ranks' kernel
+    launches, summed."""
+    from repro_torch.launch import parallel, train
+    argv, what = TRAIN_MESH[phase]
+    args = train.parse_args(argv)
+    log(f"{what}; {args.mesh} ranks, then the one-process model")
+    t0 = time.monotonic()
+    with card_in_use() as card:
+        ranks = train.launch(args)
+    _, sizes = train.expected(args)
+    log(f"{len(ranks)} ranks: {time.monotonic() - t0:.1f} s, built in "
+        f"{[round(r['build_seconds'], 1) for r in ranks]} s, peak allocated "
+        f"{[round(r['memory'] / 2**30, 2) for r in ranks]} GiB (steps); the card's peak in use "
+        f"by every process {card['peak'] / 2**30:.2f} GiB")
+    for line in ranks[0]["lines"]:
+        log(f"rank 0: {line}")
+    moments = sizes + sizes + [4]
+    for r in ranks:
+        log(f"rank {r['rank']} at (data, model) {r['coords']}: parameters allocated "
+            f"{r['param_bytes']:,} bytes, mesh.shard_bytes {sum(sizes):,} (rounded "
+            f"{parallel.allocation_bounds(sizes)}); moments {r['moment_bytes']:,}, "
+            f"{sum(moments):,} (rounded {parallel.allocation_bounds(moments)}); launches by step "
+            f"{[h['launches'] for h in r['history']]}")
+    if train.model_config(args, quiet=True).ssm is not None:
+        heads = {r["params"]["blocks/ssd/w_out"][-2] // 64 for r in ranks}
+        log(f"each rank's SSD heads: {heads} of 32 (w_out rows / head_dim 64), w_in "
+            f"{ranks[0]['params']['blocks/ssd/w_in']}")
+        if heads != {16}:
+            raise AssertionError(f"the ranks' SSD heads are {heads}, not 16 of 32")
+    t0 = time.monotonic()
+    ref = train.reference(args)
+    torch.cuda.empty_cache()
+    log(f"one-process model: {time.monotonic() - t0:.1f} s, steps "
+        f"{[round(h['seconds'] * 1e3, 1) for h in ref['history']]} ms; allocated after "
+        f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log("times and bytes below: 4 ranks sharing one card, the collectives host-exchanged "
+        "through gloo; not a multi-card figure")
+    errs = train.gradient_errors(args, ranks, ref)
+    for line in train.summary(args, ranks, ref, errs):
+        log(line)
+    if train.model_config(args, quiet=True).ssm is not None:
+        exact_witness(args, ranks, ref)
+    launches = train.check(args, ranks, ref, errs, loss_tol=1e-4, norm_tol=1e-3, leaf_tol=1e-3)
+    log(f"phase {phase} passed: launches {dict(launches)}, on each rank "
+        f"{ {k: n for k, n in train.kernel_launches(args).items() if n} } a step")
+    return launches
+
+
+# a leaf of the ranks' step-1 gradient may lie this many times as far from
+# the float64 witness as the one process's, plus this share of its largest
+# entry (phase 32: the ranks read 0.47-0.91 times the one process's
+# distance at T=512, 0.44-1.07 at T=2048; a split that computed another
+# gradient would add its error to the ranks' alone)
+EXACT_RATIO, EXACT_FLOOR = 1.5, 1e-5
+
+
+def exact_witness(args, ranks, ref):
+    """Phase 32's float64 witness (``train.witness``: the one process's step
+    1 in fp64 through the plain versions, on the same weights and batch):
+    each leaf's distance from it of the one process's fp32 gradient and of
+    the ranks', relative to the witness's largest entry.  Raises unless
+    every leaf of the ranks' lies within ``EXACT_RATIO`` times the one
+    process's distance plus ``EXACT_FLOOR``.  At 48 random layers fp32
+    rounding alone puts each run about 1e-3 of a leaf's largest entry from
+    the exact gradient, the one process included, so the 1e-3 gate against
+    the one process (``train.check``) sits at that floor; this one tells a
+    split that computed another gradient from rounding."""
+    from repro_torch.launch import mesh, train
+    t0 = time.monotonic()
+    exact = train.witness(args)
+    torch.cuda.empty_cache()
+    one = train.leaf_errors(dict(mesh.leaves_with_names(ref["grads"])), exact)
+    got = train.leaf_errors(train.rank_gradients(args, ranks), exact)
+    far = sorted(exact, key=lambda n: got[n] / (one[n] + EXACT_FLOOR), reverse=True)
+    log(f"float64 witness of step 1 ({time.monotonic() - t0:.1f} s): the one process's fp32 "
+        f"gradient within {max(one.values()):.3e} of each leaf's largest entry, the ranks' "
+        f"within {max(got.values()):.3e}; by leaf (ranks, one process): "
+        + ", ".join(f"{n} {got[n]:.3e} {one[n]:.3e}" for n in far))
+    bad = {n: (got[n], one[n]) for n in far if got[n] > EXACT_RATIO * one[n] + EXACT_FLOOR}
+    if bad:
+        raise AssertionError(f"the ranks' step-1 gradients lie farther from the float64 witness "
+                             f"than {EXACT_RATIO} x the one process's + {EXACT_FLOOR}: {bad}")
 
 
 def dry_run_bytes():

@@ -465,13 +465,14 @@ def ssd_scan_chunked(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
     None.  Chunks are ``min(chunk, T)`` long; a ragged tail is padded with
     zeros (a padded position has dA = 0 and xdt = 0: it multiplies the state
     by exp(0) = 1 and adds nothing, so the padding is exact).  Returns
-    (y (B,T,H,P), final_state (B,H,N,P)) in fp32.
+    (y (B,T,H,P), final_state (B,H,N,P)) in fp32 (fp64 for fp64 inputs).
     """
     B, T, H, P = xdt.shape
     N = Bm.shape[-1]
     Q = min(chunk, T)
     pad = (-T) % Q
-    x, a, Bf, Cf = xdt.float(), dA.float(), Bm.float(), Cm.float()
+    ct = torch.float64 if xdt.dtype == torch.float64 else torch.float32   # fp64 stays
+    x, a, Bf, Cf = (t.to(ct) for t in (xdt, dA, Bm, Cm))
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         a, Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (a, Bf, Cf))
@@ -489,24 +490,24 @@ def ssd_scan_chunked(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
     # L[i,j] = exp(cum_i - cum_j) for i >= j; the mask goes on the exponent,
     # since upper-triangle deltas are positive and exp would overflow
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    delta = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()  # (B,C,i,j,H)
+    delta = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(ct)  # (B,C,i,j,H)
     delta = torch.where(mask[None, None, :, :, None], delta,
                         torch.tensor(-torch.inf, device=x.device))
     L = torch.exp(delta)
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, L, x)
 
-    decay_to_end = torch.exp((cum[:, :, -1:, :] - cum).float())      # (B,C,Q,H)
+    decay_to_end = torch.exp((cum[:, :, -1:, :] - cum).to(ct))       # (B,C,Q,H)
     s_local = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, decay_to_end, x)
-    chunk_decay = torch.exp(cum[:, :, -1, :].float())                # (B,C,H)
-    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-         if initial_state is None else initial_state.float())
+    chunk_decay = torch.exp(cum[:, :, -1, :].to(ct))                 # (B,C,H)
+    s = (torch.zeros((B, H, N, P), dtype=ct, device=x.device)
+         if initial_state is None else initial_state.to(ct))
     s_prev = []
     for c in range(nC):
         s_prev.append(s)
         s = s * chunk_decay[:, c, :, None, None] + s_local[:, c]
     s_prev = torch.stack(s_prev, dim=1)                    # (B,C,H,N,P)
-    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum.float()), s_prev)
+    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum.to(ct)), s_prev)
     y = (y_intra + y_inter).reshape(B, nC * Q, H, P)[:, :T]
     return y, s
 

@@ -55,7 +55,15 @@ leaf by leaf from a seed, so that a rank never holds more than its blocks
 and one whole leaf.  A placement that no layer runs (:func:`model_placements`)
 raises, naming the leaf, and so do ``shard_params`` and ``build_params``.
 The "data" entries the serve rules give the MoE's experts are not
-executed: each data rank keeps them whole.
+executed: each serving rank keeps them whole.
+
+Training (``mode="train"`` of the three, on a ("data", "model") mesh of
+(D, M)): each leaf also has its FSDP dimension, which the "train" rules
+place on "data", and rank (d, m) holds block d of the "model" block m, the
+block the reference's ``NamedSharding`` puts on that device;
+:func:`train_sharding` describes how a rank holds the tree for
+``models.optim`` (which gathers each such leaf over "data" where a layer
+uses it), and :func:`whole_leaves` puts the ranks' blocks back together.
 
 The tree walkers (:func:`param_specs`, :func:`cache_specs`,
 :func:`batch_specs`) take the port's nested dicts and lists of tensors and
@@ -69,12 +77,13 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.layers import ambient_mesh, model_coordinate, on_init, use_mesh
+from repro_torch.models.layers import (ambient_mesh, data_coordinate, model_coordinate, on_init,
+                                      use_mesh)
 
 __all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names",
            "named_specs", "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
-           "model_placements", "shard_params", "build_params",
-           "model_coordinate"]
+           "model_placements", "shard_params", "build_params", "train_sharding", "whole_leaves",
+           "model_coordinate", "data_coordinate"]
 
 Spec = Tuple[Any, ...]
 
@@ -434,7 +443,23 @@ def _model_dim(spec: Spec, ndim: int) -> Optional[int]:
     return None
 
 
-def model_placements(params: Any, tp: int) -> Dict[str, Optional[int]]:
+# (parent/leaf) of the leaves a training rank may hold a "data" block of:
+# every leaf the layers run a "model" block of, and the router, all gathered
+# where they are used (``models.layers.gathered``: a block's leaves in
+# ``transformer._train_stack``, the embeddings in ``train_loss``)
+GATHERED_OVER_DATA = frozenset(EXECUTED) | {"moe/router"}
+
+
+def _data_dim(spec: Spec, ndim: int) -> Optional[int]:
+    """The dimension, from the right, that ``spec`` places on "data"."""
+    for i, entry in enumerate(spec):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        if "data" in names:
+            return i - ndim
+    return None
+
+
+def model_placements(params: Any, tp: int, mode: str = "serve", data: int = 1) -> Dict[str, Any]:
     """{leaf name: the dimension, from the right, that a rank of ``tp``
     "model" ranks holds its block of, or None where it holds the leaf
     whole} for every leaf of ``params``: where the serve rules
@@ -448,36 +473,82 @@ def model_placements(params: Any, tp: int) -> Dict[str, Optional[int]]:
     do not divide.  Every other leaf is whole.
 
     A placement that no layer runs raises ``ValueError``, naming the leaf
-    and the rule: nothing is kept whole against the rules."""
-    axes = MeshAxes(("data", "model"), (1, tp))
-    dims: Dict[str, Optional[int]] = {}
+    and the rule: nothing is kept whole against the rules.
+
+    ``mode="train"`` reads the "train" rules at a mesh of (``data``,
+    ``tp``) and gives each leaf a pair: (its "model" dimension, as above,
+    which the "train" rules place as the serve rules do; its "data"
+    dimension, the FSDP cut, or None), each from the right.  A rank gathers
+    a "data" block over "data" where a layer uses it, into the "model"
+    block the layers run (``GATHERED_OVER_DATA``); the MoE's experts are
+    such a leaf too, their d over "data" in both modes.  In "serve" mode
+    the rules' "data" placement of the experts is not run: each serving
+    rank keeps its experts whole over "data", at a "data" size of 1."""
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
+    axes = MeshAxes(("data", "model"), (data if mode == "train" else 1, tp))
+    dims: Dict[str, Any] = {}
     for name, leaf in leaves_with_names(params):
         shape = tuple(leaf.shape)
-        dim = _model_dim(_param_spec(name, shape, axes, "serve"), len(shape))
-        run = EXECUTED.get(_role(name), {})
+        spec = _param_spec(name, shape, axes, mode)
+        dim = _model_dim(spec, len(shape))
+        role = _role(name)
+        run = EXECUTED.get(role, {})
         if dim is not None and dim not in run:
             what = ("no layer of the port runs a block of this leaf" if not run else
                     "the port runs its block on " + " or ".join(
                         f"{v} (dimension {k})" for k, v in run.items()) + " only")
-            raise ValueError(f"{name} {shape}: the serve rules (launch.mesh._param_spec) "
+            raise ValueError(f"{name} {shape}: the {mode} rules (launch.mesh._param_spec) "
                              f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
         dims[name] = dim
+        if mode == "train":
+            ddim = _data_dim(spec, len(shape))
+            if ddim is not None and role not in GATHERED_OVER_DATA:
+                raise ValueError(f"{name} {shape}: the train rules (launch.mesh._param_spec) "
+                                 f"place dimension {ddim} on 'data' at {data} ranks, and no "
+                                 "layer of the port gathers this leaf over 'data'")
+            dims[name] = (dim, ddim)
+    model_dim = (lambda n: dims[n][0]) if mode == "train" else dims.get
     for name in [n for n in dims if n.endswith("attn/wq")]:
-        split = tuple(dims[name[:-2] + w] for w in ("wq", "wk", "wv", "wo"))
+        split = tuple(model_dim(name[:-2] + w) for w in ("wq", "wk", "wv", "wo"))
         if split not in ATTENTION_SPLITS:
-            raise ValueError(f"{name[:-3]}: the serve rules place wq, wk, wv, wo on dimensions "
+            raise ValueError(f"{name[:-3]}: the {mode} rules place wq, wk, wv, wo on dimensions "
                              f"{split} at {tp} ranks, a split no attention layer of the port runs")
     return dims
 
 
-def _block(leaf, dim: Optional[int], m: int, tp: int, whole=None):
-    """Rank m's block of ``leaf`` along ``dim`` (a copy, so the whole leaf
-    can be freed), or the leaf itself where it is not placed or is a block
+def _block(leaf, cuts, whole=None):
+    """The block of ``leaf`` that ``cuts``, (dimension from the right or
+    None, coordinate, size) each, keep (a copy, so the whole leaf can be
+    freed), or the leaf itself where no cut places it or it is a block
     already (its shape is not ``whole``)."""
-    if dim is None or (whole is not None and tuple(leaf.shape) != tuple(whole)):
+    cuts = [(dim, i, n) for dim, i, n in cuts if dim is not None and n > 1]
+    if not cuts or (whole is not None and tuple(leaf.shape) != tuple(whole)):
         return leaf
-    n = leaf.shape[dim] // tp
-    return leaf.narrow(leaf.dim() + dim, m * n, n).clone()
+    for dim, i, n in cuts:
+        size = leaf.shape[dim] // n
+        leaf = leaf.narrow(leaf.dim() + dim, i * size, size)
+    return leaf.clone()
+
+
+def _coordinates(mesh, mode: str) -> Tuple[int, int, int, int]:
+    """(m, "model" size, d, "data" size) of a rank of ``mesh`` (the ambient
+    mesh by default); "serve" mode cuts nothing over "data"."""
+    mesh = ambient_mesh() if mesh is None else mesh
+    d, D = data_coordinate(mesh) if mode == "train" else (0, 1)
+    return model_coordinate(mesh) + (d, D)
+
+
+def _cuts(params: Any, coords, mode: str) -> Dict[str, list]:
+    """{leaf name: the cuts of :func:`_block`} of the rank at ``coords``
+    (:func:`_coordinates`) in ``mode``, from the whole tree ``params``
+    (:func:`model_placements`, which raises for a placement the port does
+    not run)."""
+    m, tp, d, D = coords
+    dims = model_placements(params, tp, mode, D)
+    if mode == "serve":
+        return {name: [(dim, m, tp)] for name, dim in dims.items()}
+    return {name: [(mdim, m, tp), (ddim, d, D)] for name, (mdim, ddim) in dims.items()}
 
 
 def _walk(tree, fn, prefix=""):
@@ -489,47 +560,86 @@ def _walk(tree, fn, prefix=""):
     return fn(prefix, tree) if hasattr(tree, "shape") else tree
 
 
-def shard_params(params: Any, mesh=None) -> Any:
+def shard_params(params: Any, mesh=None, mode: str = "serve") -> Any:
     """One rank's tree of a whole parameter tree: each leaf that the serve
     rules place on "model" (:func:`model_placements`, which raises for a
     placement the port does not run) cut into the "model" size's equal
     blocks on that dimension and the block of this rank's "model"
     coordinate kept (a copy, so the whole tree can be freed); every other
     leaf is the whole leaf itself.  ``mesh`` defaults to the ambient mesh;
-    with one "model" rank the tree is returned as it is."""
-    m, tp = model_coordinate(ambient_mesh() if mesh is None else mesh)
-    if tp == 1:
+    with one "model" rank the tree is returned as it is.  ``mode="train"``
+    also cuts each leaf that the "train" rules place on "data" by the rank's
+    "data" coordinate: the block the reference's ``NamedSharding`` puts on
+    that device (:func:`shard_shape` of the train specs)."""
+    coords = _coordinates(mesh, mode)
+    if coords[1] == coords[3] == 1:
         return params
-    dims = model_placements(params, tp)
-    return _walk(params, lambda name, leaf: _block(leaf, dims[name], m, tp))
+    cuts = _cuts(params, coords, mode)
+    return _walk(params, lambda name, leaf: _block(leaf, cuts[name]))
 
 
 def build_params(model, generator: torch.Generator, dtype=torch.float32, device=None,
-                 mesh=None) -> Any:
-    """``shard_params(model.init(generator, dtype, device), mesh)`` without
-    the whole tree: the tree is first built on the meta device, which gives
-    each leaf's name in the order ``model.init`` draws them and each
-    placement (raising as :func:`model_placements` does); then each leaf is
-    drawn whole from ``generator``, exactly as ``model.init`` draws it, and
-    replaced by this rank's block at once (``layers.on_init``), so that the
-    rank's peak is its blocks and one whole leaf."""
-    m, tp = model_coordinate(ambient_mesh() if mesh is None else mesh)
-    if tp == 1:
+                 mesh=None, mode: str = "serve") -> Any:
+    """``shard_params(model.init(generator, dtype, device), mesh, mode)``
+    without the whole tree: the tree is first built on the meta device,
+    which gives each leaf's name in the order ``model.init`` draws them and
+    each placement (raising as :func:`model_placements` does); then each
+    leaf is drawn whole from ``generator``, exactly as ``model.init`` draws
+    it, and replaced by this rank's block at once (``layers.on_init``), so
+    that the rank's peak is its blocks and one whole leaf."""
+    coords = _coordinates(mesh, mode)
+    if coords[1] == coords[3] == 1:
         return model.init(generator, dtype, device)
     drawn = []
     with use_mesh(None), on_init(lambda t: drawn.append(t) or t):
         meta = model.init(torch.Generator().manual_seed(0), dtype, device="meta")
+    cuts = _cuts(meta, coords, mode)
     whole = {name: leaf.shape for name, leaf in leaves_with_names(meta)}
     names = {id(leaf): name for name, leaf in leaves_with_names(meta)}
     order = iter([names.get(id(t)) for t in drawn])
-    dims = model_placements(meta, tp)
     del meta, drawn
 
     def keep(t):
         name = next(order)
-        return t if name is None else _block(t, dims[name], m, tp)
+        return t if name is None else _block(t, cuts[name])
 
     with on_init(keep):
         params = model.init(generator, dtype, device)
     # a leaf that is not drawn (a norm, a bias) is cut here, if placed
-    return _walk(params, lambda name, leaf: _block(leaf, dims[name], m, tp, whole[name]))
+    return _walk(params, lambda name, leaf: _block(leaf, cuts[name], whole[name]))
+
+
+def whole_leaves(params: Any, data: int, tp: int, blocks: Sequence[Any]) -> Dict[str, Any]:
+    """{leaf name: the whole leaf} put together from ``blocks``, the trees
+    that :func:`shard_params` in "train" mode gives the ranks of a (``data``,
+    ``tp``) mesh, in rank order (d·tp + m), placed as the whole tree
+    ``params`` (the meta device will do) says: each "data" row's "model"
+    blocks along the "model" dimension, then the rows along the "data"
+    dimension."""
+    dims = model_placements(params, tp, "train", data)
+    trees = [dict(leaves_with_names(t)) for t in blocks]
+    out = {}
+    for name, (mdim, ddim) in dims.items():
+        rows = [trees[d * tp][name] if mdim is None else
+                torch.cat([trees[d * tp + m][name] for m in range(tp)], mdim)
+                for d in range(data)]
+        out[name] = rows[0] if ddim is None else torch.cat(rows, ddim)
+    return out
+
+
+def train_sharding(params: Any, mesh):
+    """The ``models.optim.Sharding`` of a rank of ``mesh`` (a device mesh
+    with "data" and "model" axes) training the model whose whole tree is
+    ``params`` (the meta device will do): each leaf's "data" dimension by
+    the "train" rules, and how many ranks hold each of its blocks (the
+    "data" size where it is whole over "data", times the "model" size where
+    it is whole over "model"), for the norm that clips."""
+    from repro_torch.models.optim import Sharding
+    m, tp = model_coordinate(mesh)
+    d, D = data_coordinate(mesh)
+    dims = model_placements(params, tp, "train", D)
+    replicas = {name: (tp if mdim is None else 1) * (D if ddim is None else 1)
+                for name, (mdim, ddim) in dims.items()}
+    return Sharding(dims=_walk(params, lambda name, _: dims[name][1]),
+                    replicas=_walk(params, lambda name, _: replicas[name]),
+                    group=mesh.get_group("data") if D > 1 else None, rank=d, size=D)

@@ -74,18 +74,15 @@ import argparse
 import collections
 import contextlib
 import dataclasses
-import os
-import subprocess
-import sys
-import tempfile
 import time
-from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.launch import ranks as rank_procs
+from repro_torch.launch.ranks import allocated as _allocated, sync as _sync
+
 SEED = 0            # the weights' generator and the tokens' numpy seed
-TIMEOUT = 600.0     # seconds for all ranks to finish
 ALLOC_BLOCK = 512   # the CUDA caching allocator rounds each tensor up to this
 ALLOC_UNSPLIT = 1 << 20   # and leaves up to this much of a larger block unsplit with it
 
@@ -105,9 +102,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="frame embeddings a row for an encoder-decoder (0: none)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--rank", type=int, default=-1, help=argparse.SUPPRESS)
-    ap.add_argument("--store", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--out", default="", help=argparse.SUPPRESS)
+    rank_procs.add_rank_args(ap)
     return ap.parse_args(argv)
 
 
@@ -236,18 +231,6 @@ def _parts_ms(calls: List[Dict]) -> Dict[str, float]:
     return out
 
 
-def _sync(device) -> None:
-    import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _allocated(device) -> int:
-    import torch
-    _sync(device)
-    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
-
-
 def _shapes(tree) -> Dict[str, tuple]:
     from repro_torch.launch.mesh import leaves_with_names
     return {name: tuple(leaf.shape) for name, leaf in leaves_with_names(tree)}
@@ -318,16 +301,6 @@ def _serve(args, cfg_of, params, device, dtype) -> Dict:
     return out
 
 
-def _device(args, rank: int = 0):
-    import torch
-    from repro_torch.core.device import resolve_device
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-        torch.cuda.set_device(device)
-    return device
-
-
 def reference(args: argparse.Namespace) -> Dict:
     """The tokens through the one-process model (an MoE's dropless,
     ``moe_impl="ragged"``) on the weights every rank builds its blocks of:
@@ -335,7 +308,7 @@ def reference(args: argparse.Namespace) -> Dict:
     import torch
 
     from repro_torch.models.transformer import build_model
-    device = _device(args)
+    device = rank_procs.rank_device(args.device)
     dtype = getattr(torch, args.dtype)
     cfg = model_config(args, "ragged")
     params = build_model(cfg).init(torch.Generator(device).manual_seed(SEED), dtype)
@@ -345,93 +318,37 @@ def reference(args: argparse.Namespace) -> Dict:
 def run_rank(args: argparse.Namespace) -> None:
     """One rank: join the group, build its blocks of the model, serve, save."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.launch import mesh
     from repro_torch.models.transformer import build_model
-    if args.device == "cpu":
-        torch.set_num_threads(2)
-    dist.init_process_group("gloo", store=dist.FileStore(args.store, args.ranks),
-                            rank=args.rank, world_size=args.ranks)
-    try:
-        device = _device(args, args.rank)
+    with rank_procs.joined(args, args.ranks):
+        device = rank_procs.rank_device(args.device, args.rank)
         dtype = getattr(torch, args.dtype)
         dm = mesh.device_mesh(mesh.MeshAxes(("data", "model"), (1, args.ranks)), device.type)
         with mesh.use_mesh(dm):
             model = build_model(model_config(args))
-            # ranks that share a card take turns, each drawing its whole leaves
-            # alone, once every rank has its CUDA context and has used the meta
-            # device, whose first use costs seconds of imports (all at once)
             model.init(torch.Generator().manual_seed(SEED), dtype, device="meta")
-            _allocated(device)
-            shared = device.type == "cuda" and torch.cuda.device_count() < args.ranks
-            turns = args.ranks if shared else 1
-            for turn in range(turns):
-                if turn == args.rank % turns:
-                    before = _allocated(device)
-                    t0 = time.perf_counter()
-                    # raises for a placement no layer runs (model_placements)
-                    params = mesh.build_params(model, torch.Generator(device).manual_seed(SEED),
-                                               dtype)
-                    param_bytes = _allocated(device) - before
-                    built = time.perf_counter() - t0
-                    if device.type == "cuda":
-                        torch.cuda.empty_cache()  # the whole leaves' blocks, for the others
-                if turns > 1:
-                    dist.barrier()
+            # raises for a placement no layer runs (model_placements)
+            params, param_bytes, built = rank_procs.build_in_turns(
+                device, args.rank, args.ranks,
+                lambda: mesh.build_params(model, torch.Generator(device).manual_seed(SEED), dtype))
             res = _serve(args, lambda cf: model_config(args, "a2a", cf), params, device, dtype)
         res.update(rank=args.rank, build_seconds=built, params=_shapes(params),
                    param_bytes=param_bytes,
                    memory=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0)
-        torch.save(res, Path(args.out) / f"rank{args.rank}.pt")
-    finally:
-        dist.destroy_process_group()
+        rank_procs.save(args, res)
 
 
 def launch(args: argparse.Namespace) -> List[Dict]:
     """Start ``args.ranks`` rank processes, wait for all of them, and return
     each rank's results; raises if one fails (the others are stopped)."""
-    import torch
-    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
-        out = Path(tmp)
-        env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
-        env.setdefault("GLOO_SOCKET_IFNAME", "lo")       # every rank is on this host
-        src = str(Path(__file__).resolve().parents[2])
-        env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-        base = [sys.executable, "-m", "repro_torch.launch.parallel",
-                "--arch", args.arch, "--layers", str(args.layers), "--ranks", str(args.ranks),
-                "--batch", str(args.batch), "--prompt", str(args.prompt),
-                "--decodes", str(args.decodes), "--frames", str(args.frames),
-                "--device", args.device, "--dtype", args.dtype,
-                "--out", str(out), "--store", str(out / "store")]
-        base += (["--reduced"] if args.reduced else []) + [
-            a for kv in args.config for a in ("--config", kv)]
-        procs = [subprocess.Popen(base + ["--rank", str(r)], env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(args.ranks)]
-        deadline = time.monotonic() + TIMEOUT
-        failed = []
-        try:
-            for r, p in enumerate(procs):
-                try:
-                    text, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    text, _ = p.communicate()
-                    failed.append(f"rank {r} timed out after {TIMEOUT:.0f} s")
-                if p.returncode:
-                    failed.append(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
-                    for q in procs:             # a rank that fails leaves its peers waiting
-                        if q.poll() is None:
-                            q.kill()
-        finally:
-            for q in procs:
-                if q.poll() is None:
-                    q.kill()
-                    q.wait()
-        if failed:
-            raise RuntimeError("ranks failed:\n" + "\n".join(failed))
-        return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(args.ranks)]
+    argv = ["--arch", args.arch, "--layers", str(args.layers), "--ranks", str(args.ranks),
+            "--batch", str(args.batch), "--prompt", str(args.prompt),
+            "--decodes", str(args.decodes), "--frames", str(args.frames),
+            "--device", args.device, "--dtype", args.dtype]
+    argv += (["--reduced"] if args.reduced else []) + [
+        a for kv in args.config for a in ("--config", kv)]
+    return rank_procs.launch("repro_torch.launch.parallel", argv, args.ranks)
 
 
 def _rel(got, exp) -> float:

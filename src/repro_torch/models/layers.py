@@ -32,7 +32,10 @@ Megatron's tensor parallelism over the same ranks, the attention's on its
 heads or on head_dim where the heads do not split (:class:`AttnHeads`), the
 RG-LRU's on its width, the SSD's on its heads and the MoE's on its experts'
 FFN width, where the columns a rank needs of a packed projection come from
-the ranks that hold them (:func:`_fetch_columns`).  :func:`rglru` runs
+the ranks that hold them (:func:`_fetch_columns`).  A training step on a
+("data", "model") mesh also cuts the leaves over "data" (FSDP): the model
+gathers each where it is used (:func:`gathered`), and its rows of the
+batch are a block of the microbatch's (:func:`split_rows`).  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -111,13 +114,20 @@ def _made(w):
 # --------------------------------------------------------------------------
 
 
+def at_least_f32(x):
+    """``x`` in fp32, or as it is where its type is wider (fp64): the
+    plain training path of an SSD model then keeps fp64 throughout, for a
+    witness of the exact gradient (``launch.train.witness``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     dt = x.dtype
-    x32 = x.float()
+    x32 = at_least_f32(x)
     inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     y = x32 * inv
     if scale is not None:
-        y = y * scale.float()
+        y = y * at_least_f32(scale)
     return y.to(dt)
 
 
@@ -279,8 +289,10 @@ def _proj_heads(x, w):
 # bytes this process received through the gathers and exchanges of a
 # tensor-parallel rank, by what they moved: "head_dim" (the attention's
 # projections and cache on head_dim), "rglru" (the RG-LRU's conv'd input),
-# "ssd" (the SSD's packed columns) and "moe_ffn" (the experts' gate and up
-# columns); read and reset by the caller (``launch.parallel``)
+# "ssd" (the SSD's packed columns), "moe_ffn" (the experts' gate and up
+# columns) and "fsdp" (a training rank's blocks of the leaves cut over
+# "data", gathered where they are used); read and reset by the caller
+# (``launch.parallel``, ``launch.train``)
 GATHERED: collections.Counter = collections.Counter()
 
 
@@ -394,6 +406,10 @@ def attn_project(p, x, name: str, heads: AttnHeads, *, bias: bool = True, whole:
     if whole and w.shape[-1] != heads.head_dim:
         GATHERED["head_dim"] += y.numel() * y.element_size() * (heads.tp - 1)
         y = _Gather.apply(y, y.dim() - 1, heads.group)
+        if name != "q" and not heads.q_dh:
+            # whole K/V heads that each rank's own query heads read: their
+            # gradient is summed over "model" before each keeps its block
+            y = _Copy.apply(y, heads.group)
     return y
 
 
@@ -425,8 +441,8 @@ def attn_out(cfg: ModelConfig, p, ctx):
     which take the same block of the whole-head context."""
     h, k, d = p["wo"].shape[-3:]
     group = tp_group(h * k, cfg.num_heads * cfg.head_dim)
-    if k != ctx.shape[-1]:
-        ctx = _own_block(ctx, ctx.dim() - 1, k, group)
+    if k != ctx.shape[-1]:          # the same on every rank: _Split keeps its gradient whole
+        ctx = _Split.apply(ctx, ctx.dim() - 1, group)
     y = ctx.flatten(-2) @ p["wo"].reshape(h * k, d)
     return _reduce_partial(y, group)
 
@@ -579,13 +595,21 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     of ``w_in``, then one exchange (:func:`_fetch_columns`,
     ``GATHERED["moe_ffn"]``) that brings it the gate and up columns of its
     own rows of ``w_out`` from the ranks that computed them, and its partial
-    output reduced over "model" in fp32.  The statistics are every token's
-    on every rank."""
+    output reduced over "model" in fp32.  A rank that holds its block of
+    the experts (the rules where they divide over "model") runs
+    :func:`_moe_expert_sharded`.  The statistics are every token's on every
+    rank, and every row's of the microbatch where a training step cuts its
+    rows over "data" (:func:`_router_stats`)."""
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape
     n = B * T
     xf = x.reshape(n, d)
+    E_loc = p["w_in"].shape[-3]
+    if E_loc != E:                   # this rank's experts: the rules where they divide
+        group = tp_group(E_loc, E)
+        p = {**p, "router": _Copy.apply(p["router"], group)}   # its gradient summed over "model"
+        return _moe_expert_sharded(cfg, p, x, group, dist.get_rank(group), E // E_loc, force)
     F_e, F_loc = moe_cfg.d_ff_expert, p["w_out"].shape[-2]
     group, tp = tp_group(F_loc, F_e), F_e // F_loc
     if group is not None:
@@ -613,8 +637,7 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     ys = grouped_mm(h, p["w_out"], group_sizes, force=force)         # (n*K, d)
     out = _combine(torch.empty_like(ys).index_copy(0, sort_idx, ys), gate)  # in pair order
 
-    me = probs.mean(dim=0)                                            # (E,)
-    ce = group_sizes.float() / (n * K)
+    me, ce = _router_stats(probs, group_sizes.float(), K)
     aux_loss = E * torch.sum(me * ce)
     if group is not None:
         out = _reduce_partial(out, group)
@@ -675,6 +698,36 @@ def model_coordinate(mesh) -> Tuple[int, int]:
         return 0, 1
     sub = mesh["model"]
     return sub.get_local_rank(), sub.size()
+
+
+def data_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's "data" coordinate, the "data" size) of ``mesh``, or
+    (0, 1) without a "data" axis."""
+    if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
+        return 0, 1
+    sub = mesh["data"]
+    return sub.get_local_rank(), sub.size()
+
+
+@contextlib.contextmanager
+def split_rows(group):
+    """While the block runs, the batch rows the model is given are this
+    rank's block of the rows that the ranks of ``group`` (a training step's
+    "data" ranks, ``models.optim``) share: the loss's token sums and counts
+    and the MoE's router statistics are summed over ``group``, so that every
+    rank has the loss of all the rows.  ``None``: the rows are all of them."""
+    stack = _AMBIENT.__dict__.setdefault("rows", [])
+    stack.append(group)
+    try:
+        yield group
+    finally:
+        stack.pop()
+
+
+def row_group():
+    """The innermost group of :func:`split_rows` on this thread, or None."""
+    stack = getattr(_AMBIENT, "rows", None)
+    return stack[-1] if stack else None
 
 
 def tp_group(local: int, whole: int):
@@ -776,6 +829,94 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.group), None
+
+
+def _reduce_scatter(x, dim: int, group):
+    """The sum of ``x`` over ``group``, cut along ``dim`` into as many
+    equal blocks as ranks: this rank's block."""
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // dist.get_world_size(group),) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+# --------------------------------------------------------------------------
+# FSDP over "data": a rank's block of a leaf, gathered where a layer uses it
+# --------------------------------------------------------------------------
+#
+# The "train" rules cut a second dimension of most matrices over "data"
+# (``launch.mesh.model_placements(..., mode="train")``).  A training step
+# hands the model such a leaf as a DataBlock (``models.optim``), and the
+# model gathers it where a layer uses it (:func:`gathered`): a block's
+# leaves inside its remat region, so that the backward pass gathers them
+# again, the embeddings where they are used.  The gather's gradient is not
+# _Gather's: the "data" ranks run different rows, so each rank's gradient
+# of the gathered leaf is a partial sum, which is summed over "data" and
+# cut back to the rank's block.
+
+# bytes this process moved in the reductions of gradients over "data", by
+# what they reduced: "fsdp" the reduce-scatters of the gathered leaves'
+# gradients (the (D - 1) blocks it sends of each), "replicated" the
+# all-reduce of the other leaves' (2 (D - 1) / D of each, a ring's share);
+# the gathers themselves count in GATHERED["fsdp"]
+REDUCED: collections.Counter = collections.Counter()
+
+
+class DataBlock:
+    """A rank's block of a leaf along ``dim`` (from the right), cut over the
+    "data" ranks of ``group``: what :func:`gathered` turns into the leaf a
+    layer runs."""
+
+    __slots__ = ("block", "dim", "group")
+
+    def __init__(self, block, dim: int, group):
+        self.block, self.dim, self.group = block, dim, group
+
+
+def gathered(tree):
+    """``tree`` (a leaf, or dictionaries and lists of them) with every
+    :class:`DataBlock` gathered over its "data" ranks (:class:`_GatherData`);
+    any other leaf as it is."""
+    if isinstance(tree, DataBlock):
+        return _GatherData.apply(tree.block, tree.dim, tree.group)
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gathered(v) for v in tree]
+    return tree
+
+
+class _GatherData(torch.autograd.Function):
+    """Every "data" rank's block along ``dim`` gathered into the leaf; the
+    gradient is summed over the ranks and each keeps its own block (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        GATHERED["fsdp"] += x.numel() * x.element_size() * (n - 1)
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        REDUCED["fsdp"] += g.numel() * g.element_size() * (n - 1) // n
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def _router_stats(probs, load, K: int):
+    """(me, ce) of a load-balance loss: each expert's mean router
+    probability ``probs`` (n, E) and share of the n·K choices ``load`` (E,)
+    over this rank's rows, or, where they are its block of the microbatch's
+    rows (:func:`row_group`), over all of them: the sums over the group,
+    the probabilities' through _Reduce (every rank has the whole loss)."""
+    rows = row_group()
+    n = probs.shape[0]
+    if rows is None:
+        return probs.mean(dim=0), load / (n * K)
+    n *= dist.get_world_size(rows)
+    return _Reduce.apply(probs.sum(dim=0), rows) / n, _all_reduce(load, rows) / (n * K)
 
 
 def _exchange(x, group, sent=None, got=None):
@@ -948,7 +1089,7 @@ def _moe_expert_sharded(cfg: ModelConfig, p, x, group, m: int, ep: int, force):
     ep): rank m routes every token, runs the (token, choice) pairs bound for
     its experts m·E/ep .. (m+1)·E/ep − 1, and the partial outputs are summed
     over "model" in fp32.  The statistics are every token's, as
-    :func:`moe`'s."""
+    :func:`moe`'s (:func:`_router_stats`)."""
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape
@@ -964,10 +1105,10 @@ def _moe_expert_sharded(cfg: ModelConfig, p, x, group, m: int, ep: int, force):
 
     load = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
-    ce = load / (n * K)
+    me, ce = _router_stats(probs, load, K)
     # every rank computes the same loss from the same routing: a 1/ep share a
     # rank sums to one loss's gradient over the ranks (_Copy, the router sum)
-    aux = _Reduce.apply(E * torch.sum(probs.mean(dim=0) * ce) / ep, group)
+    aux = _Reduce.apply(E * torch.sum(me * ce) / ep, group)
     return y.reshape(B, T, d), {"moe_aux_loss": aux, "expert_load": ce}
 
 
@@ -1064,7 +1205,9 @@ def rglru(cfg: ModelConfig, p, x, h0=None, conv_state=None):
     u_whole = u_conv
     if group is not None:
         GATHERED["rglru"] += u_conv.numel() * u_conv.element_size() * (dist.get_world_size(group) - 1)
-        u_whole = _Gather.apply(u_conv, u_conv.dim() - 1, group)
+        # the whole input feeds each rank's own gate columns: its gradient
+        # is summed over "model" before each rank keeps its block
+        u_whole = _Copy.apply(_Gather.apply(u_conv, u_conv.dim() - 1, group), group)
     r = torch.sigmoid(u_whole @ p["w_a"]).float()
     i = torch.sigmoid(u_whole @ p["w_i"]).float()
     log_a = -8.0 * F.softplus(log_lambda) * r              # (B,T,W) fp32
@@ -1184,10 +1327,11 @@ def _ssd_out(y, z, heads, group, dtype):
     y = y.flatten(-2).to(dtype) * F.silu(z)
     if group is None:
         return rms_norm(y, heads["norm_scale"])
-    y32 = y.float()
-    ss = _Reduce.apply(torch.sum(y32 * y32, dim=-1, keepdim=True), group)
+    y32 = at_least_f32(y)
+    # the sum feeds each rank's own channels: its gradient is summed too
+    ss = _Copy.apply(_Reduce.apply(torch.sum(y32 * y32, dim=-1, keepdim=True), group), group)
     mean = ss / (y.shape[-1] * dist.get_world_size(group))
-    return (y32 * torch.rsqrt(mean + 1e-6) * heads["norm_scale"].float()).to(dtype)
+    return (y32 * torch.rsqrt(mean + 1e-6) * at_least_f32(heads["norm_scale"])).to(dtype)
 
 
 def ssd_prefill(cfg: ModelConfig, p, x, state=None, conv_state=None, *,
@@ -1201,11 +1345,13 @@ def ssd_prefill(cfg: ModelConfig, p, x, state=None, conv_state=None, *,
     block of the state, and the states are its blocks.
     """
     z, xh, Bmat, Cmat, dt, conv_state, hp, group = _ssd_in(cfg, p, x, conv_state)
-    dt = F.softplus(dt.float() + hp["dt_bias"])                       # (B,T,H)
+    dt = F.softplus(at_least_f32(dt) + hp["dt_bias"])                 # (B,T,H)
     A = -torch.exp(hp["A_log"])                                       # (H,)
-    y, state = ops.ssd_scan(xh.float() * dt[..., None], dt * A, Bmat.float(), Cmat.float(),
-                            chunk=cfg.ssm.chunk_size, initial_state=state, force=force)
-    y = y + xh.float() * hp["D"][None, None, :, None]
+    xh = at_least_f32(xh)
+    y, state = ops.ssd_scan(xh * dt[..., None], dt * A, at_least_f32(Bmat),
+                            at_least_f32(Cmat), chunk=cfg.ssm.chunk_size, initial_state=state,
+                            force=force)
+    y = y + xh * hp["D"][None, None, :, None]
     y = _ssd_out(y, z, hp, group, x.dtype)
     return _reduce_partial(y @ p["w_out"], group), state, conv_state
 

@@ -362,13 +362,21 @@ def _train_stack(cfg: ModelConfig, kinds, blocks, x, positions, *, remat: bool,
     list) of kinds ``kinds`` without a cache; with ``remat`` each block runs
     under ``torch.utils.checkpoint``, which keeps only its input and runs it
     again in the backward.  ``crosses`` gives each decoder layer its
-    ``cross`` argument.  Returns (x, aux summed over the layers)."""
+    ``cross`` argument.  A leaf a training rank holds a "data" block of
+    (``layers.DataBlock``) is gathered inside the block, so that the
+    backward pass gathers it again and the whole leaf lives only while the
+    block runs; the block runs under the ambient mesh and row group of the
+    call, which the backward pass's recomputation, on the card in autograd's
+    own thread, would not see.  Returns (x, aux summed over the layers)."""
     aux: Dict[str, Any] = {}
+    mesh, rows = L.ambient_mesh(), L.row_group()
     for i, kind in enumerate(kinds):
         cross = None if crosses is None else crosses[i]
 
         def block(h, p_l, cross=cross, kind=kind):
-            return _train_block(cfg, kind, p_l, h, positions, force, cross)
+            with L.use_mesh(mesh), L.split_rows(rows):
+                c = None if cross is None else (L.gathered(cross[0]), cross[1])
+                return _train_block(cfg, kind, L.gathered(p_l), h, positions, force, c)
 
         p_l = _layer(blocks, i)
         if remat:
@@ -711,7 +719,11 @@ class TransformerLM:
         """Teacher-forced cross-entropy, as the reference's ``train_loss``:
         ``batch`` holds ``tokens`` and ``labels`` (B, T), optionally
         ``loss_mask`` (B, T) and, for a frontend config, ``frontend_embeds``
-        (B, F, d), whose positions carry no loss.  The logits are computed
+        (B, F, d), whose positions carry no loss.  Where ``batch`` is a
+        training rank's block of a microbatch's rows (``layers.split_rows``),
+        the token losses and counts are summed over the group, so the loss
+        is the microbatch's on every rank; a leaf cut over "data" is gathered
+        where it is used (``layers.gathered``).  The logits are computed
         ``loss_chunk`` positions at a time in fp32, so that (B, T, vocab) is
         never whole; a ragged last chunk adds exactly what the reference's
         zero padding (mask 0) adds.  An MoE config adds 0.01 times the summed
@@ -719,7 +731,7 @@ class TransformerLM:
         "tokens", and "moe_aux_loss" for MoE}); ``force="plain"`` as for
         :meth:`prefill`."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch, train=True)
+        x = self._embed_inputs({"embed": L.gathered(params["embed"])}, batch, train=True)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=x.device).expand(B, T)
         x, aux = _train_stack(cfg, cfg.layer_pattern, params["blocks"], x, positions,
@@ -732,13 +744,19 @@ class TransformerLM:
         mask = batch.get("loss_mask")
         mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if mask is None
                 else mask.float())
+        head = "embed" if cfg.tie_embeddings else "unembed"
+        head = {head: L.gathered(params[head])}
         total = x.new_zeros((), dtype=torch.float32)
         for c0 in range(0, S, loss_chunk):
-            logits = self._unembed(params, x[:, c0:c0 + loss_chunk]).float()
+            logits = L.at_least_f32(self._unembed(head, x[:, c0:c0 + loss_chunk]))
             logp = torch.log_softmax(logits, dim=-1)
             ll = torch.gather(logp, -1, labels[:, c0:c0 + loss_chunk, None])[..., 0]
             total = total + torch.sum(-ll * mask[:, c0:c0 + loss_chunk])
-        denom = torch.clamp(mask.sum(), min=1.0)
+        count = mask.sum()
+        rows = L.row_group()
+        if rows is not None:
+            total, count = L._Reduce.apply(total, rows), L._all_reduce(count, rows)
+        denom = torch.clamp(count, min=1.0)
         loss = total / denom
         metrics = {"loss": loss.detach(), "tokens": denom}
         if "moe_aux_loss" in aux:

@@ -785,3 +785,23 @@ def test_expert_parallel_moe_two_ranks_on_the_card(gen):     # gen: skips withou
                           "--prompt", "128"])
     launches = ep.check(args, ep.launch(args), ep.reference(args), 5e-2)
     assert launches["flash_attention"] == 2 * args.ranks and launches["paged_attention"] == args.ranks
+
+
+def test_training_on_a_two_by_two_mesh_on_the_card(gen):     # gen: skips without a card
+    """``launch.train --mesh 2,2``: 4 gloo ranks sharing the card, reduced
+    llama3_8b at head_dim 32 (as the tests above) and mamba2_370m, one step
+    of two microbatches in fp32 against the one-process step on the same
+    weights and batch (``train.check``: each rank's blocks and their
+    allocated bytes, the loss 1e-4, grad_norm 1e-3, step 1's gradients 1e-3
+    of each leaf's largest entry), K1 and K1-bwd, or K3 and K3-bwd, on every
+    rank (``train.kernel_launches``)."""
+    from repro_torch.launch import train
+    for argv in (["--arch", "llama3_8b", "--config", "head_dim=32", "--config", "d_model=128"],
+                 ["--arch", "mamba2_370m"]):
+        args = train.parse_args(argv + ["--mesh", "2,2", "--steps", "1", "--batch", "8",
+                                        "--seq", "64"])
+        ranks, ref = train.launch(args), train.reference(args)
+        launches = train.check(args, ranks, ref, train.gradient_errors(args, ranks, ref),
+                               loss_tol=1e-4, norm_tol=1e-3, leaf_tol=1e-3)
+        expect = {k: 4 * n for k, n in train.kernel_launches(args).items() if n}
+        assert {k: launches[k] for k in expect} == expect
