@@ -276,7 +276,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 31. training on a ("data", "model") mesh of (2, 2), the reference's
    ``train_4k`` program (``repro_torch.launch.train --mesh 2,2``): 4 rank
    processes sharing this card through gloo, qwen2_5_3b at full width cut
-   to 4 of its 36 layers in fp32, batch 8 of 512 tokens in 2 microbatches
+   to 2 of its 36 layers in fp32, batch 8 of 512 tokens in 2 microbatches
    with remat (phase 21's batch), 2 steps.  Each rank holds its blocks of
    the parameters and of both AdamW moments by the "train" rules (8 of the
    16 query heads over 1 of the 2 KV heads, half of F and of the
@@ -287,24 +287,53 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    weights and batches.  Each step's loss must lie within 1e-4 and its
    grad_norm within 1e-3 of the one process's (relative), the same on
    every rank; step 1's gradient of every leaf, put together from the
-   blocks, within 1e-3 of the leaf's largest entry; K1 16 and K1-bwd 8
+   blocks, within 1e-3 of the leaf's largest entry; K1 8 and K1-bwd 4
    launches a step on every rank; each rank's allocated parameter and
    moment bytes ``mesh.shard_bytes`` of the train specs at (2, 2) up to the
    allocator's rounding.  It prints each step's ms by rank and the bytes a
    rank gathered and reduced over "data";
-32. mamba2_370m the same way at full size (48 layers, 368,227,840
-   parameters) in fp32, batch 8 of 512 tokens (phase 22's batch at a
-   quarter of its T): K3 and K3-bwd on each rank's 16 of the 32 heads, 192
-   and 96 launches a step on every rank.  Then the one process's step 1 in
+32. mamba2_370m the same way at full width cut to 24 of its 48 layers in
+   fp32, batch 8 of 512 tokens (phase 22's batch at a
+   quarter of its T): K3 and K3-bwd on each rank's 16 of the 32 heads, 96
+   and 48 launches a step on every rank.  Then the one process's step 1 in
    float64 through the plain versions (``train.witness``): every leaf of
    the ranks' step-1 gradient must lie no farther from it than 1.5 times
-   the one process's fp32 gradient, plus 1e-5 of its largest entry.
+   the one process's fp32 gradient, plus 1e-5 of its largest entry;
+33. serving on a ("data", "model") mesh of (2, 2), as the reference's
+   decode cells place it (``repro_torch.launch.parallel --mesh 2,2``; 4
+   ranks sharing this card through gloo, then held against the one-process
+   model as 25): mixtral_8x7b at full width cut to 8 of its 32 layers in
+   bf16, ``long_500k``'s placement at batch 1: one 6144-token prompt past
+   its 4096-slot ring, then 8 decodes.  Each "data" rank holds 2048 of the
+   ring's slots; every rank prefills the whole prompt through K1 and keeps
+   its block's slots; a decode writes the token on the rank whose block
+   holds its slot, runs K2 on each run of its block the query sees (two
+   where the ring wraps inside it) with their lse, and the ranks' attention
+   is merged over "data" in fp32 (``layers.merge_blocks``).  A "model" rank
+   holds 4 of the 8 experts, whose d is cut again over "data" and gathered
+   where the MoE runs (``layers.gather_experts``);
+34. qwen3_30b_a3b the same way at full width cut to 8 of its 48 layers,
+   ``decode_32k``'s placement: 8 prompts of 512 tokens, 4 a "data" rank
+   (K1 and K2 on its rows), 4 decodes; 64 of the 128 experts a "model"
+   rank, their d over "data";
+35. recurrentgemma_2b at full size, ``long_500k``'s placement: one
+   3072-token prompt past its 2048-slot ring, 1024 slots a "data" rank, 4
+   decodes; its one KV head on head_dim over "model" (each decode's rows of
+   the rank's block gathered to whole heads, K2 at D=256), the RG-LRU on
+   its width, its state whole over "data".  33-35 hold every rank's logits
+   at every step within 5e-2 of the one-process model's rows, each rank's
+   allocated parameter and cache bytes at ``mesh.shard_bytes`` of the serve
+   specs at the mesh up to the allocator's rounding, and each rank's K1 and
+   K2 launches at ``parallel.kernel_launches`` (K2 once a layer for each
+   run of its block, by decode); they print the bytes and ms of each
+   decode's experts' gather and merge and the card's peak in use.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
 steps of phases 21 and 22, the ranks' prefills and decodes of phases 23
-and 25-30 and the ranks' training steps of phases 31-32),
+and 25-30, the ranks' training steps of phases 31-32 and the ranks' prefills
+and decodes of phases 33-35),
 the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -2063,6 +2092,18 @@ def main() -> int:
         "heads")
     launches.update(train_mesh(32))
     torch.cuda.empty_cache()
+    log("== 33. mixtral_8x7b served on a (2, 2) mesh, long_500k's placement: K2 on each "
+        "rank's block of the ring, merged over 'data'; the experts' d over 'data'")
+    launches.update(tensor_parallel(33, SERVE_MESH))
+    torch.cuda.empty_cache()
+    log("== 34. qwen3_30b_a3b served on a (2, 2) mesh, decode_32k's placement: rows over "
+        "'data', the experts' d over 'data'")
+    launches.update(tensor_parallel(34, SERVE_MESH))
+    torch.cuda.empty_cache()
+    log("== 35. recurrentgemma_2b served on a (2, 2) mesh, long_500k's placement: its ring "
+        "over 'data', its KV head on head_dim over 'model'")
+    launches.update(tensor_parallel(35, SERVE_MESH))
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3121,6 +3162,29 @@ TENSOR_PARALLEL = {
 }
 
 
+# phase: (the launcher's arguments, what the phase serves); phases 33-35, each
+# on a ("data", "model") mesh of (2, 2) placed as the reference's decode cells
+SERVE_MESH = {
+    33: (["--arch", "mixtral_8x7b", "--layers", "8", "--mesh", "2,2", "--batch", "1",
+          "--prompt", "6144", "--decodes", "8"],
+         "mixtral_8x7b at full width, 8 of its 32 layers, long_500k's placement: one 6144-token "
+         "prompt past its 4096-slot ring, 2048 slots of it a 'data' rank (K2 on each run of a "
+         "rank's block, merged over 'data'); a 'model' rank 16 of 32 query heads over 4 of 8 KV "
+         "heads and 4 of the 8 experts, whose d is 2048 of 4096 a 'data' rank"),
+    34: (["--arch", "qwen3_30b_a3b", "--layers", "8", "--mesh", "2,2", "--batch", "8",
+          "--prompt", "512", "--decodes", "4"],
+         "qwen3_30b_a3b at full width, 8 of its 48 layers, decode_32k's placement: 8 rows, 4 a "
+         "'data' rank (K2 on its rows); a 'model' rank 16 of 32 query heads over 2 of 4 KV heads "
+         "and 64 of the 128 experts, whose d is 1024 of 2048 a 'data' rank"),
+    35: (["--arch", "recurrentgemma_2b", "--mesh", "2,2", "--batch", "1", "--prompt", "3072",
+          "--decodes", "4"],
+         "recurrentgemma_2b at full size, long_500k's placement: one 3072-token prompt past its "
+         "2048-slot ring, 1024 slots of it a 'data' rank; a 'model' rank 5 of 10 query heads "
+         "over 128 of its KV head's 256 dimensions (K2 at D=256 over the block gathered to "
+         "whole heads) and 1280 of the RG-LRU's 2560 channels, its state whole over 'data'"),
+}
+
+
 @contextlib.contextmanager
 def card_in_use(every=0.05):
     """The card's largest memory in use, by every process on it, while the
@@ -3145,14 +3209,16 @@ def card_in_use(every=0.05):
         thread.join()
 
 
-def tensor_parallel(phase):
-    """Phases 25-30: the model of ``TENSOR_PARALLEL[phase]`` served by the
-    one-process model here, which is then freed, and by tensor-parallel
-    ranks sharing this card (``repro_torch.launch.parallel``: gloo, each
-    rank's blocks drawn leaf by leaf, the ranks one after another); see the
-    module docstring.  Returns the ranks' kernel launches, summed."""
+def tensor_parallel(phase, table=TENSOR_PARALLEL):
+    """Phases 25-30 (and 33-35 from ``SERVE_MESH``): the model of
+    ``table[phase]`` served by the one-process model here, which is then
+    freed, and by ranks sharing this card (``repro_torch.launch.parallel``:
+    gloo, each rank's blocks drawn leaf by leaf, the ranks one after
+    another), tensor-parallel over "model" and, on a mesh, placed over
+    "data" as the reference's decode cells; see the module docstring.
+    Returns the ranks' kernel launches, summed."""
     from repro_torch.launch import parallel
-    argv, what = TENSOR_PARALLEL[phase]
+    argv, what = table[phase]
     args = parallel.parse_args(argv)
     log(f"{what}; the one-process model, then {args.ranks} ranks")
     t0 = time.monotonic()
@@ -3177,6 +3243,16 @@ def tensor_parallel(phase):
             f"mesh.shard_bytes {sum(p_sizes):,} (rounded {parallel.allocation_bounds(p_sizes)}); "
             f"cache {r['cache_bytes']:,}, shard_bytes {sum(c_sizes):,} "
             f"(rounded {parallel.allocation_bounds(c_sizes)})")
+        if args.mesh:
+            allocated, reserved = r["serve_memory"]
+            log(f"rank {r['rank']} while serving: peak allocated {allocated / 2**30:.2f} GiB, "
+                f"reserved {reserved / 2**30:.2f} GiB")
+            per_prefill, per_decode = parallel.kernel_launches(args, r["coords"]["data"])
+            log(f"rank {r['rank']} at {r['coords']}: rows {r['rows']}, K1 a prefill "
+                f"{r['prefill'][0]['launches']['flash_attention']} (expected "
+                f"{per_prefill['flash_attention']}), K2 over the decodes "
+                f"{r['decode']['launches']['paged_attention']} (expected by decode "
+                f"{[d['paged_attention'] for d in per_decode]})")
     log(f"times and gathered bytes below: {args.ranks} ranks sharing one card, the collectives "
         "host-exchanged through gloo; not a multi-card figure")
     for line in parallel.summary(ranks, ref):
@@ -3194,15 +3270,17 @@ def tensor_parallel(phase):
 
 # phase: (the training launcher's arguments, what the phase trains)
 TRAIN_MESH = {
-    31: (["--arch", "qwen2_5_3b", "--full-config", "--layers", "4", "--mesh", "2,2",
+    31: (["--arch", "qwen2_5_3b", "--full-config", "--layers", "2", "--mesh", "2,2",
           "--steps", "2", "--batch", "8", "--seq", "512", "--microbatches", "2",
           "--log-every", "1"],
-         "qwen2_5_3b at full width, 4 of its 36 layers, fp32: each rank 8 of the 16 query "
+         "qwen2_5_3b at full width, 2 of its 36 layers, fp32: each rank 8 of the 16 query "
          "heads over 1 of the 2 KV heads, 5504 of F's 11008, 75968 of the 151936 vocabulary "
          "rows, and d cut again over 'data'"),
-    32: (["--arch", "mamba2_370m", "--full-config", "--mesh", "2,2", "--steps", "2",
+    32: (["--arch", "mamba2_370m", "--full-config", "--layers", "24", "--mesh", "2,2",
+          "--steps", "2",
           "--batch", "8", "--seq", "512", "--microbatches", "2", "--log-every", "1"],
-         "mamba2_370m at full size (48 layers), fp32, batch 8 of 512 tokens: each rank 16 of "
+         "mamba2_370m at full width, 24 of its 48 layers, fp32, batch 8 of 512 tokens: each "
+         "rank 16 of "
          "the 32 SSD heads (K3 and K3-bwd over them), 2192 of w_in's 4384 packed columns, "
          "and d cut again over 'data'"),
 }

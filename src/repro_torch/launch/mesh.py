@@ -54,8 +54,19 @@ and ``layers.GATHERED`` counts.  :func:`build_params` makes the same tree
 leaf by leaf from a seed, so that a rank never holds more than its blocks
 and one whole leaf.  A placement that no layer runs (:func:`model_placements`)
 raises, naming the leaf, and so do ``shard_params`` and ``build_params``.
-The "data" entries the serve rules give the MoE's experts are not
-executed: each serving rank keeps them whole.
+
+Serving on a mesh with batch axes (("data", "model") of (D, M), or
+("pod", "data", "model") of (P, D, M)): the serve rules' only "data"
+placement of a parameter is the MoE experts' d (``moe_data``: ``w_in``'s
+dimension -2, ``w_out``'s -1), over the batch axes ("pod", "data"), which
+a rank holds its block of at its coordinate on them, pod-major as the
+reference's ``PartitionSpec(("pod", "data"))`` orders them
+(``layers.batch_coordinate``); the MoE layer gathers the experts over those
+ranks where it runs them.  Every other leaf is whole over the batch axes.
+:func:`shard_cache` cuts a cache tree to a rank's blocks by the cache rules
+at its batch: its rows over the batch axes where they divide the batch,
+else its block of the KV sequence over "data" (context-parallel decode);
+``init_cache(..., params=)`` under such a mesh allocates only those blocks.
 
 Training (``mode="train"`` of the three, on a ("data", "model") mesh of
 (D, M)): each leaf also has its FSDP dimension, which the "train" rules
@@ -77,13 +88,14 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.layers import (ambient_mesh, data_coordinate, model_coordinate, on_init,
-                                      use_mesh)
+from repro_torch.models.layers import (BATCH_DIM, ambient_mesh, batch_coordinate, data_coordinate,
+                                      model_coordinate, on_init, use_mesh)
 
 __all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names",
            "named_specs", "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
            "model_placements", "shard_params", "build_params", "train_sharding", "whole_leaves",
-           "model_coordinate", "data_coordinate"]
+           "model_coordinate", "data_coordinate", "batch_coordinate", "shard_cache",
+           "batch_rows", "mesh_axes"]
 
 Spec = Tuple[Any, ...]
 
@@ -403,8 +415,18 @@ def device_mesh(axes: MeshAxes, device_type: str = "cuda"):
     only when the caller asks for it; the group's backend is whatever the
     caller initialised it with."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, tuple(axes.sizes[a] for a in axes.names),
-                            mesh_dim_names=axes.names)
+    dm = init_device_mesh(device_type, tuple(axes.sizes[a] for a in axes.names),
+                          mesh_dim_names=axes.names)
+    if axes.pod:
+        # the batch axes' group, pod-major, made here by every rank at once
+        dm["pod", "data"]._flatten(BATCH_DIM)
+    return dm
+
+
+def mesh_axes(mesh) -> MeshAxes:
+    """The :class:`MeshAxes` of a device mesh (its names and sizes)."""
+    names = tuple(mesh.mesh_dim_names)
+    return MeshAxes(names, [mesh[a].size() for a in names])
 
 
 # (parent/leaf) -> {the dimension, from the right, of the leaf's block that
@@ -459,7 +481,14 @@ def _data_dim(spec: Spec, ndim: int) -> Optional[int]:
     return None
 
 
-def model_placements(params: Any, tp: int, mode: str = "serve", data: int = 1) -> Dict[str, Any]:
+# (parent/leaf) of the leaves a serving rank may hold a block of over the
+# batch axes: the MoE's experts, whose d the serve rules place there
+# (``moe_data``), gathered where the MoE runs them (``layers.moe``)
+SERVED_OVER_DATA = frozenset({"moe/w_in", "moe/w_out"})
+
+
+def model_placements(params: Any, tp: int, mode: str = "serve", data: Optional[int] = None,
+                     pod: int = 1) -> Dict[str, Any]:
     """{leaf name: the dimension, from the right, that a rank of ``tp``
     "model" ranks holds its block of, or None where it holds the leaf
     whole} for every leaf of ``params``: where the serve rules
@@ -475,18 +504,22 @@ def model_placements(params: Any, tp: int, mode: str = "serve", data: int = 1) -
     A placement that no layer runs raises ``ValueError``, naming the leaf
     and the rule: nothing is kept whole against the rules.
 
-    ``mode="train"`` reads the "train" rules at a mesh of (``data``,
-    ``tp``) and gives each leaf a pair: (its "model" dimension, as above,
-    which the "train" rules place as the serve rules do; its "data"
-    dimension, the FSDP cut, or None), each from the right.  A rank gathers
-    a "data" block over "data" where a layer uses it, into the "model"
-    block the layers run (``GATHERED_OVER_DATA``); the MoE's experts are
-    such a leaf too, their d over "data" in both modes.  In "serve" mode
-    the rules' "data" placement of the experts is not run: each serving
-    rank keeps its experts whole over "data", at a "data" size of 1."""
+    With ``data``, the rules are read at a mesh of (``data``, ``tp``), or
+    of (``pod``, ``data``, ``tp``) with a "pod" axis, and each leaf has a
+    pair: (its "model" dimension, as above, which the "train" rules place
+    as the serve rules do; its dimension over the batch axes ("pod",
+    "data"), or None), each from the right.  A rank gathers such a block
+    over the batch axes where a layer uses it: in "train" mode the FSDP cut
+    of most leaves (``GATHERED_OVER_DATA``), in "serve" mode the MoE
+    experts' d alone (``SERVED_OVER_DATA``).  "train" mode always gives
+    pairs, at a "data" size of 1 without ``data``."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
-    axes = MeshAxes(("data", "model"), (data if mode == "train" else 1, tp))
+    pairs = mode == "train" or data is not None
+    data = 1 if data is None else data
+    axes = (MeshAxes(("pod", "data", "model"), (pod, data, tp)) if pod > 1
+            else MeshAxes(("data", "model"), (data, tp)))
+    over_data = GATHERED_OVER_DATA if mode == "train" else SERVED_OVER_DATA
     dims: Dict[str, Any] = {}
     for name, leaf in leaves_with_names(params):
         shape = tuple(leaf.shape)
@@ -501,14 +534,14 @@ def model_placements(params: Any, tp: int, mode: str = "serve", data: int = 1) -
             raise ValueError(f"{name} {shape}: the {mode} rules (launch.mesh._param_spec) "
                              f"place dimension {dim} on 'model' at {tp} ranks, and {what}")
         dims[name] = dim
-        if mode == "train":
+        if pairs:
             ddim = _data_dim(spec, len(shape))
-            if ddim is not None and role not in GATHERED_OVER_DATA:
-                raise ValueError(f"{name} {shape}: the train rules (launch.mesh._param_spec) "
-                                 f"place dimension {ddim} on 'data' at {data} ranks, and no "
-                                 "layer of the port gathers this leaf over 'data'")
+            if ddim is not None and role not in over_data:
+                raise ValueError(f"{name} {shape}: the {mode} rules (launch.mesh._param_spec) "
+                                 f"place dimension {ddim} on 'data' at {pod * data} ranks, and "
+                                 "no layer of the port gathers this leaf over 'data'")
             dims[name] = (dim, ddim)
-    model_dim = (lambda n: dims[n][0]) if mode == "train" else dims.get
+    model_dim = (lambda n: dims[n][0]) if pairs else dims.get
     for name in [n for n in dims if n.endswith("attn/wq")]:
         split = tuple(model_dim(name[:-2] + w) for w in ("wq", "wk", "wv", "wo"))
         if split not in ATTENTION_SPLITS:
@@ -532,10 +565,12 @@ def _block(leaf, cuts, whole=None):
 
 
 def _coordinates(mesh, mode: str) -> Tuple[int, int, int, int]:
-    """(m, "model" size, d, "data" size) of a rank of ``mesh`` (the ambient
-    mesh by default); "serve" mode cuts nothing over "data"."""
+    """(m, "model" size, d, D) of a rank of ``mesh`` (the ambient mesh by
+    default): in "serve" mode d is its coordinate on the batch axes, of D
+    ranks (pod-major: ``layers.batch_coordinate``), in "train" mode on
+    "data"."""
     mesh = ambient_mesh() if mesh is None else mesh
-    d, D = data_coordinate(mesh) if mode == "train" else (0, 1)
+    d, D = batch_coordinate(mesh) if mode == "serve" else data_coordinate(mesh)
     return model_coordinate(mesh) + (d, D)
 
 
@@ -543,11 +578,10 @@ def _cuts(params: Any, coords, mode: str) -> Dict[str, list]:
     """{leaf name: the cuts of :func:`_block`} of the rank at ``coords``
     (:func:`_coordinates`) in ``mode``, from the whole tree ``params``
     (:func:`model_placements`, which raises for a placement the port does
-    not run)."""
+    not run; the batch axes' size D alone decides where the rules place a
+    leaf on them, so a pod mesh is read as D "data" ranks)."""
     m, tp, d, D = coords
     dims = model_placements(params, tp, mode, D)
-    if mode == "serve":
-        return {name: [(dim, m, tp)] for name, dim in dims.items()}
     return {name: [(mdim, m, tp), (ddim, d, D)] for name, (mdim, ddim) in dims.items()}
 
 
@@ -565,12 +599,14 @@ def shard_params(params: Any, mesh=None, mode: str = "serve") -> Any:
     rules place on "model" (:func:`model_placements`, which raises for a
     placement the port does not run) cut into the "model" size's equal
     blocks on that dimension and the block of this rank's "model"
-    coordinate kept (a copy, so the whole tree can be freed); every other
-    leaf is the whole leaf itself.  ``mesh`` defaults to the ambient mesh;
-    with one "model" rank the tree is returned as it is.  ``mode="train"``
-    also cuts each leaf that the "train" rules place on "data" by the rank's
-    "data" coordinate: the block the reference's ``NamedSharding`` puts on
-    that device (:func:`shard_shape` of the train specs)."""
+    coordinate kept (a copy, so the whole tree can be freed); on a mesh
+    with batch axes the MoE experts' d is cut again by the rank's batch
+    coordinate; every other leaf is the whole leaf itself.  ``mesh``
+    defaults to the ambient mesh; with one rank the tree is returned as it
+    is.  ``mode="train"`` cuts each leaf that the "train" rules place on
+    "data" by the rank's "data" coordinate.  Each block is the one the
+    reference's ``NamedSharding`` puts on that device (:func:`shard_shape`
+    of the mode's specs)."""
     coords = _coordinates(mesh, mode)
     if coords[1] == coords[3] == 1:
         return params
@@ -607,6 +643,52 @@ def build_params(model, generator: torch.Generator, dtype=torch.float32, device=
         params = model.init(generator, dtype, device)
     # a leaf that is not drawn (a norm, a bias) is cut here, if placed
     return _walk(params, lambda name, leaf: _block(leaf, cuts[name], whole[name]))
+
+
+def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None) -> Any:
+    """One rank's blocks of a cache tree by the cache rules
+    (:func:`cache_specs` at ``batch`` rows) at the axes of ``mesh`` (the
+    ambient mesh by default): each dimension that a leaf's spec places on
+    axes is cut into as many equal blocks as they have ranks, and the block
+    at the rank's coordinate on them is kept (pod-major on ("pod",
+    "data")).  That is its rows over the batch axes where they divide
+    ``batch``, else its block of the KV sequence over "data"
+    (context-parallel decode, the rest of the cache whole over the batch
+    axes), and its "model" blocks.  The specs are read from ``whole`` (the
+    whole tree, ``cache`` itself by default; the meta device will do), and
+    a dimension of ``cache`` already smaller than ``whole``'s (a rank's
+    heads, as ``init_cache(..., params=)`` cuts them) is kept as it is.
+    A cut leaf is a copy (a meta leaf stays on the meta device)."""
+    mesh = ambient_mesh() if mesh is None else mesh
+    axes = mesh_axes(mesh)
+    coord = {a: mesh[a].get_local_rank() for a in axes.names}
+    whole = cache if whole is None else whole
+    spec_of = named_specs(cache_specs(whole, axes, batch=batch))
+    whole_shape = {name: tuple(leaf.shape) for name, leaf in leaves_with_names(whole)}
+
+    def cut(name, leaf):
+        out = leaf
+        for i, entry in enumerate(spec_of[name]):
+            if entry is None or out.shape[i] != whole_shape[name][i]:
+                continue
+            k, n = 0, 1
+            for a in (entry,) if isinstance(entry, str) else entry:
+                k, n = k * axes.sizes[a] + coord[a], n * axes.sizes[a]
+            out = out.narrow(i, k * (out.shape[i] // n), out.shape[i] // n)
+        return out if out is leaf else out.clone()
+
+    return _walk(cache, cut)
+
+
+def batch_rows(batch: int, mesh=None) -> slice:
+    """The rows of a batch of ``batch`` rows that a serving rank of
+    ``mesh`` (the ambient mesh by default) is given: its block over the
+    batch axes where they divide the batch (its rows of the cache, by the
+    cache rules), else every row (its block of the KV sequence)."""
+    i, n = batch_coordinate(ambient_mesh() if mesh is None else mesh)
+    if batch % n:
+        return slice(0, batch)
+    return slice(i * batch // n, (i + 1) * batch // n)
 
 
 def whole_leaves(params: Any, data: int, tp: int, blocks: Sequence[Any]) -> Dict[str, Any]:

@@ -1,4 +1,6 @@
-"""Serving over "model" ranks: tensor parallelism, and expert parallelism for an MoE.
+"""Serving over "model" ranks: tensor parallelism, and expert parallelism for an MoE;
+and on a ("data", "model") or ("pod", "data", "model") mesh, as the reference's decode
+cells place it.
 
     PYTHONPATH=src python -m repro_torch.launch.parallel \\
         --arch llama3_70b --layers 16 --ranks 4 --batch 4 --prompt 256 --decodes 4
@@ -8,6 +10,8 @@
         --arch whisper_base --ranks 2 --batch 4 --prompt 64 --frames 1500 --decodes 4
     PYTHONPATH=src python -m repro_torch.launch.parallel \\
         --arch mamba2_370m --ranks 4 --batch 2 --prompt 1000 --decodes 4
+    PYTHONPATH=src python -m repro_torch.launch.parallel \\
+        --arch mixtral_8x7b --layers 8 --mesh 2,2 --batch 1 --prompt 6144 --decodes 8
 
 It starts ``--ranks`` processes of itself, which meet in a gloo group
 through a ``FileStore`` in a temporary directory, on a ("data", "model")
@@ -38,6 +42,20 @@ once more into a fresh cache for each capacity factor
 (:func:`capacity_factors`): a prefill runs ``layers.moe_a2a`` in every MoE
 layer (the all-to-all: the ranks split the sequence), a decode its
 dropless fallback on the sharded experts.
+
+``--mesh D,M`` (or ``P,D,M``) serves on a ("data", "model") mesh of (D, M)
+(or ("pod", "data", "model") of (P, D, M)) instead of ``--ranks``, which
+means (1, ranks): each rank holds the serve rules' blocks at the mesh
+(``launch.mesh.shard_params``: also the MoE experts' d over the batch axes,
+gathered where the MoE runs) and its blocks of the cache
+(``init_cache(..., params=)`` under the mesh).  Where the batch axes divide
+``--batch``, a rank is given its rows (``launch.mesh.batch_rows``, pod-major)
+and serves them as one process does; else every rank is given every row and
+holds its block of each attention layer's KV slots over "data": K2 runs on
+each run of its block that a query sees and the ranks' attention is merged
+over "data" (``models.transformer.block_runs``, ``layers.merge_blocks``).
+An MoE serves dropless (``moe_impl="ragged"``) on such a mesh, as the
+one-process model does.
 
 Each rank saves its logits at every step, the milliseconds of its prefills
 and decodes (the host's clock, the device synchronised) and of each
@@ -94,7 +112,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--layers", type=int, default=0, help="cut the depth to this (0: all)")
     ap.add_argument("--config", action="append", default=[], metavar="FIELD=INT",
                     help="set an integer field of the config (repeatable)")
-    ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="'model' ranks of a (1, ranks) mesh, unless --mesh is given")
+    ap.add_argument("--mesh", default="", metavar="D,M|P,D,M",
+                    help="serve on a ('data', 'model') or ('pod', 'data', 'model') mesh")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--decodes", type=int, default=1)
@@ -103,7 +124,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bfloat16")
     rank_procs.add_rank_args(ap)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.mesh:
+        args.ranks = int(np.prod(list(mesh_axes(args).sizes.values())))
+    return args
+
+
+def mesh_axes(args: argparse.Namespace):
+    """The ``launch.mesh.MeshAxes`` the ranks serve on: ``--mesh``, or
+    ("data", "model") of (1, ``--ranks``)."""
+    from repro_torch.launch.mesh import MeshAxes
+    if not args.mesh:
+        return MeshAxes(("data", "model"), (1, args.ranks))
+    sizes = [int(n) for n in args.mesh.split(",")]
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"--mesh takes D,M or P,D,M, not {args.mesh!r}")
+    return MeshAxes(("pod", "data", "model")[-len(sizes):], sizes)
+
+
+def moe_impl(args: argparse.Namespace) -> str:
+    """The ranks' MoE: expert-parallel (``a2a``) on "model" ranks alone,
+    dropless where there are batch axes, as the one-process model runs it
+    and the reference's decode cells place it."""
+    return "a2a" if mesh_axes(args).batch_size() == 1 else "ragged"
 
 
 def model_config(args: argparse.Namespace, moe_impl: str = "a2a", capacity_factor=None):
@@ -130,7 +173,7 @@ def capacity_factors(args: argparse.Namespace) -> List[Optional[float]]:
     experts do not divide over the ranks (dropless on their FFN width), has
     none."""
     cfg = model_config(args)
-    if cfg.moe is None or cfg.moe.num_experts % args.ranks:
+    if cfg.moe is None or cfg.moe.num_experts % args.ranks or moe_impl(args) != "a2a":
         return [None]
     return [float(args.ranks), cfg.moe.capacity_factor]
 
@@ -167,9 +210,12 @@ def _init_cache(args, model, dtype, device, params):
 
 MOE_FNS = ("moe", "moe_a2a")
 # what a decode step's time is split into: K2, and the collectives over
-# "model" that the model's own layers call
+# "model" that the model's own layers call; on a mesh with batch axes also
+# the experts' gather over them (inside the MoE, timed apart) and the merge
+# of the "data" ranks' attention over their blocks of the KV sequence
 PARTS = {"paged_attention": "K2", "_all_gather": "gathers", "_all_reduce": "reduces",
-         "_exchange": "exchanges"}
+         "_exchange": "exchanges", "gather_experts": "experts", "merge_blocks": "merges"}
+INNER = ("gather_experts",)     # timed even inside a timed call
 
 
 @contextlib.contextmanager
@@ -177,21 +223,24 @@ def timing(device):
     """Record the milliseconds of each call (host clock around it, the
     device synchronised before and after) to ``layers.moe``,
     ``layers.moe_a2a`` (with its ``dropped`` count), ``ops.paged_attention``
-    (K2) and the gathers, all-reduces and all-to-all exchanges over "model"
-    (``layers._all_gather``, ``layers._all_reduce``, ``layers._exchange``)
-    while the model runs: the model looks each up at each call, so each is
-    wrapped and restored after.  A call inside a timed call (an MoE block's
-    collectives) is not timed apart."""
+    (K2), the gathers, all-reduces and all-to-all exchanges over "model"
+    (``layers._all_gather``, ``layers._all_reduce``, ``layers._exchange``),
+    the experts' gather over the batch axes (``layers.gather_experts``) and
+    the merge over "data" (``layers.merge_blocks``) while the model runs:
+    the model looks each up at each call, so each is wrapped and restored
+    after.  A call inside a timed call (an MoE block's collectives) is not
+    timed apart, except the experts' gather (``INNER``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    targets = [(L, name) for name in MOE_FNS + ("_all_gather", "_all_reduce", "_exchange")]
+    targets = [(L, name) for name in MOE_FNS + ("_all_gather", "_all_reduce", "_exchange",
+                                                "gather_experts", "merge_blocks")]
     targets.append((ops, "paged_attention"))
     calls: List[Dict] = []
     depth = [0]
 
     def wrap(name, fn):
         def timed(*a, **kw):
-            if depth[0]:
+            if depth[0] and name not in INNER:
                 return fn(*a, **kw)
             depth[0] += 1
             _sync(device)
@@ -222,8 +271,8 @@ def _moe_calls(calls: List[Dict]) -> List[Dict]:
 
 
 def _parts_ms(calls: List[Dict]) -> Dict[str, float]:
-    """{"K2", "gathers", "reduces", "exchanges": milliseconds summed over
-    ``calls``}."""
+    """{"K2", "gathers", "reduces", "exchanges", "experts", "merges":
+    milliseconds summed over ``calls``}."""
     out = dict.fromkeys(PARTS.values(), 0.0)
     for c in calls:
         if c["fn"] in PARTS:
@@ -236,11 +285,11 @@ def _shapes(tree) -> Dict[str, tuple]:
     return {name: tuple(leaf.shape) for name, leaf in leaves_with_names(tree)}
 
 
-def _serve(args, cfg_of, params, device, dtype) -> Dict:
-    """Prefill and decode once untimed, then prefill the prompts once for
-    each capacity factor into a fresh cache (the model of ``cfg_of(cf)``),
-    and decode ``--decodes`` tokens of every row through ``decode_slots``
-    after the first.  Returns {"prefill": [{"cf", "logits", "moe",
+def _serve(args, cfg_of, params, device, dtype, rows: slice, warm: bool = True) -> Dict:
+    """Prefill and decode once untimed (where ``warm``), then prefill the
+    prompts' ``rows`` once for each capacity factor into a fresh cache (the
+    model of ``cfg_of(cf)``), and decode ``--decodes`` tokens of those rows
+    through ``decode_slots`` after the first.  Returns {"prefill": [{"cf", "logits", "moe",
     "launches", "ms", "gathered"}], "decode": {"logits": [...], "ms": [...],
     "gathered": [...], "parts": [...], "moe", "launches"}, "cache": the
     first cache's leaf shapes, "cache_bytes"}; "gathered" is {what: bytes}
@@ -255,15 +304,18 @@ def _serve(args, cfg_of, params, device, dtype) -> Dict:
     cf_list = capacity_factors(args)
     cfg = cfg_of(cf_list[0])
     prompt, fed = tokens(args, cfg.vocab_size, device)
+    prompt, fed = prompt[rows], fed[:, rows]
     fe = frames(args, cfg.d_model, device, dtype)
-    inputs = {"tokens": prompt} if fe is None else {"tokens": prompt, "frontend_embeds": fe}
-    rows = torch.arange(args.batch, device=device)
-    with torch.no_grad():                    # a warm-up, so that no timed call is a first one
-        model = build_model(cfg)
-        cache = _init_cache(args, model, dtype, device, params)
-        model.prefill(params, inputs, cache)
-        model.decode_slots(params, cache, fed[0], rows)
-        del cache
+    inputs = {"tokens": prompt} if fe is None else {"tokens": prompt,
+                                                    "frontend_embeds": fe[rows]}
+    rows = torch.arange(prompt.shape[0], device=device)
+    if warm:                                 # so that no timed call is a first one
+        with torch.no_grad():
+            model = build_model(cfg)
+            cache = _init_cache(args, model, dtype, device, params)
+            model.prefill(params, inputs, cache)
+            model.decode_slots(params, cache, fed[0], rows)
+            del cache
     for i, cf in enumerate(cf_list):
         model = build_model(cfg_of(cf))
         before = _allocated(device)
@@ -312,7 +364,8 @@ def reference(args: argparse.Namespace) -> Dict:
     dtype = getattr(torch, args.dtype)
     cfg = model_config(args, "ragged")
     params = build_model(cfg).init(torch.Generator(device).manual_seed(SEED), dtype)
-    return _serve(args, lambda cf: model_config(args, "ragged", cf), params, device, dtype)
+    return _serve(args, lambda cf: model_config(args, "ragged", cf), params, device, dtype,
+                  slice(0, args.batch))
 
 
 def run_rank(args: argparse.Namespace) -> None:
@@ -324,7 +377,8 @@ def run_rank(args: argparse.Namespace) -> None:
     with rank_procs.joined(args, args.ranks):
         device = rank_procs.rank_device(args.device, args.rank)
         dtype = getattr(torch, args.dtype)
-        dm = mesh.device_mesh(mesh.MeshAxes(("data", "model"), (1, args.ranks)), device.type)
+        axes = mesh_axes(args)
+        dm = mesh.device_mesh(axes, device.type)
         with mesh.use_mesh(dm):
             model = build_model(model_config(args))
             model.init(torch.Generator().manual_seed(SEED), dtype, device="meta")
@@ -332,17 +386,34 @@ def run_rank(args: argparse.Namespace) -> None:
             params, param_bytes, built = rank_procs.build_in_turns(
                 device, args.rank, args.ranks,
                 lambda: mesh.build_params(model, torch.Generator(device).manual_seed(SEED), dtype))
-            res = _serve(args, lambda cf: model_config(args, "a2a", cf), params, device, dtype)
+            rows = mesh.batch_rows(args.batch)
+            built_peak = _peak(device)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            # on batch axes every pass gathers the experts' d through host
+            # memory, which a warm-up would repeat for nothing its times need
+            res = _serve(args, lambda cf: model_config(args, moe_impl(args), cf), params, device,
+                         dtype, rows, warm=axes.batch_size() == 1)
+        res.update(coords={a: dm[a].get_local_rank() for a in axes.names},
+                   rows=(rows.start, rows.stop))
+        if device.type == "cuda":       # (allocated, reserved) at most while serving
+            res.update(serve_memory=(_peak(device), torch.cuda.max_memory_reserved(device)))
         res.update(rank=args.rank, build_seconds=built, params=_shapes(params),
-                   param_bytes=param_bytes,
-                   memory=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0)
+                   param_bytes=param_bytes, memory=max(built_peak, _peak(device)))
         rank_procs.save(args, res)
+
+
+def _peak(device) -> int:
+    """``torch.cuda.max_memory_allocated``; 0 on the CPU."""
+    import torch
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
 
 def launch(args: argparse.Namespace) -> List[Dict]:
     """Start ``args.ranks`` rank processes, wait for all of them, and return
     each rank's results; raises if one fails (the others are stopped)."""
     argv = ["--arch", args.arch, "--layers", str(args.layers), "--ranks", str(args.ranks),
+            "--mesh", args.mesh,
             "--batch", str(args.batch), "--prompt", str(args.prompt),
             "--decodes", str(args.decodes), "--frames", str(args.frames),
             "--device", args.device, "--dtype", args.dtype]
@@ -355,18 +426,24 @@ def _rel(got, exp) -> float:
     return float((got - exp).abs().max() / exp.abs().max())
 
 
+def _worst(ranks: List[Dict], ref_logits, got_of) -> float:
+    """The largest relative distance of any rank's logits (``got_of(rank)``,
+    its rows) from the one-process model's rows."""
+    return max(_rel(got_of(r), ref_logits[slice(*r["rows"])]) for r in ranks)
+
+
 def summary(ranks: List[Dict], ref: Dict) -> List[str]:
     """One line per prefill and one for the decodes: each rank's
     milliseconds and the one-process model's, an MoE's dropped pairs and
-    MoE layers' milliseconds, and the logits' largest distance from the
-    one-process model's, relative to its largest."""
+    MoE layers' milliseconds, and the logits' largest distance, over the
+    ranks, from the one-process model's rows, relative to its largest."""
     lines = []
     for i, pre in enumerate(ranks[0]["prefill"]):
         ref_pre = ref["prefill"][i]
+        worst = _worst(ranks, ref_pre["logits"], lambda r: r["prefill"][i]["logits"])
         line = (f"prefill{'' if pre['cf'] is None else ' at capacity_factor ' + str(pre['cf'])}: "
                 f"ms by rank {[round(r['prefill'][i]['ms'], 3) for r in ranks]}, one process "
-                f"{ref_pre['ms']:.3f}; logits {_rel(pre['logits'], ref_pre['logits']):.3e} "
-                "from the one-process model's")
+                f"{ref_pre['ms']:.3f}; logits {worst:.3e} from the one-process model's")
         if pre["moe"]:
             dropped = sum(c["dropped"] or 0 for c in pre["moe"])
             moe_ms = [round(sum(c["ms"] for c in r["prefill"][i]["moe"]), 3) for r in ranks]
@@ -377,13 +454,20 @@ def summary(ranks: List[Dict], ref: Dict) -> List[str]:
             line += f"; gathered by each rank {pre['gathered']} bytes"
         lines.append(line)
     dec, ref_dec = ranks[0]["decode"], ref["decode"]
-    worst = max((_rel(g, e) for g, e in zip(dec["logits"], ref_dec["logits"])), default=0.0)
+    worst = max((_worst(ranks, e, lambda r, t=t: r["decode"]["logits"][t])
+                 for t, e in enumerate(ref_dec["logits"])), default=0.0)
     line = (f"{len(dec['ms'])} decodes: ms by rank "
             f"{[[round(ms, 3) for ms in r['decode']['ms']] for r in ranks]}, one process "
             f"{[round(ms, 3) for ms in ref_dec['ms']]}; logits at most {worst:.3e} from the "
             "one-process model's")
     if any(dec["gathered"]):
         line += f"; gathered by each rank a step {dec['gathered']} bytes"
+    for what, key, part in (("the experts' d gathered over the batch axes", "experts", "experts"),
+                            ("the blocks' attention merged over 'data'", "merge", "merges")):
+        if any(step.get(key) for step in dec["gathered"]):
+            line += (f"; {what}: {[step.get(key, 0) for step in dec['gathered']]} bytes by "
+                     "decode, ms by rank "
+                     f"{[[round(p[part], 3) for p in r['decode']['parts']] for r in ranks]}")
     line += ("; of each step, ms in " + "/".join(PARTS.values()) + " by rank "
              f"{[[[round(ms, 3) for ms in p.values()] for p in r['decode']['parts']] for r in ranks]}")
     if dec["moe"]:
@@ -397,21 +481,24 @@ def expected(args: argparse.Namespace):
     """What a rank must hold: ({leaf: shape} of its parameters and of its
     cache, and the bytes of each tensor), from the whole trees on the meta
     device: each leaf the :func:`~repro_torch.launch.mesh.shard_shape` of its
-    serve placement at a (1, ranks) mesh (the cache's by the cache rules),
-    after :func:`~repro_torch.launch.mesh.model_placements` has said that a
-    layer runs every placement."""
+    serve placement at the ranks' mesh (:func:`mesh_axes`; the cache's by
+    the cache rules at ``--batch``, which is
+    :func:`~repro_torch.launch.mesh.shard_bytes` of the specs), after
+    :func:`~repro_torch.launch.mesh.model_placements` has said that a layer
+    runs every placement."""
     import torch
 
     from repro_torch.launch import mesh
     from repro_torch.models.transformer import build_model
-    axes = mesh.MeshAxes(("data", "model"), (1, args.ranks))
+    axes = mesh_axes(args)
     dtype = getattr(torch, args.dtype)
     cfg = model_config(args)
     with mesh.use_mesh(None):
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), dtype, device="meta")
         cache = _init_cache(args, model, dtype, "meta", None)
-    mesh.model_placements(params, args.ranks)
+    mesh.model_placements(params, axes.model_size(), "serve", axes.sizes["data"],
+                          axes.sizes.get("pod", 1))
     out = []
     for tree, specs in ((params, mesh.param_specs(params, axes, "serve")),
                         (cache, mesh.cache_specs(cache, axes, batch=args.batch))):
@@ -424,19 +511,34 @@ def expected(args: argparse.Namespace):
     return out
 
 
-def kernel_launches(args: argparse.Namespace):
-    """The kernel launches of every rank on the card, ({kernel: count} a
-    prefill, {kernel: count} a decode): K1 once a prefill and K2 once a
-    decode in each attention layer, and for an encoder-decoder also each
-    cross attention and, given frames, each encoder layer's K1; K3 once a
-    prefill in each SSD layer."""
+def kernel_launches(args: argparse.Namespace, data: int = 0):
+    """The kernel launches of a rank on the card at "data" coordinate
+    ``data``, ({kernel: count} a prefill, [{kernel: count} of each
+    decode]): K1 once a prefill and K2 once a decode in each attention
+    layer, and for an encoder-decoder also each cross attention and, given
+    frames, each encoder layer's K1; K3 once a prefill in each SSD layer.
+    Where the rank holds a block of the KV sequence (the batch axes do not
+    divide ``--batch``: every row, at the same position), K2 runs once a
+    layer for each run of its block that the decode's query sees
+    (``transformer.block_runs``), none for a block the query sees nothing
+    of."""
+    from repro_torch.models.transformer import PAGE_SIZE, SeqBlock, block_runs, cache_span
     cfg = model_config(args)
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     n_ssd = sum(kind == "ssd" for kind in cfg.layer_pattern)
     k1 = n_attn if not cfg.is_enc_dec else (
         2 * n_attn + (cfg.encoder.num_layers if args.frames else 0))
-    k2 = n_attn if not cfg.is_enc_dec else 2 * n_attn
-    return {"flash_attention": k1, "ssd_scan": n_ssd}, {"paged_attention": k2}
+    k2 = [n_attn if not cfg.is_enc_dec else 2 * n_attn] * args.decodes
+    axes = mesh_axes(args)
+    D = axes.sizes["data"]
+    if n_attn and args.batch % axes.batch_size() and D > 1:
+        kind = next(k for k in cfg.layer_pattern if k in ("attn", "local_attn"))
+        S = cache_span(cfg, kind, cache_len(args))
+        if S % D == 0 and (S // D) % PAGE_SIZE == 0:
+            block = SeqBlock(data, D, S)
+            k2 = [n_attn * len(block_runs([args.prompt + t] * args.batch, block,
+                                          cfg.sliding_window)) for t in range(args.decodes)]
+    return {"flash_attention": k1, "ssd_scan": n_ssd}, [{"paged_attention": n} for n in k2]
 
 
 def allocation_bounds(sizes: List[int]):
@@ -453,22 +555,26 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     of the parameters and of the cache (the shapes of its placements; on the
     card, the allocation's bytes within :func:`allocation_bounds` of them);
     every prefill ran, on the card, K1 once an attention layer and K3 once
-    an SSD layer, and the decodes K2 once an attention layer a decode
+    an SSD layer, and each decode K2 once an attention layer, or once for
+    each run of a rank's block of the KV sequence that the query sees
     (:func:`kernel_launches`: an encoder-decoder's cross attention and
-    encoder too); the ranks' logits agree
-    (1e-6 of the largest) at every step; the prefill's logits (an MoE's at
-    the first capacity factor, where nothing may drop, and through
-    ``moe_a2a`` in every layer) and every decode's lie within ``tol`` of the
-    one-process model's, relative to its largest, finite and of shape
-    (batch, vocab).  Returns the ranks' kernel launches, summed."""
+    encoder too); the ranks that serve the same rows agree (1e-6 of the
+    largest) at every step; the prefill's logits (an MoE's at the first
+    capacity factor, where nothing may drop, and through ``moe_a2a`` in
+    every layer on "model" ranks alone) and every decode's lie within
+    ``tol`` of the one-process model's rows, relative to its largest,
+    finite and of shape (rows, vocab), on every rank.  Returns the ranks'
+    kernel launches, summed."""
     import torch
     cfg = model_config(args)
-    per_prefill, per_decode = kernel_launches(args)
     cuda = args.device != "cpu"
     (p_shapes, p_sizes), (c_shapes, c_sizes) = expected(args)
     launches: collections.Counter = collections.Counter()
+    moe_fn = "moe_a2a" if moe_impl(args) == "a2a" else "moe"
     for r in ranks:
         who = f"rank {r['rank']}"
+        per_prefill, per_decode = kernel_launches(args, r["coords"]["data"])
+        same = next(q for q in ranks if q["rows"] == r["rows"])
         for what, got, exp in (("parameters", r["params"], p_shapes), ("cache", r["cache"], c_shapes)):
             if got != exp:
                 wrong = {n: (got.get(n), exp.get(n)) for n in set(got) | set(exp)
@@ -482,37 +588,45 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
                     raise AssertionError(f"{who}'s {what} allocated {got} bytes, not "
                                          f"{sum(sizes)} rounded ({least} .. {most})")
         for i, pre in enumerate(r["prefill"]):
-            if cfg.moe is not None and [c["fn"] for c in pre["moe"]] != ["moe_a2a"] * cfg.num_layers:
+            if cfg.moe is not None and [c["fn"] for c in pre["moe"]] != [moe_fn] * cfg.num_layers:
                 raise AssertionError(f"{who} prefill {i}: MoE calls {pre['moe']}")
             if cuda and any(pre["launches"][k] != n for k, n in per_prefill.items()):
                 raise AssertionError(f"{who} prefill {i}: launched {pre['launches']}, not "
                                      f"{per_prefill}")
-            apart = _rel(pre["logits"], ranks[0]["prefill"][i]["logits"])
+            apart = _rel(pre["logits"], same["prefill"][i]["logits"])
             if apart > 1e-6:
-                raise AssertionError(f"{who}'s prefill logits are {apart} from rank 0's")
+                raise AssertionError(f"{who}'s prefill logits are {apart} from rank "
+                                     f"{same['rank']}'s")
             launches.update(pre["launches"])
         for t, step in enumerate(r["decode"]["logits"]):
-            apart = _rel(step, ranks[0]["decode"]["logits"][t])
+            apart = _rel(step, same["decode"]["logits"][t])
             if apart > 1e-6:
-                raise AssertionError(f"{who}'s decode {t} logits are {apart} from rank 0's")
-        if cuda and any(r["decode"]["launches"][k] != n * args.decodes
-                        for k, n in per_decode.items()):
+                raise AssertionError(f"{who}'s decode {t} logits are {apart} from rank "
+                                     f"{same['rank']}'s")
+        want = collections.Counter()
+        for step in per_decode:
+            want.update(step)
+        if cuda and any(r["decode"]["launches"][k] != n for k, n in want.items()):
             raise AssertionError(f"{who} decodes: launched {r['decode']['launches']}, not "
-                                 f"{per_decode} a decode")
+                                 f"{per_decode} by decode")
         launches.update(r["decode"]["launches"])
-    first = ranks[0]["prefill"][0]
-    if any(c["dropped"] for c in first["moe"]):
-        raise AssertionError(f"pairs dropped at capacity_factor {first['cf']}: {first['moe']}")
-    pairs = [("prefill", first["logits"], ref["prefill"][0]["logits"])] + [
-        (f"decode {t}", got, exp) for t, (got, exp) in
-        enumerate(zip(ranks[0]["decode"]["logits"], ref["decode"]["logits"]))]
-    for what, got, exp in pairs:
-        if tuple(got.shape) != (args.batch, cfg.vocab_size) or not torch.isfinite(got).all():
-            raise AssertionError(f"{what}: logits {tuple(got.shape)} not finite or misshapen")
-        rel = _rel(got, exp)
-        if rel > tol:
-            raise AssertionError(f"{what}: the ranks' and the one-process model's logits "
-                                 f"differ by {rel} (> {tol})")
+        first = r["prefill"][0]
+        if any(c["dropped"] for c in first["moe"]):
+            raise AssertionError(f"pairs dropped at capacity_factor {first['cf']}: "
+                                 f"{first['moe']}")
+        rows = slice(*r["rows"])
+        pairs = [("prefill", first["logits"], ref["prefill"][0]["logits"][rows])] + [
+            (f"decode {t}", got, exp[rows]) for t, (got, exp) in
+            enumerate(zip(r["decode"]["logits"], ref["decode"]["logits"]))]
+        for what, got, exp in pairs:
+            if (tuple(got.shape) != (rows.stop - rows.start, cfg.vocab_size)
+                    or not torch.isfinite(got).all()):
+                raise AssertionError(f"{who} {what}: logits {tuple(got.shape)} not finite or "
+                                     "misshapen")
+            rel = _rel(got, exp)
+            if rel > tol:
+                raise AssertionError(f"{who} {what}: the rank's and the one-process model's "
+                                     f"logits differ by {rel} (> {tol})")
     return launches
 
 

@@ -35,7 +35,11 @@ FFN width, where the columns a rank needs of a packed projection come from
 the ranks that hold them (:func:`_fetch_columns`).  A training step on a
 ("data", "model") mesh also cuts the leaves over "data" (FSDP): the model
 gathers each where it is used (:func:`gathered`), and its rows of the
-batch are a block of the microbatch's (:func:`split_rows`).  :func:`rglru` runs
+batch are a block of the microbatch's (:func:`split_rows`).  Serving on a
+mesh with batch axes ("data", or "pod" and "data") holds the MoE experts'
+d over them, gathered where the MoE runs (:func:`moe`), and, where the
+batch axes do not divide the batch, each rank's block of the KV sequence,
+whose attention is merged over "data" (:func:`merge_blocks`).  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -222,12 +226,14 @@ def attention_partial(q, k, v, *, q_offset: Optional[int] = None,
                                return_lse=True, force=force)
 
 
-def attention_merge(segs, out_dtype):
+def attention_merge(segs, out_dtype, return_lse: bool = False):
     """Exact online-softmax combine of (out, lse) segments (the reference's
     ``attention_merge2`` over any number of them: a ring cache's keys before
     a chunk lie in up to two ranges of it): each segment weighs
     exp(lse - max lse), and out = Σ w·out / Σ w.  A segment that saw no key
-    (lse = -inf) weighs 0; a row that none saw gives 0."""
+    (lse = -inf) weighs 0; a row that none saw gives 0.  With
+    ``return_lse`` also the merged lse, max lse + log Σ w (-inf where no
+    segment saw a key)."""
     m = segs[0][1]
     for _, lse in segs[1:]:
         m = torch.maximum(m, lse)
@@ -237,8 +243,12 @@ def attention_merge(segs, out_dtype):
         w = torch.exp(lse - m)
         num = num + out.float() * w[..., None]
         den = den + w
-    den = torch.where(den == 0.0, 1.0, den)
-    return (num / den[..., None]).to(out_dtype)
+    empty = den == 0.0
+    den = torch.where(empty, 1.0, den)
+    out = (num / den[..., None]).to(out_dtype)
+    if not return_lse:
+        return out
+    return out, torch.where(empty, -math.inf, m + torch.log(den))
 
 
 def causal_mask(q_pos, kv_pos, window: Optional[int] = None):
@@ -290,9 +300,12 @@ def _proj_heads(x, w):
 # tensor-parallel rank, by what they moved: "head_dim" (the attention's
 # projections and cache on head_dim), "rglru" (the RG-LRU's conv'd input),
 # "ssd" (the SSD's packed columns), "moe_ffn" (the experts' gate and up
-# columns) and "fsdp" (a training rank's blocks of the leaves cut over
-# "data", gathered where they are used); read and reset by the caller
-# (``launch.parallel``, ``launch.train``)
+# columns), "fsdp" (a training rank's blocks of the leaves cut over
+# "data", gathered where they are used), "experts" (a serving rank's
+# blocks of the experts' d, gathered over the batch axes), "merge" (each
+# "data" rank's attention over its block of the KV sequence) and
+# "kv_prefix" (the KV blocks a later prefill chunk gathers over "data");
+# read and reset by the caller (``launch.parallel``, ``launch.train``)
 GATHERED: collections.Counter = collections.Counter()
 
 
@@ -599,12 +612,15 @@ def moe(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     the experts (the rules where they divide over "model") runs
     :func:`_moe_expert_sharded`.  The statistics are every token's on every
     rank, and every row's of the microbatch where a training step cuts its
-    rows over "data" (:func:`_router_stats`)."""
+    rows over "data" (:func:`_router_stats`).  A serving rank that holds
+    its block of the experts' d first gathers them over the batch axes
+    (:func:`gather_experts`)."""
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape
     n = B * T
     xf = x.reshape(n, d)
+    p = gather_experts(cfg, p, x)
     E_loc = p["w_in"].shape[-3]
     if E_loc != E:                   # this rank's experts: the rules where they divide
         group = tp_group(E_loc, E)
@@ -707,6 +723,30 @@ def data_coordinate(mesh) -> Tuple[int, int]:
         return 0, 1
     sub = mesh["data"]
     return sub.get_local_rank(), sub.size()
+
+
+# the name of a pod mesh's flattened batch axes ("pod", "data"), which
+# ``launch.mesh.device_mesh`` makes
+BATCH_DIM = "pod_data"
+
+
+def batch_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's coordinate on the batch axes, their size) of ``mesh``:
+    on a ("pod", "data", "model") mesh pod-major, p·D + d of P·D, the order
+    of the reference's ``PartitionSpec(("pod", "data"))``; else
+    :func:`data_coordinate`."""
+    if mesh is None or "pod" not in (mesh.mesh_dim_names or ()):
+        return data_coordinate(mesh)
+    sub = mesh[BATCH_DIM]
+    return sub.get_local_rank(), sub.size()
+
+
+def batch_group(mesh):
+    """The process group of ``mesh``'s batch axes: "data", or ("pod",
+    "data") flattened on a pod mesh."""
+    if "pod" in (mesh.mesh_dim_names or ()):
+        return mesh[BATCH_DIM].get_group()
+    return mesh.get_group("data")
 
 
 @contextlib.contextmanager
@@ -889,20 +929,77 @@ def gathered(tree):
 class _GatherData(torch.autograd.Function):
     """Every "data" rank's block along ``dim`` gathered into the leaf; the
     gradient is summed over the ranks and each keeps its own block (a
-    reduce-scatter)."""
+    reduce-scatter).  The bytes received count in ``GATHERED[what]``."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
+    def forward(ctx, x, dim, group, what="fsdp"):
         ctx.dim, ctx.group = dim, group
         n = dist.get_world_size(group)
-        GATHERED["fsdp"] += x.numel() * x.element_size() * (n - 1)
+        GATHERED[what] += x.numel() * x.element_size() * (n - 1)
         return _all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
         REDUCED["fsdp"] += g.numel() * g.element_size() * (n - 1) // n
-        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None, None
+
+
+def gather_experts(cfg: ModelConfig, p, x):
+    """The MoE parameters ``p`` with the experts' ``w_in`` and ``w_out``
+    whole in d where a serving rank holds its block of it (the serve rules'
+    ``moe_data``: ``w_in``'s dimension -2 and ``w_out``'s -1 over the batch
+    axes, ``launch.mesh.shard_params``), for this call alone, so that a
+    rank keeps only its block at rest; ``p`` itself where d is whole.
+
+    Only the rank's experts that a token of ``x`` (B, T, d) chooses, on any
+    rank of the batch axes (a sum over them), are gathered over the batch
+    axes (:class:`_GatherData`, forward only here; ``GATHERED["experts"]``);
+    the others are left zero, which no token reads.  A decode's few tokens
+    choose few of them; a prefill's, every one."""
+    d_loc = p["w_in"].shape[-2]
+    if d_loc == cfg.d_model:
+        return p
+    mesh = ambient_mesh()
+    _, n = batch_coordinate(mesh)
+    if d_loc * n != cfg.d_model:
+        raise ValueError(f"a block of {d_loc} of the experts' d {cfg.d_model} needs "
+                         f"{cfg.d_model // d_loc} ranks on the batch axes; the ambient mesh "
+                         f"has {n}")
+    group = batch_group(mesh)
+    E, E_loc = cfg.moe.num_experts, p["w_in"].shape[-3]
+    first = 0 if E_loc == E else model_coordinate(mesh)[0] * E_loc
+    idx = moe_route(cfg, p, x.reshape(-1, x.shape[-1]))[2].reshape(-1)
+    chosen = torch.zeros(E, dtype=torch.int32, device=x.device).index_fill_(0, idx, 1)
+    keep = _all_reduce(chosen[first:first + E_loc], group).nonzero()[:, 0]
+    out = dict(p)
+    for name, dim in (("w_in", -2), ("w_out", -1)):
+        w = p[name]
+        if len(keep) == E_loc:
+            out[name] = _GatherData.apply(w, dim, group, "experts")
+            continue
+        whole = list(w.shape)
+        whole[dim] *= n
+        out[name] = w.new_zeros(whole)
+        if len(keep):
+            out[name][keep] = _GatherData.apply(w[keep], dim, group, "experts")
+    return out
+
+
+def merge_blocks(out, lse, group):
+    """The attention of each "data" rank of ``group`` over its block of the
+    KV sequence (context-parallel decode), merged: every rank's (out (n, 1,
+    Hq, D), lse (n, 1, Hq)) is gathered over ``group`` in fp32 (out itself
+    is the rank's fp32 merge of its runs) and combined exactly by
+    :func:`attention_merge` in the order of the ranks' "data" coordinates,
+    so every rank gets the same result, bit for bit, from run to run.  A
+    block that saw no key (lse = -inf) weighs 0.  Returns (n, 1, Hq, D) in
+    fp32; ``GATHERED["merge"]`` counts the bytes received."""
+    n = dist.get_world_size(group)
+    both = torch.cat([out.float(), lse.float()[..., None]], -1)
+    GATHERED["merge"] += both.numel() * both.element_size() * (n - 1)
+    parts = _all_gather(both, 0, group).chunk(n, 0)
+    return attention_merge([(part[..., :-1], part[..., -1]) for part in parts], torch.float32)
 
 
 def _router_stats(probs, load, K: int):
@@ -1016,12 +1113,16 @@ def moe_a2a(cfg: ModelConfig, p, x, *, force: Optional[str] = None):
     experts: every rank routes every token, runs the pairs bound for its
     own experts, and the partial outputs are summed over "model".
 
+    A serving rank that holds its block of the experts' d gathers them
+    over the batch axes first (:func:`gather_experts`).
+
     Returns (y (B, T, d), aux).  Every rank returns the same statistics:
     the means over the "model" ranks of each rank's router probabilities and
     expert loads, which are the dropless MoE's over the same tokens (the
     reference returns one shard's, the first device's); the main path also
     gives ``dropped``, the pairs dropped on all the group's ranks."""
     mesh = ambient_mesh()
+    p = gather_experts(cfg, p, x)
     moe_cfg = cfg.moe
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     B, T, d = x.shape

@@ -58,6 +58,22 @@ of head_dim (``layers.AttnHeads``): each prefill chunk's keys and its
 cached prefix, each decode's live rows (:func:`_decode_view`), the
 encoder-decoder's cross cache alike.
 
+Under a mesh with batch axes ("data", or "pod" and "data"; the serve
+rules' placement of a decode cell), ``init_cache`` holds the rank's blocks
+of the cache rules (``launch.mesh.shard_cache``).  Where the batch axes
+divide the batch, those are its rows: the caller gives the rank its rows'
+tokens, and it prefills and decodes them as one process does; the MoE's
+experts, whose d the rank holds a block of, are gathered over the batch
+axes where they run (``layers.gather_experts``).  Where they do not divide
+it (``long_500k``: one row), each "data" rank holds a contiguous block of
+every attention layer's KV slots (:class:`SeqBlock`; the recurrent states
+whole), and every rank is given every row: a prefill attends as one
+process does and writes only its block's slots (:func:`_block_prefill`); a
+decode writes the token where its block holds slot p % S, runs K2 over
+each run of its block that the query sees (:func:`block_runs`: a ring's
+block may hold two) with their lse, and the ranks' attention is merged
+over "data" (:func:`_block_decode`, ``layers.merge_blocks``).
+
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
 with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
 parallelism over the ambient mesh's "model" ranks, each rank running the
@@ -235,6 +251,86 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
             "kv_pos": torch.full(shape[:-2], -1, dtype=torch.int32, device=device)}
 
 
+@dataclass(frozen=True)
+class SeqBlock:
+    """A serving rank's block of every attention layer's KV sequence: the
+    physical slots [lo, hi) of each row's ``whole`` (a ring's or a linear
+    row's), block ``index`` of ``count`` over "data", as the cache rules
+    place k, v and kv_pos where the batch axes do not divide the batch
+    (context-parallel decode).  ``init_cache`` keeps it in the cache under
+    "seq_block", a leaf that is not a tensor."""
+
+    index: int
+    count: int
+    whole: int
+
+    @property
+    def size(self) -> int:
+        return self.whole // self.count
+
+    @property
+    def lo(self) -> int:
+        return self.index * self.size
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.size
+
+
+def block_runs(positions, block: SeqBlock, window: Optional[int]):
+    """K2's launches for a decode of queries at ``positions`` (host ints,
+    one a row, each written at slot p % S before the attention) over the
+    slots [lo, hi) of ``block``: [(the rows' indices, each row's first page
+    counted from lo, its context length, the window)], one launch each.
+
+    Slot s holds the newest position p − ((p − s) mod S) ≤ p (negative:
+    not written yet), so the block is at most two runs of consecutive
+    positions, split at the query's slot r = p % S:
+
+    * slots lo .. r, where r lies in the block: positions p − (r − lo) ..
+      p, which end at the query: K2 as one process runs it, context length
+      r − lo + 1, the window itself;
+    * slots a .. hi − 1 with a = r + 1 (lo where r is not in the block),
+      where they hold written positions: their last, x = p − ((p − hi + 1)
+      mod S), lies g = p − x before the query, so K2 (whose query sits at
+      its last key) runs with the window less g, which masks what lies
+      before p − window + 1; a run that starts inside a page starts at
+      that page, whose slots before a hold newer positions (the first run)
+      and lie before the window, since S ≥ window wherever a row wraps.
+      A run wholly before the window is no launch.
+
+    Rows with the same run and window share a launch; a row of no run
+    sees no key here (its block's lse is -inf)."""
+    groups: Dict[Tuple[str, Optional[int]], List[Tuple[int, int, int]]] = {}
+    S, lo, hi = block.whole, block.lo, block.hi
+    for i, p in enumerate(positions):
+        r = p % S
+        if lo <= r < hi:
+            groups.setdefault(("own", window), []).append((i, 0, r - lo + 1))
+        a = r + 1 if lo <= r < hi else lo
+        x = p - ((p - hi + 1) % S)
+        if a >= hi or x < 0:
+            continue
+        w = None if window is None else window - (p - x)
+        if w is not None and w <= 0:
+            continue
+        first = (a - lo) // PAGE_SIZE
+        groups.setdefault(("older", w), []).append((i, first, hi - lo - first * PAGE_SIZE))
+    return [([e[0] for e in run], [e[1] for e in run], [e[2] for e in run], w)
+            for (_, w), run in groups.items()]
+
+
+def _block_group(block: SeqBlock):
+    """The ambient mesh's "data" group, whose ranks hold ``block``'s
+    siblings; raises unless this rank's "data" coordinate is its index."""
+    mesh = L.ambient_mesh()
+    if L.data_coordinate(mesh) != (block.index, block.count):
+        raise ValueError(f"the cache holds block {block.index} of {block.count} of the KV "
+                         f"sequence over 'data'; the ambient mesh gives this rank "
+                         f"{L.data_coordinate(mesh)}")
+    return mesh.get_group("data")
+
+
 @dataclass
 class CacheStep:
     """Where one forward's tokens go in the cache, worked out once for all
@@ -248,6 +344,8 @@ class CacheStep:
     cross_tables: Optional[torch.Tensor] = None  # (n, F_pad / PAGE_SIZE) int32, enc-dec
     cross_lens: Optional[torch.Tensor] = None    # (n,) int32: F, enc-dec
     live: Optional[int] = None                   # positions a decode gathers (_decode_view)
+    block: Optional[SeqBlock] = None             # the rank's block of the KV sequence
+    runs: Optional[List] = None                  # a decode's K2 launches over it (block_runs)
 
 
 def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optional[Dict],
@@ -283,11 +381,12 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     # what the rank's cache keeps, and the whole heads its queries read
     k_own, v_own = heads.cached(k_new), heads.cached(v_new)
     k_new, v_new = heads.attended(k_new), heads.attended(v_new)
-    T, S = positions.shape[1], k_c.shape[1]
     window = cfg.sliding_window
     if deferred is not None:
         deferred.append((k_own, v_own))
-    if step.start is None:
+    if step.start is None and step.block is not None:
+        ctx = _block_decode(heads, q, k_own, v_own, cache, step, positions, window, force)
+    elif step.start is None:
         if deferred is None:
             _write_kv(cache, k_own, v_own, positions, step.rows)
         kc, vc, tables = _decode_view(heads, k_c, v_c, step, positions, bool(window))
@@ -296,9 +395,34 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
                                    force)
         else:
             ctx = _paged(q, kc, vc, tables, step.context_lens, window, force)
-    elif deferred is None and step.start + T <= S:
+    elif step.block is not None:
+        ctx = _block_prefill(heads, q, k_new, v_new, k_own, v_own, cache, step, positions,
+                             window, force)
+    else:
+        ctx = _prefill_attention(heads, q, k_new, v_new, k_own, v_own, cache, step.start,
+                                 positions, window, force, deferred)
+    x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
+    if cross is not None:
+        x = x + _cross_attention(cfg, *cross, x, step, force)
+    h2 = L.apply_norm(cfg, x, p["norm2"])
+    if cfg.moe is not None:
+        return x + _moe_fn(cfg)(cfg, p["moe"], h2, force=force)[0]
+    return x + L.mlp(cfg, p["mlp"], h2)
+
+
+def _prefill_attention(heads: L.AttnHeads, q, k_new, v_new, k_own, v_own, cache: Dict, s0: int,
+                       positions, window, force, deferred=None):
+    """A prefill chunk's attention at positions s0 .. s0 + T − 1 over one
+    layer's cache {"k", "v", "kv_pos"}, which it writes (in place) unless
+    ``deferred``: where no position of the row has wrapped, the chunk is
+    written and K1 runs over the row up to its end; else the chunk attends
+    over the cached keys and its own without reading what it writes
+    (:func:`_prefill_segments`), then the ring keeps its last positions."""
+    k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
+    T, S = positions.shape[1], k_c.shape[1]
+    if deferred is None and s0 + T <= S:
         # no position of the row has wrapped: write the chunk, then attend
-        s0, s1 = step.start, step.start + T
+        s1 = s0 + T
         k_c[:, s0:s1] = k_own
         v_c[:, s0:s1] = v_own
         kv_pos[:, s0:s1] = positions.to(kv_pos.dtype)
@@ -308,19 +432,74 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
                             for c, new in ((k_c, k_new), (v_c, v_new)))
         else:
             k_all, v_all = heads.attended(k_c[:, :s1]), heads.attended(v_c[:, :s1])
-        ctx = ops.flash_attention(q, k_all, v_all, causal=True, window=window, force=force)
+        return ops.flash_attention(q, k_all, v_all, causal=True, window=window, force=force)
+    ctx = _prefill_segments(q, k_new, v_new, k_c, v_c, s0, window, force, view=heads.gathered)
+    if deferred is None:
+        _write_kv(cache, k_own, v_own, positions, None)
+    return ctx
+
+
+def _block_prefill(heads: L.AttnHeads, q, k_new, v_new, k_own, v_own, cache: Dict,
+                   step: CacheStep, positions, window, force):
+    """A prefill chunk on a rank that holds its block of the KV sequence
+    (``step.block``): every rank has every row's tokens, so each attends as
+    one process does and keeps the slots of its block.  The first chunk
+    reads no cache: K1 over its own keys, causal with the window (one
+    process's first chunk reads back exactly those keys); a later chunk
+    gathers the layer's blocks over "data" into whole rows
+    (``GATHERED["kv_prefix"]``), attends over them as one process does
+    (:func:`_prefill_attention`, which writes the chunk into them) and
+    keeps its block of them."""
+    block = step.block
+    if step.start == 0:
+        ctx = ops.flash_attention(q, k_new, v_new, causal=True, window=window, force=force)
+        _write_kv(cache, k_own, v_own, positions, None, block)
+        return ctx
+    group = _block_group(block)
+    whole = {}
+    for name in ("k", "v", "kv_pos"):
+        t = cache[name]
+        L.GATHERED["kv_prefix"] += t.numel() * t.element_size() * (block.count - 1)
+        whole[name] = L._all_gather(t, 1, group)
+    ctx = _prefill_attention(heads, q, k_new, v_new, k_own, v_own, whole, step.start, positions,
+                             window, force)
+    for name in ("k", "v", "kv_pos"):
+        cache[name].copy_(whole[name][:, block.lo:block.hi])
+    return ctx
+
+
+def _block_decode(heads: L.AttnHeads, q, k_own, v_own, cache: Dict, step: CacheStep,
+                  positions, window, force):
+    """A decode on a rank that holds its block of the KV sequence
+    (``step.block``): the token's k, v and position are written where the
+    rank's block holds slot p % S, before the attention, as one process
+    writes them; K2 runs over each of ``step.runs`` (:func:`block_runs`)
+    with its lse, the runs are merged, and the ranks' blocks are merged
+    over "data" (``layers.merge_blocks``).  Where the cache holds a block of
+    head_dim, the decoded rows of the rank's block are gathered over
+    "model" to whole heads first (``layers.AttnHeads.gathered``).  Returns
+    (n, 1, Hq, D) fp32."""
+    block = step.block
+    _write_kv(cache, k_own, v_own, positions, step.rows, block)
+    rows = step.rows
+    if heads.kv_dh:
+        kc, vc = heads.gathered(cache["k"][rows]), heads.gathered(cache["v"][rows])
+        at = torch.arange(rows.shape[0], device=rows.device)
     else:
-        ctx = _prefill_segments(q, k_new, v_new, k_c, v_c, step.start, window, force,
-                                view=heads.gathered)
-        if deferred is None:
-            _write_kv(cache, k_own, v_own, positions, None)
-    x = x + L.attn_out(cfg, p["attn"], ctx.to(x.dtype))
-    if cross is not None:
-        x = x + _cross_attention(cfg, *cross, x, step, force)
-    h2 = L.apply_norm(cfg, x, p["norm2"])
-    if cfg.moe is not None:
-        return x + _moe_fn(cfg)(cfg, p["moe"], h2, force=force)[0]
-    return x + L.mlp(cfg, p["mlp"], h2)
+        kc, vc = heads.attended(cache["k"]), heads.attended(cache["v"])
+        at = rows
+    per = block.size // PAGE_SIZE
+    pages = torch.arange(per, device=q.device)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.full(q.shape[:-1], -math.inf, dtype=torch.float32, device=q.device)
+    segs = []
+    for idx, first, lens, w in step.runs:
+        tables = (at[idx][:, None] * per + (first[:, None] + pages).clamp(max=per - 1)).int()
+        o, m = _paged(q[idx], kc, vc, tables, lens, w, force, return_lse=True)
+        segs.append((out.index_copy(0, idx, o.float()), lse.index_copy(0, idx, m)))
+    if segs:
+        out, lse = L.attention_merge(segs, torch.float32, return_lse=True)
+    return L.merge_blocks(out, lse, _block_group(block))
 
 
 def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Optional[str],
@@ -434,25 +613,36 @@ def _prefill_segments(q, k_new, v_new, k_c, v_c, s0: int, window, force, view=No
     return L.attention_merge(segs, q.dtype)
 
 
-def _write_kv(layers: Dict, k_new, v_new, positions, rows) -> None:
+def _write_kv(layers: Dict, k_new, v_new, positions, rows, block: Optional[SeqBlock] = None
+              ) -> None:
     """Write new K/V (.., n, T, Hkv, D) and their positions into a cache
     (in place) at rows ``rows`` (all rows where None) and position % S,
     where S is the rows' length: a ring's, or a linear row's, in which
     p % S = p.  Only the last S of T positions are written, those a ring
     keeps.  ``layers`` is one layer's cache {"k", "v": (B, S, Hkv, D),
     "kv_pos": (B, S)} or a stacked one (L, B, S, ...), with new K/V
-    (L, n, T, Hkv, D)."""
+    (L, n, T, Hkv, D).  Given the rank's ``block`` of rows of S =
+    ``block.whole`` slots, only the positions whose slots it holds are
+    written, at their place in it."""
     k, v, kv_pos = layers["k"], layers["v"], layers["kv_pos"]
-    S = k.shape[-3]
+    S = k.shape[-3] if block is None else block.whole
     n = min(positions.shape[1], S)
     positions = positions[:, -n:].long()
     if rows is None:
         rows = torch.arange(positions.shape[0], device=positions.device)
-    idx = (rows[:, None], positions % S)
+    slots = positions % S
+    rows = rows[:, None].expand_as(slots)
+    k_new, v_new = k_new[..., -n:, :, :], v_new[..., -n:, :, :]
+    if block is not None:
+        keep = (slots >= block.lo) & (slots < block.hi)
+        at = (slice(None),) * (k_new.dim() - 4) + (keep,)          # past a stacked L
+        rows, slots, positions = rows[keep], slots[keep] - block.lo, positions[keep]
+        k_new, v_new = k_new[at], v_new[at]
+    idx = (rows, slots)
     if k.dim() == 5:                                               # (L, B, S, Hkv, D)
         idx = (slice(None),) + idx
-    k[idx] = k_new[..., -n:, :, :]
-    v[idx] = v_new[..., -n:, :, :]
+    k[idx] = k_new
+    v[idx] = v_new
     kv_pos[idx] = positions.to(kv_pos.dtype)
 
 
@@ -600,11 +790,11 @@ def _page_tables(rows, positions, S: int, batch: int, ring: bool, device):
     return (rows[:, None] * per_row + j).int().contiguous(), first
 
 
-def _prefill_start(cache, k, T: int, start: Optional[int] = None,
+def _prefill_start(cache, S: int, T: int, start: Optional[int] = None,
                    window: Optional[int] = None) -> int:
     """The one ``cache_len`` all rows share, read on the host unless the
-    caller gives it as ``start``, checked against the attention cache ``k``
-    (.., B, S, Hkv, D), which must hold T more positions unless it is a
+    caller gives it as ``start``, checked against the attention cache's
+    rows of S slots, which must hold T more positions unless they are a
     ring of at least the ``window`` (which keeps every key a query sees)."""
     if start is None:
         starts = set(cache["cache_len"].tolist())
@@ -612,7 +802,6 @@ def _prefill_start(cache, k, T: int, start: Optional[int] = None,
             raise ValueError(f"prefill of T={T} needs one cache_len for every row, "
                              f"got {sorted(starts)}")
         start = starts.pop()
-    S = k.shape[-3]
     if start + T > S and (window is None or S < window):
         raise ValueError(f"prefill to position {start + T} overflows the "
                          f"cache of {S} positions")
@@ -775,11 +964,17 @@ class TransformerLM:
         rows hold a state of fixed size and no positions.  Each layer's
         leaves take their heads, head_dim and width from ``params`` (a
         tensor-parallel rank's blocks, ``launch.mesh.shard_params``), the
-        config's without them."""
+        config's without them.  Under a mesh with batch axes, only this
+        rank's blocks of it by the cache rules for ``batch`` rows
+        (:func:`_placed_cache`)."""
         if self.has_attn and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
-        device = resolve_device(device)
+        return _placed_cache(self.cfg, batch, resolve_device(device), params,
+                             lambda dev, p: self._cache(batch, cache_size, dtype, dev,
+                                                        window_slack, p))
+
+    def _cache(self, batch, cache_size, dtype, device, window_slack, params):
         cfg = self.cfg
         blocks = None if params is None else params["blocks"]
         if self.uniform:
@@ -813,10 +1008,12 @@ class TransformerLM:
             logits = self._run(params, x, None, cache, CacheStep(), force)
             cache["cache_len"] += T
             return logits, cache
-        start = _prefill_start(cache, self._attn_cache(cache)["k"], T, start,
-                               window=self.cfg.sliding_window)
+        block = cache.get("seq_block")
+        S = self._attn_cache(cache)["k"].shape[-3] if block is None else block.whole
+        start = _prefill_start(cache, S, T, start, window=self.cfg.sliding_window)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
-        logits = self._run(params, x, positions, cache, CacheStep(start=start), force)
+        logits = self._run(params, x, positions, cache, CacheStep(start=start, block=block),
+                           force)
         cache["cache_len"] += T
         return logits, cache
 
@@ -833,8 +1030,15 @@ class TransformerLM:
         (n, V)."""
         rows = torch.as_tensor(slots, device=tokens.device).long()
         positions = cache["cache_len"][rows].long()[:, None]
-        step = CacheStep(rows=rows)
-        if self.has_attn:
+        step = CacheStep(rows=rows, block=cache.get("seq_block"))
+        if step.block is not None:
+            # each launch's rows, first pages and context lengths, on the device
+            dev = tokens.device
+            step.runs = [(torch.tensor(ix, device=dev), torch.tensor(first, device=dev),
+                          torch.tensor(lens, dtype=torch.int32, device=dev), w)
+                         for ix, first, lens, w in block_runs(
+                             positions[:, 0].tolist(), step.block, self.cfg.sliding_window)]
+        elif self.has_attn:
             kv = self._attn_cache(cache)["k"]
             step.block_tables, first = _page_tables(rows, positions[:, 0], kv.shape[-3],
                                                     kv.shape[-4], self.windowed, tokens.device)
@@ -975,11 +1179,16 @@ class EncDecLM:
         of K2's pages: ``cross_k``/``cross_v`` (L, B, F_pad, Hkv, D), zeros.
         The K/V take their heads and head_dim from ``params`` (a
         tensor-parallel rank's blocks of the decoder's and the cross
-        attention's), the config's without them."""
+        attention's), the config's without them.  Under a mesh with batch
+        axes, this rank's rows of it (:func:`_placed_cache`)."""
         if cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
-        device = resolve_device(device)
+        return _placed_cache(self.cfg, batch, resolve_device(device), params,
+                             lambda dev, p: self._cache(batch, cache_size, dtype, dev, enc_frames,
+                                                        p))
+
+    def _cache(self, batch, cache_size, dtype, device, enc_frames, params):
         cfg = self.cfg
         F = enc_frames or cfg.encoder.max_source_positions
         F_pad = -(-F // PAGE_SIZE) * PAGE_SIZE
@@ -1031,7 +1240,7 @@ class EncDecLM:
         if T == 1:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
-        start = _prefill_start(cache, cache["layers"]["k"], T, start)
+        start = _prefill_start(cache, cache["layers"]["k"].shape[-3], T, start)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
         logits = self._decoder(params, tokens, positions, cache, CacheStep(start=start), force)
         cache["cache_len"] += T
@@ -1061,6 +1270,56 @@ class EncDecLM:
         logits = self._decoder(params, tokens, positions, cache, step, force)
         cache["cache_len"][rows] += 1
         return logits
+
+
+def _placed_cache(cfg: ModelConfig, batch: int, device, params, build) -> Dict[str, Any]:
+    """``build(device, params)``, a model's cache; under an ambient mesh
+    with batch axes, only this rank's blocks of it by the cache rules for
+    ``batch`` rows (``launch.mesh.shard_cache``, the one place the rules
+    live), worked out on the meta device and then allocated on ``device``:
+    its rows where the batch axes divide ``batch``; else its block of the
+    attention layers' KV slots over "data" (a :class:`SeqBlock` in the
+    cache's "seq_block"), the recurrent states whole.  Raises for what
+    context parallelism does not run yet: ``kv_append="defer"`` and an
+    encoder-decoder's cross cache (ROADMAP A3.6)."""
+    mesh = L.ambient_mesh()
+    if L.batch_coordinate(mesh)[1] == 1:
+        return build(device, params)
+    from repro_torch.launch.mesh import leaves_with_names, shard_cache
+    whole = build("meta", None)
+    cache = _allocate(shard_cache(build("meta", params), mesh, batch=batch, whole=whole), device)
+    held = dict(leaves_with_names(cache))
+    spans = {name: (leaf.shape[-3], held[name].shape[-3])
+             for name, leaf in leaves_with_names(whole)
+             if name.rsplit("/", 1)[-1] in ("k", "v", "cross_k", "cross_v")}
+    cut = sorted(name for name, (S, S_loc) in spans.items() if S != S_loc)
+    if cut:
+        if cfg.is_enc_dec or cfg.kv_append != "inline":
+            raise NotImplementedError(
+                f"context-parallel decode ({batch} rows on {L.batch_coordinate(mesh)[1]} batch "
+                "ranks) of " + ("an encoder-decoder's cross cache" if cfg.is_enc_dec
+                                else f"kv_append={cfg.kv_append!r}") + " (ROADMAP A3.6)")
+        S, S_loc = spans[cut[0]]
+        if S_loc % PAGE_SIZE:
+            raise ValueError(f"a block of {S_loc} of {S} KV slots a rank is not a whole number "
+                             f"of K2's pages of {PAGE_SIZE}")
+        d, D = L.data_coordinate(mesh)
+        cache["seq_block"] = SeqBlock(d, D, S)
+    return cache
+
+
+def _allocate(tree, device):
+    """A cache shaped as ``tree`` (the meta device will do) on ``device``:
+    ``kv_pos`` filled with −1, every other tensor with 0; other leaves
+    as they are."""
+    if isinstance(tree, dict):
+        return {k: (torch.full(v.shape, -1, dtype=v.dtype, device=device) if k == "kv_pos"
+                    else _allocate(v, device)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_allocate(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return tree
 
 
 def build_model(cfg: ModelConfig):

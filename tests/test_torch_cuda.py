@@ -805,3 +805,21 @@ def test_training_on_a_two_by_two_mesh_on_the_card(gen):     # gen: skips withou
                                loss_tol=1e-4, norm_tol=1e-3, leaf_tol=1e-3)
         expect = {k: 4 * n for k, n in train.kernel_launches(args).items() if n}
         assert {k: launches[k] for k in expect} == expect
+
+
+def test_serving_on_a_two_by_two_mesh_on_the_card(gen):     # gen: skips without a card
+    """``launch.parallel --mesh 2,2``: 4 gloo ranks sharing the card in
+    fp32, reduced mixtral_8x7b at head_dim 32 (K2 takes 32 and up) at
+    batch 1 past its 64-slot ring (K2 on each "data" rank's block of it,
+    merged over "data"; the experts' d over "data") and reduced
+    qwen3_30b_a3b with its rows over "data", against the one-process model
+    on the same weights (``parallel.check`` at 2e-4: each rank's blocks and
+    their allocated bytes, its K1 and K2 launches by
+    ``parallel.kernel_launches``)."""
+    from repro_torch.launch import parallel
+    for argv in (["--arch", "mixtral_8x7b", "--batch", "1", "--prompt", "80"],
+                 ["--arch", "qwen3_30b_a3b", "--batch", "4", "--prompt", "24"]):
+        args = parallel.parse_args(argv + ["--reduced", "--config", "head_dim=32", "--mesh",
+                                           "2,2", "--dtype", "float32", "--decodes", "3"])
+        launches = parallel.check(args, parallel.launch(args), parallel.reference(args), 2e-4)
+        assert launches["flash_attention"] == 4 * 2 and launches["paged_attention"] > 0

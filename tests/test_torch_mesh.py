@@ -174,3 +174,63 @@ def test_mesh_axes_refuse_mismatched_sizes():
         mesh.MeshAxes(("data", "model"), (16,))
     with pytest.raises(ValueError, match="mode"):
         mesh.param_specs({}, mesh.MeshAxes(("data", "model"), (16, 16)), "infer")
+
+
+# the reference's decode cells (``repro.configs.SHAPES``): (batch, sequence)
+DECODE_CELLS = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
+
+
+def _ref_dims(spec, ndim):
+    """(the dimension, from the right, a reference spec places on "model",
+    the one it places on "data"), None where it places none."""
+    dims = []
+    for axis in ("model", "data"):
+        hit = [i - ndim for i, entry in enumerate(spec) if entry is not None
+               and axis in ((entry,) if isinstance(entry, str) else tuple(entry))]
+        dims.append(hit[0] if hit else None)
+    return tuple(dims)
+
+
+@pytest.mark.parametrize("which", AXES)
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_serve_placements_and_cache_blocks_at_a_mesh(arch, which):
+    """The full config on the meta device at the production meshes:
+    ``model_placements(..., "serve", data=, pod=)`` gives every leaf the
+    (model, data) dimensions of the reference's serve spec (the MoE
+    experts' d over the batch axes, nothing else there); each decode cell's
+    cache (``decode_32k``, and ``long_500k`` where the config takes it) is
+    cut by ``shard_cache``, and by ``init_cache`` under the mesh, to the
+    block of the reference's cache spec on the last device: rows over the
+    batch axes, or the KV sequence over "data" (a ``SeqBlock``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import SeqBlock
+    from test_torch_serve_mesh import _Coords
+    ax, ref_ax = _axes(which)
+    names, sizes = PRODUCTION[which]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16, "meta")
+    dims = mesh.model_placements(params, ax.model_size(), "serve", ax.sizes["data"],
+                                 ax.sizes.get("pod", 1))
+    for name, leaf in mesh.leaves_with_names(params):
+        spec = jmesh._param_spec(name, tuple(leaf.shape), ref_ax, "serve")
+        assert dims[name] == _ref_dims(tuple(spec), leaf.dim()), (arch, name)
+        assert dims[name][1] is None or name.endswith(("moe/w_in", "moe/w_out")), name
+    last = _Coords(names, sizes, {a: n - 1 for a, n in zip(names, sizes)})
+    cells = [c for c in DECODE_CELLS if c != "long_500k" or cfg.supports_long_context()]
+    for cell in cells:
+        B, S = DECODE_CELLS[cell]
+        whole = model.init_cache(B, S, torch.bfloat16, "meta")
+        block = dict(mesh.leaves_with_names(mesh.shard_cache(whole, last, batch=B)))
+        with mesh.use_mesh(last):
+            held = model.init_cache(B, S, torch.bfloat16, "meta")
+        shard_batch = B % ref_ax.batch_size() == 0
+        for name, leaf in mesh.leaves_with_names(whole):
+            spec = jmesh._cache_spec(name, tuple(leaf.shape), ref_ax, shard_batch=shard_batch)
+            exp = mesh.shard_shape(tuple(leaf.shape), tuple(spec), ax)
+            assert tuple(block[name].shape) == exp, (cell, name)
+            assert tuple(dict(mesh.leaves_with_names(held))[name].shape) == exp, (cell, name)
+        seq = held.get("seq_block")
+        assert (seq is not None) == (not shard_batch and model.has_attn), cell
+        if seq is not None:
+            assert seq == SeqBlock(ax.sizes["data"] - 1, ax.sizes["data"], seq.whole)

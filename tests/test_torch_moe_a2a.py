@@ -266,14 +266,16 @@ def test_fallback_without_a_mesh():
 
 
 class _FakeMesh:
-    """What ``shard_params`` reads of a device mesh: the "model" coordinate."""
+    """What ``shard_params`` reads of a device mesh: the "model" coordinate,
+    at a "data" size of 1."""
     mesh_dim_names = ("data", "model")
 
     def __init__(self, m, n):
         self.sub = type("Sub", (), {"get_local_rank": lambda _: m, "size": lambda _: n})()
+        self.data = type("Sub", (), {"get_local_rank": lambda _: 0, "size": lambda _: 1})()
 
     def __getitem__(self, name):
-        return self.sub
+        return self.data if name == "data" else self.sub
 
 
 def test_shard_params_cuts_only_the_experts():

@@ -177,14 +177,15 @@ def test_rank_logits_match_one_process_and_jax(groups, name):
 
 class _FakeMesh:
     """What ``shard_params`` and ``build_params`` read of a device mesh: the
-    "model" coordinate and size."""
+    "model" coordinate and size, at a "data" size of 1."""
     mesh_dim_names = ("data", "model")
 
     def __init__(self, m, n):
         self.sub = type("Sub", (), {"get_local_rank": lambda _: m, "size": lambda _: n})()
+        self.data = type("Sub", (), {"get_local_rank": lambda _: 0, "size": lambda _: 1})()
 
     def __getitem__(self, name):
-        return self.sub
+        return self.data if name == "data" else self.sub
 
 
 @pytest.mark.parametrize("arch", ["llama3_70b", "mixtral_8x7b"])
