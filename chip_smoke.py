@@ -257,7 +257,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    decoder and cross layer of the prefill, K2 in each decoder and cross
    layer of a decode).  26-28 have 25's gates, and print the bytes each
    rank gathered over "model" in the prefill and in each decode;
-29. mamba2_370m tensor-parallel as 25, at full width in fp32 cut to 24 of
+29. mamba2_370m tensor-parallel as 25, at full width in fp32 cut to 12 of
    its 48 layers on 4 ranks:
    each rank holds 1096 of ``w_in``'s 4384 packed [z | x | B | C | dt]
    columns, 512 of ``w_out``'s 2048 rows, 8 of the state's 32 heads and
@@ -302,7 +302,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 33. serving on a ("data", "model") mesh of (2, 2), as the reference's
    decode cells place it (``repro_torch.launch.parallel --mesh 2,2``; 4
    ranks sharing this card through gloo, then held against the one-process
-   model as 25): mixtral_8x7b at full width cut to 8 of its 32 layers in
+   model as 25): mixtral_8x7b at full width cut to 4 of its 32 layers in
    bf16, ``long_500k``'s placement at batch 1: one 6144-token prompt past
    its 4096-slot ring, then 8 decodes.  Each "data" rank holds 2048 of the
    ring's slots; every rank prefills the whole prompt through K1 and keeps
@@ -312,7 +312,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    is merged over "data" in fp32 (``layers.merge_blocks``).  A "model" rank
    holds 4 of the 8 experts, whose d is cut again over "data" and gathered
    where the MoE runs (``layers.gather_experts``);
-34. qwen3_30b_a3b the same way at full width cut to 8 of its 48 layers,
+34. qwen3_30b_a3b the same way at full width cut to 4 of its 48 layers,
    ``decode_32k``'s placement: 8 prompts of 512 tokens, 4 a "data" rank
    (K1 and K2 on its rows), 4 decodes; 64 of the 128 experts a "model"
    rank, their d over "data";
@@ -326,14 +326,38 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    specs at the mesh up to the allocator's rounding, and each rank's K1 and
    K2 launches at ``parallel.kernel_launches`` (K2 once a layer for each
    run of its block, by decode); they print the bytes and ms of each
-   decode's experts' gather and merge and the card's peak in use.
+   decode's experts' gather and merge and the card's peak in use;
+36. qwen2_5_3b under the reference's ``kv_seq_shard`` (``launch.parallel
+   --opt kv_seq_shard``) on a (1, 4) mesh, at phase 26's cut (12 of 36
+   layers): 8 prompts of 512, 4 decodes; each rank holds 144 of the 576
+   slots of both KV heads whole; a decode gathers the ranks' query heads
+   to all 16 and the token's k, v to whole heads, runs K2 over its block
+   for every query head and merges the (out, lse) over "model"; it prints
+   the bytes a rank received a decode beside phase 26's head_dim gather,
+   a row each;
+37. context parallelism on (2, 1) meshes at batch 1: recurrentgemma_2b at
+   full size under ``kv_defer_append`` (one 3072-token prompt past its
+   2048-slot ring, 1024 a rank: K2 over the runs of the rank's block of
+   the cache before the token, the token's own key counted on the rank
+   whose block holds its slot, which alone writes it after the layer), and
+   whisper_base at full size with 1500 frames (1504 padded, 752 slots a
+   rank; every rank encodes every frame and keeps its block; a decode's
+   self and cross attention each K2 over the rank's block, merged over
+   "data").  36-37 have 33's gates;
+38. qwen2_5_3b trained as phase 31 on the ("pod", "data", "model") mesh
+   of (2, 1, 2): FSDP over ("pod", "data") pod-major, the bytes a rank
+   gathers and reduces those of phase 31's (2, 2);
+39. whisper_base at full size trained on (2, 2) in fp32 with 1500 frames
+   (``launch.train --frames``) and 448 tokens a row, batch 8 in 2
+   microbatches: each rank 4 of 8 heads of every encoder, decoder and
+   cross attention layer, the leaves cut again over "data", K1 60 and
+   K1-bwd 36 launches a step on every rank.  38-39 have 31's gates.
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
-steps of phases 21 and 22, the ranks' prefills and decodes of phases 23
-and 25-30, the ranks' training steps of phases 31-32 and the ranks' prefills
-and decodes of phases 33-35),
+steps of phases 21 and 22, the ranks' prefills and decodes of phases 23,
+25-30 and 33-37 and the ranks' training steps of phases 31-32 and 38-39),
 the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 3f and prints neither (a quick check of the kernels alone).  Any failure raises and the exit
@@ -2104,6 +2128,25 @@ def main() -> int:
         "over 'data', its KV head on head_dim over 'model'")
     launches.update(tensor_parallel(35, SERVE_MESH))
     torch.cuda.empty_cache()
+    log("== 36. qwen2_5_3b served under kv_seq_shard on a (1, 4) mesh: each rank the slots of "
+        "both KV heads, K2 over its block for every query head, merged over 'model'")
+    launches.update(tensor_parallel(36, SERVE_MESH))
+    seq_shard_against_head_dim()
+    torch.cuda.empty_cache()
+    log("== 37. context parallelism under the deferred append and over frames: recurrentgemma_2b "
+        "with kv_defer_append and whisper_base's cross cache, each on a (2, 1) mesh")
+    launches.update(tensor_parallel("37a", SERVE_MESH))
+    torch.cuda.empty_cache()
+    launches.update(tensor_parallel("37b", SERVE_MESH))
+    torch.cuda.empty_cache()
+    log("== 38. qwen2_5_3b trained on a ('pod', 'data', 'model') mesh of (2, 1, 2): FSDP over "
+        "('pod', 'data'), K1 and K1-bwd on every rank")
+    launches.update(train_mesh(38))
+    torch.cuda.empty_cache()
+    log("== 39. whisper_base trained on a (2, 2) mesh with 1500 frames a row: the encoder, "
+        "decoder and cross attention through K1 and K1-bwd on every rank")
+    launches.update(train_mesh(39))
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3149,9 +3192,9 @@ TENSOR_PARALLEL = {
           "--frames", "1500", "--decodes", "4"],
          "whisper_base at full size, 1500 frames a row: encoder, decoder and cross attention "
          "each rank 4 of 8 heads"),
-    29: (["--arch", "mamba2_370m", "--layers", "24", "--ranks", "4", "--batch", "2",
+    29: (["--arch", "mamba2_370m", "--layers", "12", "--ranks", "4", "--batch", "2",
           "--prompt", "1000", "--decodes", "4", "--dtype", "float32"],
-         "mamba2_370m at full width in fp32, 24 of its 48 layers, 2 prompts of 1000 tokens (a "
+         "mamba2_370m at full width in fp32, 12 of its 48 layers, 2 prompts of 1000 tokens (a "
          "ragged last chunk of K3's 128): each rank 8 of the 32 heads (K3 over them), 1096 of "
          "w_in's 4384 packed columns, 576 of the 2304 conv channels"),
     30: (["--arch", "mixtral_8x7b", "--layers", "2", "--ranks", "16", "--batch", "4",
@@ -3162,18 +3205,18 @@ TENSOR_PARALLEL = {
 }
 
 
-# phase: (the launcher's arguments, what the phase serves); phases 33-35, each
-# on a ("data", "model") mesh of (2, 2) placed as the reference's decode cells
+# phase: (the launcher's arguments, what the phase serves); phases 33-37, on
+# ("data", "model") meshes placed as the reference's decode cells
 SERVE_MESH = {
-    33: (["--arch", "mixtral_8x7b", "--layers", "8", "--mesh", "2,2", "--batch", "1",
+    33: (["--arch", "mixtral_8x7b", "--layers", "4", "--mesh", "2,2", "--batch", "1",
           "--prompt", "6144", "--decodes", "8"],
-         "mixtral_8x7b at full width, 8 of its 32 layers, long_500k's placement: one 6144-token "
+         "mixtral_8x7b at full width, 4 of its 32 layers, long_500k's placement: one 6144-token "
          "prompt past its 4096-slot ring, 2048 slots of it a 'data' rank (K2 on each run of a "
          "rank's block, merged over 'data'); a 'model' rank 16 of 32 query heads over 4 of 8 KV "
          "heads and 4 of the 8 experts, whose d is 2048 of 4096 a 'data' rank"),
-    34: (["--arch", "qwen3_30b_a3b", "--layers", "8", "--mesh", "2,2", "--batch", "8",
+    34: (["--arch", "qwen3_30b_a3b", "--layers", "4", "--mesh", "2,2", "--batch", "8",
           "--prompt", "512", "--decodes", "4"],
-         "qwen3_30b_a3b at full width, 8 of its 48 layers, decode_32k's placement: 8 rows, 4 a "
+         "qwen3_30b_a3b at full width, 4 of its 48 layers, decode_32k's placement: 8 rows, 4 a "
          "'data' rank (K2 on its rows); a 'model' rank 16 of 32 query heads over 2 of 4 KV heads "
          "and 64 of the 128 experts, whose d is 1024 of 2048 a 'data' rank"),
     35: (["--arch", "recurrentgemma_2b", "--mesh", "2,2", "--batch", "1", "--prompt", "3072",
@@ -3182,6 +3225,26 @@ SERVE_MESH = {
          "2048-slot ring, 1024 slots of it a 'data' rank; a 'model' rank 5 of 10 query heads "
          "over 128 of its KV head's 256 dimensions (K2 at D=256 over the block gathered to "
          "whole heads) and 1280 of the RG-LRU's 2560 channels, its state whole over 'data'"),
+    36: (["--arch", "qwen2_5_3b", "--layers", "12", "--mesh", "1,4", "--batch", "8",
+          "--prompt", "512", "--decodes", "4", "--opt", "kv_seq_shard"],
+         "qwen2_5_3b at full width, 12 of its 36 layers (phase 26's model and ranks), "
+         "decode_32k's placement under kv_seq_shard: 8 prompts of 512, each rank 144 of the "
+         "576 slots of both KV heads whole; a decode gathers the 4 query heads of each rank "
+         "to all 16 and the token's k, v to whole heads, runs K2 over the block for every "
+         "query head and merges the (out, lse) over 'model'"),
+    "37a": (["--arch", "recurrentgemma_2b", "--mesh", "2,1", "--batch", "1", "--prompt", "3072",
+             "--decodes", "4", "--opt", "kv_defer_append"],
+            "recurrentgemma_2b at full size, kv_defer_append, long_500k's placement: one "
+            "3072-token prompt past its 2048-slot ring, 1024 slots a 'data' rank; a decode "
+            "runs K2 over the runs of the rank's block of the cache before the token, the "
+            "token's own key counted on the rank whose block holds its slot, and the rank "
+            "writes it after the layer"),
+    "37b": (["--arch", "whisper_base", "--mesh", "2,1", "--batch", "1", "--prompt", "64",
+             "--frames", "1500", "--decodes", "4"],
+            "whisper_base at full size, batch 1 on 2 'data' ranks: 1500 frames (1504 padded, "
+            "752 slots a rank) and the decoder's 96 KV slots (48 a rank), every rank encoding "
+            "every frame; a decode runs K2 over the rank's block of its own and of the "
+            "frames, each merged over 'data'"),
 }
 
 
@@ -3210,7 +3273,7 @@ def card_in_use(every=0.05):
 
 
 def tensor_parallel(phase, table=TENSOR_PARALLEL):
-    """Phases 25-30 (and 33-35 from ``SERVE_MESH``): the model of
+    """Phases 25-30 (and 33-37 from ``SERVE_MESH``): the model of
     ``table[phase]`` served by the one-process model here, which is then
     freed, and by ranks sharing this card (``repro_torch.launch.parallel``:
     gloo, each rank's blocks drawn leaf by leaf, the ranks one after
@@ -3247,7 +3310,7 @@ def tensor_parallel(phase, table=TENSOR_PARALLEL):
             allocated, reserved = r["serve_memory"]
             log(f"rank {r['rank']} while serving: peak allocated {allocated / 2**30:.2f} GiB, "
                 f"reserved {reserved / 2**30:.2f} GiB")
-            per_prefill, per_decode = parallel.kernel_launches(args, r["coords"]["data"])
+            per_prefill, per_decode = parallel.kernel_launches(args, r["coords"])
             log(f"rank {r['rank']} at {r['coords']}: rows {r['rows']}, K1 a prefill "
                 f"{r['prefill'][0]['launches']['flash_attention']} (expected "
                 f"{per_prefill['flash_attention']}), K2 over the decodes "
@@ -3264,8 +3327,33 @@ def tensor_parallel(phase, table=TENSOR_PARALLEL):
     # so the bf16 gate would not tell a wrong split from a reordered sum
     tol = 5e-2 if args.dtype == "bfloat16" else 2e-3
     launches = parallel.check(args, ranks, ref, tol)
+    DECODE_GATHERED[phase] = (args.batch, ranks[0]["decode"]["gathered"])
     log(f"phase {phase} passed at {tol}: launches {dict(launches)}")
     return launches
+
+
+# phase: (rows, {what: bytes} rank 0 received in each decode), recorded by
+# tensor_parallel for phase 36's comparison
+DECODE_GATHERED = {}
+
+
+def seq_shard_against_head_dim():
+    """Phase 36's exchange beside phase 26's: the bytes a rank received a
+    decode under kv_seq_shard (the query heads and the token's k, v to
+    whole heads, the blocks' (out, lse) merged: "seq_shard"; the token's
+    k, v gathered off head_dim: "head_dim") against phase 26's head_dim
+    gather of each decode's live rows (the same model and ranks), a row."""
+    rows26, dec26 = DECODE_GATHERED[26]
+    rows36, dec36 = DECODE_GATHERED[36]
+    total26 = [sum(step.values()) for step in dec26]
+    total36 = [sum(step.values()) for step in dec36]
+    log(f"bytes a rank received a decode: phase 26 (head_dim, {rows26} rows) {total26} "
+        f"({[round(b / rows26) for b in total26]} a row); phase 36 (kv_seq_shard, {rows36} "
+        f"rows) {total36} ({[round(b / rows36) for b in total36]} a row: seq_shard "
+        f"{[step.get('seq_shard', 0) for step in dec36]}, head_dim "
+        f"{[step.get('head_dim', 0) for step in dec36]})")
+    if not all(step.get("seq_shard") for step in dec36):
+        raise AssertionError(f"phase 36's decodes exchanged no seq_shard bytes: {dec36}")
 
 
 # phase: (the training launcher's arguments, what the phase trains)
@@ -3283,12 +3371,24 @@ TRAIN_MESH = {
          "rank 16 of "
          "the 32 SSD heads (K3 and K3-bwd over them), 2192 of w_in's 4384 packed columns, "
          "and d cut again over 'data'"),
+    38: (["--arch", "qwen2_5_3b", "--full-config", "--layers", "2", "--mesh", "2,1,2",
+          "--steps", "2", "--batch", "8", "--seq", "512", "--microbatches", "2",
+          "--log-every", "1"],
+         "qwen2_5_3b at full width, 2 of its 36 layers, fp32, phase 31's batch on the "
+         "(2, 1, 2) pod mesh: each rank 8 of the 16 query heads over 1 of the 2 KV heads, "
+         "half of F and of the vocabulary, d cut again over ('pod', 'data')"),
+    39: (["--arch", "whisper_base", "--full-config", "--mesh", "2,2", "--frames", "1500",
+          "--steps", "2", "--batch", "8", "--seq", "448", "--microbatches", "2",
+          "--log-every", "1"],
+         "whisper_base at full size, fp32, batch 8 of 1500 frames and 448 tokens: each rank 4 "
+         "of the 8 heads of every encoder, decoder and cross attention layer, half of F, the "
+         "vocabulary (51865, which 2 does not divide) whole, d cut again over 'data'"),
 }
 
 
 def train_mesh(phase):
-    """Phases 31-32: the model of ``TRAIN_MESH[phase]`` trained by 4 ranks
-    of a (2, 2) mesh sharing this card (``repro_torch.launch.train``:
+    """Phases 31-32 and 38-39: the model of ``TRAIN_MESH[phase]`` trained by
+    the 4 ranks of its mesh sharing this card (``repro_torch.launch.train``:
     gloo, each rank's blocks drawn leaf by leaf, the ranks one after
     another), then by the one-process model here, which is then freed;
     ``train.check`` holds the ranks to it.  Returns the ranks' kernel
@@ -3296,7 +3396,7 @@ def train_mesh(phase):
     from repro_torch.launch import parallel, train
     argv, what = TRAIN_MESH[phase]
     args = train.parse_args(argv)
-    log(f"{what}; {args.mesh} ranks, then the one-process model")
+    log(f"{what}; ranks of the mesh {args.mesh}, then the one-process model")
     t0 = time.monotonic()
     with card_in_use() as card:
         ranks = train.launch(args)
@@ -3309,7 +3409,7 @@ def train_mesh(phase):
         log(f"rank 0: {line}")
     moments = sizes + sizes + [4]
     for r in ranks:
-        log(f"rank {r['rank']} at (data, model) {r['coords']}: parameters allocated "
+        log(f"rank {r['rank']} at (batch axes, model) {r['coords']}: parameters allocated "
             f"{r['param_bytes']:,} bytes, mesh.shard_bytes {sum(sizes):,} (rounded "
             f"{parallel.allocation_bounds(sizes)}); moments {r['moment_bytes']:,}, "
             f"{sum(moments):,} (rounded {parallel.allocation_bounds(moments)}); launches by step "

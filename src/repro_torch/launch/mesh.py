@@ -66,12 +66,18 @@ ranks where it runs them.  Every other leaf is whole over the batch axes.
 :func:`shard_cache` cuts a cache tree to a rank's blocks by the cache rules
 at its batch: its rows over the batch axes where they divide the batch,
 else its block of the KV sequence over "data" (context-parallel decode);
-``init_cache(..., params=)`` under such a mesh allocates only those blocks.
+with ``seq_shard`` (the reference's ``kv_seq_shard``) also the KV sequence
+over "model" where the rows are cut.  ``init_cache(..., params=)`` under
+such a mesh allocates only those blocks, and :func:`seq_blocks` says which
+block of the sequence (and of an encoder-decoder's frames) a rank holds.
 
 Training (``mode="train"`` of the three, on a ("data", "model") mesh of
-(D, M)): each leaf also has its FSDP dimension, which the "train" rules
-place on "data", and rank (d, m) holds block d of the "model" block m, the
-block the reference's ``NamedSharding`` puts on that device;
+(D, M), or a ("pod", "data", "model") mesh of (P, D, M)): each leaf also
+has its FSDP dimension, which the "train" rules place on the batch axes
+("data", or ("pod", "data"): a dimension D divides but P·D does not stays
+whole), and rank (d, m) holds block d (pod-major over the batch axes) of
+the "model" block m, the block the reference's ``NamedSharding`` puts on
+that device;
 :func:`train_sharding` describes how a rank holds the tree for
 ``models.optim`` (which gathers each such leaf over "data" where a layer
 uses it), and :func:`whole_leaves` puts the ranks' blocks back together.
@@ -88,14 +94,14 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.layers import (BATCH_DIM, ambient_mesh, batch_coordinate, data_coordinate,
-                                      model_coordinate, on_init, use_mesh)
+from repro_torch.models.layers import (BATCH_DIM, ambient_mesh, batch_coordinate, batch_group,
+                                      data_coordinate, model_coordinate, on_init, use_mesh)
 
 __all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "leaves_with_names",
            "named_specs", "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
            "model_placements", "shard_params", "build_params", "train_sharding", "whole_leaves",
            "model_coordinate", "data_coordinate", "batch_coordinate", "shard_cache",
-           "batch_rows", "mesh_axes"]
+           "batch_rows", "mesh_axes", "seq_blocks"]
 
 Spec = Tuple[Any, ...]
 
@@ -336,10 +342,22 @@ def param_specs(params: Any, axes: MeshAxes, mode: str = "train") -> Any:
 def cache_specs(cache: Any, axes: MeshAxes, *, batch: int, seq_shard: bool = False) -> Any:
     """The spec of every cache leaf, in a tree shaped like ``cache``: rows
     over the batch axes where they divide ``batch``, else the sequence over
-    "data"; ``seq_shard`` also shards the KV sequence over "model"."""
+    "data"; ``seq_shard`` also shards the KV sequence over "model".  An
+    encoder-decoder's ``cross_k``/``cross_v`` are placed as the reference
+    places its own, which hold the ``cross_frames`` frames unpadded: the
+    port pads them to whole pages of K2 (whisper's 1500 to 1504), and the
+    rules read the reference's shape (1504 divides by 8 and 16, 1500 does
+    not)."""
     shard_batch = _divides(batch, axes.batch_size())
-    return _map_named(cache, lambda name, leaf: _cache_spec(
-        name, tuple(leaf.shape), axes, shard_batch=shard_batch, seq_shard=seq_shard))
+    frames = cache.get("cross_frames") if isinstance(cache, dict) else None
+
+    def spec(name, leaf):
+        shape = tuple(leaf.shape)
+        if frames is not None and name.rsplit("/", 1)[-1] in ("cross_k", "cross_v"):
+            shape = shape[:-3] + (frames,) + shape[-2:]
+        return _cache_spec(name, shape, axes, shard_batch=shard_batch, seq_shard=seq_shard)
+
+    return _map_named(cache, spec)
 
 
 def batch_specs(batch_tree: Any, axes: MeshAxes, *, batch: int) -> Any:
@@ -566,12 +584,11 @@ def _block(leaf, cuts, whole=None):
 
 def _coordinates(mesh, mode: str) -> Tuple[int, int, int, int]:
     """(m, "model" size, d, D) of a rank of ``mesh`` (the ambient mesh by
-    default): in "serve" mode d is its coordinate on the batch axes, of D
-    ranks (pod-major: ``layers.batch_coordinate``), in "train" mode on
-    "data"."""
+    default): d is its coordinate on the batch axes, of D ranks (pod-major:
+    ``layers.batch_coordinate``), over which the serve rules place the
+    experts' d and the train rules FSDP."""
     mesh = ambient_mesh() if mesh is None else mesh
-    d, D = batch_coordinate(mesh) if mode == "serve" else data_coordinate(mesh)
-    return model_coordinate(mesh) + (d, D)
+    return model_coordinate(mesh) + batch_coordinate(mesh)
 
 
 def _cuts(params: Any, coords, mode: str) -> Dict[str, list]:
@@ -645,7 +662,8 @@ def build_params(model, generator: torch.Generator, dtype=torch.float32, device=
     return _walk(params, lambda name, leaf: _block(leaf, cuts[name], whole[name]))
 
 
-def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None) -> Any:
+def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None,
+                seq_shard: bool = False) -> Any:
     """One rank's blocks of a cache tree by the cache rules
     (:func:`cache_specs` at ``batch`` rows) at the axes of ``mesh`` (the
     ambient mesh by default): each dimension that a leaf's spec places on
@@ -654,7 +672,9 @@ def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None) -> Any:
     "data")).  That is its rows over the batch axes where they divide
     ``batch``, else its block of the KV sequence over "data"
     (context-parallel decode, the rest of the cache whole over the batch
-    axes), and its "model" blocks.  The specs are read from ``whole`` (the
+    axes), and its "model" blocks: with ``seq_shard`` (the reference's
+    ``kv_seq_shard``), where the batch axes divide ``batch``, the KV
+    sequence over "model" and the heads whole.  The specs are read from ``whole`` (the
     whole tree, ``cache`` itself by default; the meta device will do), and
     a dimension of ``cache`` already smaller than ``whole``'s (a rank's
     heads, as ``init_cache(..., params=)`` cuts them) is kept as it is.
@@ -663,7 +683,7 @@ def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None) -> Any:
     axes = mesh_axes(mesh)
     coord = {a: mesh[a].get_local_rank() for a in axes.names}
     whole = cache if whole is None else whole
-    spec_of = named_specs(cache_specs(whole, axes, batch=batch))
+    spec_of = named_specs(cache_specs(whole, axes, batch=batch, seq_shard=seq_shard))
     whole_shape = {name: tuple(leaf.shape) for name, leaf in leaves_with_names(whole)}
 
     def cut(name, leaf):
@@ -675,9 +695,44 @@ def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None) -> Any:
             for a in (entry,) if isinstance(entry, str) else entry:
                 k, n = k * axes.sizes[a] + coord[a], n * axes.sizes[a]
             out = out.narrow(i, k * (out.shape[i] // n), out.shape[i] // n)
-        return out if out is leaf else out.clone()
+        if out is leaf:
+            return leaf
+        # a meta block needs no copy (and a meta copy of a view costs seconds of imports)
+        return torch.empty(out.shape, dtype=out.dtype, device="meta") if out.is_meta else out.clone()
 
     return _walk(cache, cut)
+
+
+def seq_blocks(whole: Any, axes: MeshAxes, coords: Dict[str, int], *, batch: int,
+               seq_shard: bool = False) -> Dict[str, Any]:
+    """The blocks of the sequence that the rank at ``coords`` ({axis: its
+    coordinate}) holds of a cache tree ``whole`` (the meta device will do)
+    by the cache rules at ``batch`` rows: {"seq_block": the attention
+    layers' KV slots, "cross_block": an encoder-decoder's frames}, each a
+    ``models.transformer.SeqBlock`` over the axis that the rules place the
+    slot dimension on ("data" for context parallelism, "model" under
+    ``seq_shard``), and only where one of more than one rank does.  Raises
+    unless a block is a whole number of K2's pages, naming the leaf:
+    whisper's frames, padded to 1504, split so over 2 ranks (752 slots,
+    where the reference's 1500 give 750), not over 4 (376)."""
+    from repro_torch.models.transformer import PAGE_SIZE, SeqBlock
+    spec_of = named_specs(cache_specs(whole, axes, batch=batch, seq_shard=seq_shard))
+    out: Dict[str, Any] = {}
+    for name, leaf in leaves_with_names(whole):
+        kind = name.rsplit("/", 1)[-1]
+        axis = spec_of[name][leaf.dim() - 3] if kind in ("k", "cross_k") else None
+        if axis is None or axes.sizes[axis] == 1:
+            continue
+        S, n = leaf.shape[-3], axes.sizes[axis]
+        if S % n or (S // n) % PAGE_SIZE:
+            raise ValueError(f"{name} {tuple(leaf.shape)}: a block of {S / n:g} of {S} slots a "
+                             f"rank over {axis!r} is not a whole number of K2's pages of "
+                             f"{PAGE_SIZE}")
+        key = "cross_block" if kind == "cross_k" else "seq_block"
+        block = SeqBlock(coords.get(axis, 0), n, S, axis)
+        if out.setdefault(key, block) != block:
+            raise ValueError(f"{name}: the attention layers' caches are cut unlike {out[key]}")
+    return out
 
 
 def batch_rows(batch: int, mesh=None) -> slice:
@@ -691,13 +746,16 @@ def batch_rows(batch: int, mesh=None) -> slice:
     return slice(i * batch // n, (i + 1) * batch // n)
 
 
-def whole_leaves(params: Any, data: int, tp: int, blocks: Sequence[Any]) -> Dict[str, Any]:
+def whole_leaves(params: Any, data: int, tp: int, blocks: Sequence[Any],
+                 pod: int = 1) -> Dict[str, Any]:
     """{leaf name: the whole leaf} put together from ``blocks``, the trees
     that :func:`shard_params` in "train" mode gives the ranks of a (``data``,
-    ``tp``) mesh, in rank order (d·tp + m), placed as the whole tree
-    ``params`` (the meta device will do) says: each "data" row's "model"
-    blocks along the "model" dimension, then the rows along the "data"
+    ``tp``) mesh, or of a (``pod``, ``data``, ``tp``) one, in rank order
+    (d·tp + m, d counted pod-major over the batch axes), placed as the whole
+    tree ``params`` (the meta device will do) says: each batch row's "model"
+    blocks along the "model" dimension, then the rows along the FSDP
     dimension."""
+    data *= pod
     dims = model_placements(params, tp, "train", data)
     trees = [dict(leaves_with_names(t)) for t in blocks]
     out = {}
@@ -711,17 +769,19 @@ def whole_leaves(params: Any, data: int, tp: int, blocks: Sequence[Any]) -> Dict
 
 def train_sharding(params: Any, mesh):
     """The ``models.optim.Sharding`` of a rank of ``mesh`` (a device mesh
-    with "data" and "model" axes) training the model whose whole tree is
-    ``params`` (the meta device will do): each leaf's "data" dimension by
-    the "train" rules, and how many ranks hold each of its blocks (the
-    "data" size where it is whole over "data", times the "model" size where
-    it is whole over "model"), for the norm that clips."""
+    with "data" and "model" axes, or "pod", "data" and "model") training
+    the model whose whole tree is ``params`` (the meta device will do):
+    each leaf's FSDP dimension by the "train" rules, over the batch axes
+    (("pod", "data") flattened pod-major on a pod mesh, the group
+    ``device_mesh`` makes), and how many ranks hold each of its blocks (the
+    batch axes' size where it is whole over them, times the "model" size
+    where it is whole over "model"), for the norm that clips."""
     from repro_torch.models.optim import Sharding
     m, tp = model_coordinate(mesh)
-    d, D = data_coordinate(mesh)
+    d, D = batch_coordinate(mesh)
     dims = model_placements(params, tp, "train", D)
     replicas = {name: (tp if mdim is None else 1) * (D if ddim is None else 1)
                 for name, (mdim, ddim) in dims.items()}
     return Sharding(dims=_walk(params, lambda name, _: dims[name][1]),
                     replicas=_walk(params, lambda name, _: replicas[name]),
-                    group=mesh.get_group("data") if D > 1 else None, rank=d, size=D)
+                    group=batch_group(mesh) if D > 1 else None, rank=d, size=D)

@@ -12,6 +12,8 @@ cells place it.
         --arch mamba2_370m --ranks 4 --batch 2 --prompt 1000 --decodes 4
     PYTHONPATH=src python -m repro_torch.launch.parallel \\
         --arch mixtral_8x7b --layers 8 --mesh 2,2 --batch 1 --prompt 6144 --decodes 8
+    PYTHONPATH=src python -m repro_torch.launch.parallel --arch qwen2_5_3b \\
+        --layers 12 --mesh 1,4 --batch 8 --prompt 512 --decodes 4 --opt kv_seq_shard
 
 It starts ``--ranks`` processes of itself, which meet in a gloo group
 through a ``FileStore`` in a temporary directory, on a ("data", "model")
@@ -56,6 +58,17 @@ each run of its block that a query sees and the ranks' attention is merged
 over "data" (``models.transformer.block_runs``, ``layers.merge_blocks``).
 An MoE serves dropless (``moe_impl="ragged"``) on such a mesh, as the
 one-process model does.
+
+``--opt`` takes the reference's decode knobs (``launch.specs.OPTS``), each
+set as its ``build_cell`` sets it: ``kv_seq_shard`` cuts the KV sequence
+(and an encoder-decoder's frames) over "model" where the batch axes divide
+``--batch`` (the cache rules with ``seq_shard``; every KV head whole on
+each rank, a decode's attention merged over "model"), ``kv_defer_append``
+defers the KV append (also under context parallelism), ``moe_a2a`` runs the
+expert-parallel MoE on batch axes too, ``scores_bf16`` sets
+``attn_scores_dtype``, which the port's kernels do not read.  The cache
+length is rounded to whole pages of K2 on every rank that holds a block of
+it (:func:`cache_len`).
 
 Each rank saves its logits at every step, the milliseconds of its prefills
 and decodes (the host's clock, the device synchronised) and of each
@@ -121,6 +134,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--decodes", type=int, default=1)
     ap.add_argument("--frames", type=int, default=0,
                     help="frame embeddings a row for an encoder-decoder (0: none)")
+    ap.add_argument("--opt", action="append", default=[], choices=_opts(),
+                    help="one of the reference's decode knobs (repeatable)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", default="bfloat16")
     rank_procs.add_rank_args(ap)
@@ -128,6 +143,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.mesh:
         args.ranks = int(np.prod(list(mesh_axes(args).sizes.values())))
     return args
+
+
+def _opts():
+    from repro_torch.launch.specs import OPTS
+    return OPTS
 
 
 def mesh_axes(args: argparse.Namespace):
@@ -143,22 +163,30 @@ def mesh_axes(args: argparse.Namespace):
 
 
 def moe_impl(args: argparse.Namespace) -> str:
-    """The ranks' MoE: expert-parallel (``a2a``) on "model" ranks alone,
-    dropless where there are batch axes, as the one-process model runs it
-    and the reference's decode cells place it."""
-    return "a2a" if mesh_axes(args).batch_size() == 1 else "ragged"
+    """The ranks' MoE: expert-parallel (``a2a``) on "model" ranks alone or
+    under ``--opt moe_a2a``, dropless where there are batch axes, as the
+    one-process model runs it and the reference's decode cells place it."""
+    return "a2a" if mesh_axes(args).batch_size() == 1 or "moe_a2a" in args.opt else "ragged"
 
 
 def model_config(args: argparse.Namespace, moe_impl: str = "a2a", capacity_factor=None):
     """The served config: ``--arch`` (reduced), cut to ``--layers``, with
-    the ``--config`` fields set; an MoE's with ``moe_impl`` and, where
-    given, ``capacity_factor``."""
+    the ``--config`` fields set and the ``--opt`` knobs as the reference's
+    ``build_cell`` sets them (``scores_bf16``: ``attn_scores_dtype``, which
+    the port's attention does not read; ``kv_defer_append``:
+    ``kv_append="defer"``; ``moe_a2a`` through ``moe_impl``; ``kv_seq_shard``
+    is the cache's placement, :func:`seq_shard`); an MoE's with ``moe_impl``
+    and, where given, ``capacity_factor``."""
     from repro_torch.configs import get_config, get_reduced_config
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers, layer_pattern=None)
     if args.config:
         cfg = cfg.replace(**{k: int(v) for k, v in (kv.split("=", 1) for kv in args.config)})
+    if "scores_bf16" in args.opt:
+        cfg = cfg.replace(attn_scores_dtype="bfloat16")
+    if "kv_defer_append" in args.opt:
+        cfg = cfg.replace(kv_append="defer")
     if cfg.moe is None:
         return cfg
     moe = cfg.moe if capacity_factor is None else dataclasses.replace(
@@ -199,13 +227,26 @@ def frames(args: argparse.Namespace, d_model: int, device, dtype):
     return torch.from_numpy(fe.astype(np.float32)).to(device=device, dtype=dtype)
 
 
+def seq_shard(args: argparse.Namespace) -> bool:
+    """``--opt kv_seq_shard``: the cache rules' KV sequence over "model"."""
+    return "kv_seq_shard" in args.opt
+
+
 def cache_len(args: argparse.Namespace) -> int:
-    return -(-(args.prompt + args.decodes) // 16) * 16
+    """The prompt and the decodes, rounded up to whole pages of K2 on every
+    rank that may hold a block of the sequence: D blocks over "data" where
+    the batch axes do not divide ``--batch``, M over "model" under
+    ``kv_seq_shard`` where they do."""
+    axes = mesh_axes(args)
+    n = (axes.sizes["data"] if args.batch % axes.batch_size()
+         else axes.model_size() if seq_shard(args) else 1)
+    return -(-(args.prompt + args.decodes) // (16 * n)) * 16 * n
 
 
 def _init_cache(args, model, dtype, device, params):
     extra = {"enc_frames": args.frames} if args.frames else {}
-    return model.init_cache(args.batch, cache_len(args), dtype, device, params=params, **extra)
+    return model.init_cache(args.batch, cache_len(args), dtype, device, params=params,
+                            seq_shard=seq_shard(args), **extra)
 
 
 MOE_FNS = ("moe", "moe_a2a")
@@ -417,6 +458,7 @@ def launch(args: argparse.Namespace) -> List[Dict]:
             "--batch", str(args.batch), "--prompt", str(args.prompt),
             "--decodes", str(args.decodes), "--frames", str(args.frames),
             "--device", args.device, "--dtype", args.dtype]
+    argv += [a for opt in args.opt for a in ("--opt", opt)]
     argv += (["--reduced"] if args.reduced else []) + [
         a for kv in args.config for a in ("--config", kv)]
     return rank_procs.launch("repro_torch.launch.parallel", argv, args.ranks)
@@ -463,7 +505,10 @@ def summary(ranks: List[Dict], ref: Dict) -> List[str]:
     if any(dec["gathered"]):
         line += f"; gathered by each rank a step {dec['gathered']} bytes"
     for what, key, part in (("the experts' d gathered over the batch axes", "experts", "experts"),
-                            ("the blocks' attention merged over 'data'", "merge", "merges")):
+                            ("the blocks' attention merged over 'data'", "merge", "merges"),
+                            ("kv_seq_shard's exchange over 'model' (query heads and the token's "
+                             "KV heads gathered, the blocks' attention merged)", "seq_shard",
+                             "merges")):
         if any(step.get(key) for step in dec["gathered"]):
             line += (f"; {what}: {[step.get(key, 0) for step in dec['gathered']]} bytes by "
                      "decode, ms by rank "
@@ -501,7 +546,8 @@ def expected(args: argparse.Namespace):
                           axes.sizes.get("pod", 1))
     out = []
     for tree, specs in ((params, mesh.param_specs(params, axes, "serve")),
-                        (cache, mesh.cache_specs(cache, axes, batch=args.batch))):
+                        (cache, mesh.cache_specs(cache, axes, batch=args.batch,
+                                                 seq_shard=seq_shard(args)))):
         spec_of = mesh.named_specs(specs)
         shapes = {name: mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
                   for name, leaf in mesh.leaves_with_names(tree)}
@@ -511,33 +557,44 @@ def expected(args: argparse.Namespace):
     return out
 
 
-def kernel_launches(args: argparse.Namespace, data: int = 0):
-    """The kernel launches of a rank on the card at "data" coordinate
-    ``data``, ({kernel: count} a prefill, [{kernel: count} of each
-    decode]): K1 once a prefill and K2 once a decode in each attention
-    layer, and for an encoder-decoder also each cross attention and, given
-    frames, each encoder layer's K1; K3 once a prefill in each SSD layer.
-    Where the rank holds a block of the KV sequence (the batch axes do not
-    divide ``--batch``: every row, at the same position), K2 runs once a
-    layer for each run of its block that the decode's query sees
-    (``transformer.block_runs``), none for a block the query sees nothing
-    of."""
-    from repro_torch.models.transformer import PAGE_SIZE, SeqBlock, block_runs, cache_span
+def kernel_launches(args: argparse.Namespace, coords: Optional[Dict[str, int]] = None):
+    """The kernel launches of a rank on the card at mesh coordinates
+    ``coords`` ({axis: coordinate}; all 0 by default), ({kernel: count} a
+    prefill, [{kernel: count} of each decode]): K1 once a prefill and K2
+    once a decode in each attention layer, and for an encoder-decoder also
+    each cross attention and, given frames, each encoder layer's K1; K3
+    once a prefill in each SSD layer.  Where the rank holds a block of the
+    KV sequence (over "data" where the batch axes do not divide
+    ``--batch``: every row, at the same position; over "model" under
+    ``kv_seq_shard``: its rows), K2 runs once a layer for each run of its
+    block that the decode's query sees (``transformer.block_runs``, of the
+    cache before the token under ``kv_defer_append``), none for a block the
+    query sees nothing of; over a block of the frames, once a cross
+    attention where the block holds a real frame."""
+    import torch
+
+    from repro_torch.launch import mesh
+    from repro_torch.models.transformer import block_runs, build_model
     cfg = model_config(args)
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     n_ssd = sum(kind == "ssd" for kind in cfg.layer_pattern)
     k1 = n_attn if not cfg.is_enc_dec else (
         2 * n_attn + (cfg.encoder.num_layers if args.frames else 0))
-    k2 = [n_attn if not cfg.is_enc_dec else 2 * n_attn] * args.decodes
     axes = mesh_axes(args)
-    D = axes.sizes["data"]
-    if n_attn and args.batch % axes.batch_size() and D > 1:
-        kind = next(k for k in cfg.layer_pattern if k in ("attn", "local_attn"))
-        S = cache_span(cfg, kind, cache_len(args))
-        if S % D == 0 and (S // D) % PAGE_SIZE == 0:
-            block = SeqBlock(data, D, S)
-            k2 = [n_attn * len(block_runs([args.prompt + t] * args.batch, block,
-                                          cfg.sliding_window)) for t in range(args.decodes)]
+    with mesh.use_mesh(None):
+        whole = _init_cache(args, build_model(cfg), torch.bfloat16, "meta", None)
+    blocks = mesh.seq_blocks(whole, axes, coords or {}, batch=args.batch,
+                             seq_shard=seq_shard(args))
+    k2 = []
+    for t in range(args.decodes):
+        block = blocks.get("seq_block")
+        own = n_attn if block is None else n_attn * len(block_runs(
+            [args.prompt + t], block, cfg.sliding_window, cfg.kv_append == "defer"))
+        if cfg.is_enc_dec:
+            xb = blocks.get("cross_block")
+            frames = whole["cross_frames"]
+            own += n_attn * int(xb is None or frames > xb.lo)
+        k2.append(own)
     return {"flash_attention": k1, "ssd_scan": n_ssd}, [{"paged_attention": n} for n in k2]
 
 
@@ -573,7 +630,7 @@ def check(args: argparse.Namespace, ranks: List[Dict], ref: Dict, tol: float) ->
     moe_fn = "moe_a2a" if moe_impl(args) == "a2a" else "moe"
     for r in ranks:
         who = f"rank {r['rank']}"
-        per_prefill, per_decode = kernel_launches(args, r["coords"]["data"])
+        per_prefill, per_decode = kernel_launches(args, r["coords"])
         same = next(q for q in ranks if q["rows"] == r["rows"])
         for what, got, exp in (("parameters", r["params"], p_shapes), ("cache", r["cache"], c_shapes)):
             if got != exp:

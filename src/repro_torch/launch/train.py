@@ -16,25 +16,35 @@ gradient kernel backward.
         --full-config --layers 4 --mesh 2,2 --steps 2 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \\
         --device cpu --mesh 2,2 --steps 2 --log-every 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b \\
+        --full-config --layers 2 --mesh 2,1,2 --steps 2 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_base \\
+        --full-config --mesh 2,2 --frames 1500 --steps 2 --batch 8 --seq 448
 
 The batches are the reference's, array for array (:func:`data_stream`), and
-the log lines are its own.
+the log lines are its own.  An encoder-decoder needs ``--frames N``: each
+batch then carries N frame embeddings a row from the seed, as the
+reference's ``train_4k`` cell takes them (a decoder's frontend is stubbed
+out as ``repro.launch.train`` does).
 
 ``--mesh DATA,MODEL`` (default ``1,1``, the one-process run above) trains
-on DATA x MODEL ranks of a ("data", "model") mesh, the reference's
+on DATA x MODEL ranks of a ("data", "model") mesh, and ``--mesh
+POD,DATA,MODEL`` on a ("pod", "data", "model") one, the reference's
 ``train_4k`` program: processes of this module in a gloo group
 (``launch.ranks``; on one card they share it).  Each rank builds its blocks
 of the parameters by the "train" rules from seed 0
 (``launch.mesh.build_params(..., mode="train")``: each matrix's "model"
-block, as serving runs it, cut again over "data", the FSDP dimension) and
-of both AdamW moments, takes its rows of each microbatch of the same
-batches, gathers each leaf over "data" where a layer uses it and reduces
-its gradient back to its block (``models.optim``, ``Sharding``), and logs
-the loss and grad_norm of all the rows; rank 0's log lines are printed.
-Then :func:`reference` trains the one-process model on the same weights
-and batches, :func:`summary` prints both and :func:`check` holds the
-ranks to it.  A sharded checkpoint (``--ckpt-dir``) and an
-encoder-decoder on a mesh raise ``NotImplementedError`` (ROADMAP Queue A).
+block, as serving runs it, cut again over the batch axes, ("pod", "data")
+pod-major, the FSDP dimension) and of both AdamW moments, takes its rows
+of each microbatch of the same batches (an encoder-decoder's frames with
+them), gathers each leaf over the batch axes where a layer uses it and
+reduces its gradient back to its block (``models.optim``, ``Sharding``),
+and logs the loss and grad_norm of all the rows; rank 0's log lines are
+printed.  Then :func:`reference` trains the one-process model on the same
+weights and batches, :func:`summary` prints both and :func:`check` holds
+the ranks to it.  ``--ckpt-dir`` with a mesh raises
+``NotImplementedError``: the reference writes whole leaves from one
+process, and a sharded checkpoint is no behaviour of it (ROADMAP A3.8).
 """
 
 from __future__ import annotations
@@ -53,20 +63,29 @@ SEED = 0            # the weights' generator
 DATA_SEED = 1234    # the batches', as the reference's
 
 
-def data_stream(vocab: int, batch: int, seq: int, seed: int, start_step: int, device=None):
+def data_stream(vocab: int, batch: int, seq: int, seed: int, start_step: int, device=None,
+                frames: int = 0, d_model: int = 0):
     """Deterministic synthetic LM batches (restart-safe: keyed by step), the
     reference's: numpy's ``default_rng((seed, step))``; int64 tensors on
-    ``device`` (``cuda`` unless it says otherwise)."""
+    ``device`` (``cuda`` unless it says otherwise).  With ``frames``, an
+    encoder-decoder's batch also carries ``frontend_embeds`` (batch,
+    frames, d_model), standard normal fp32 from ``default_rng((seed, step,
+    1))``, where the reference's ``train_4k`` cell takes precomputed frame
+    embeddings of that shape."""
     from repro_torch.core.device import resolve_device
     device = resolve_device(device)
     step = start_step
     while True:
         rng = np.random.default_rng((seed, step))
         toks = rng.integers(1, vocab, size=(batch, seq + 1), dtype=np.int64)
-        yield {
+        out = {
             "tokens": torch.from_numpy(toks[:, :-1].copy()).to(device),
             "labels": torch.from_numpy(toks[:, 1:].copy()).to(device),
         }
+        if frames:
+            fe = np.random.default_rng((seed, step, 1)).standard_normal((batch, frames, d_model))
+            out["frontend_embeds"] = torch.from_numpy(fe.astype(np.float32)).to(device)
+        yield out
         step += 1
 
 
@@ -87,30 +106,47 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
-                    help="train on DATA x MODEL ranks of a ('data', 'model') mesh")
+    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL|POD,DATA,MODEL",
+                    help="train on the ranks of a ('data', 'model') or ('pod', 'data', "
+                         "'model') mesh")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="frame embeddings a row for an encoder-decoder (which needs them)")
     rank_procs.add_rank_args(ap)
     return ap.parse_args(argv)
 
 
-def mesh_shape(args: argparse.Namespace) -> Tuple[int, int]:
-    """(DATA, MODEL) of ``--mesh``."""
+def mesh_shape(args: argparse.Namespace) -> Tuple[int, ...]:
+    """The sizes of ``--mesh``: (DATA, MODEL) or (POD, DATA, MODEL)."""
     try:
-        data, model = (int(n) for n in args.mesh.split(","))
+        sizes = tuple(int(n) for n in args.mesh.split(","))
     except ValueError:
-        raise ValueError(f"--mesh takes DATA,MODEL, got {args.mesh!r}") from None
-    if data < 1 or model < 1:
+        sizes = ()
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"--mesh takes DATA,MODEL or POD,DATA,MODEL, got {args.mesh!r}")
+    if min(sizes) < 1:
         raise ValueError(f"--mesh {args.mesh}: each size must be at least 1")
-    return data, model
+    return sizes
+
+
+def mesh_axes(args: argparse.Namespace):
+    """The ``launch.mesh.MeshAxes`` of ``--mesh``."""
+    from repro_torch.launch.mesh import MeshAxes
+    sizes = mesh_shape(args)
+    return MeshAxes(("pod", "data", "model")[-len(sizes):], sizes)
 
 
 def model_config(args: argparse.Namespace, quiet: bool = False):
-    """The trained config: ``--arch``, full or reduced, its frontend stubbed
-    as the reference does, cut to ``--layers``, with the ``--config`` fields
-    set."""
+    """The trained config: ``--arch``, full or reduced, cut to ``--layers``,
+    with the ``--config`` fields set; a decoder's frontend stubbed as the
+    reference does, an encoder-decoder's fed ``--frames`` (which it needs,
+    and nothing else takes)."""
     from repro_torch.configs import get_config, get_reduced_config
     cfg = (get_config if args.full_config else get_reduced_config)(args.arch)
-    if cfg.frontend is not None:
+    if cfg.is_enc_dec != bool(args.frames):
+        raise ValueError(f"{args.arch}: " + ("an encoder-decoder trains on frames: give "
+                                             "--frames" if cfg.is_enc_dec else
+                                             "--frames feeds an encoder-decoder only"))
+    if cfg.frontend is not None and not cfg.is_enc_dec:
         if not quiet:
             print(f"note: {args.arch} frontend is stubbed; training "
                   f"text-only on the backbone")
@@ -172,7 +208,8 @@ def run(args: argparse.Namespace, cfg, model, params, *, sharding=None, keep: bo
             log(f"restored checkpoint @ step {start}")
 
     stream = data_stream(cfg.vocab_size, args.batch, args.seq, seed=DATA_SEED,
-                         start_step=start, device=args.device)
+                         start_step=start, device=args.device, frames=args.frames,
+                         d_model=cfg.d_model)
     out: Dict = {"lines": lines}
 
     def keep_grads(grads):
@@ -218,15 +255,13 @@ def run(args: argparse.Namespace, cfg, model, params, *, sharding=None, keep: bo
 # ranks of a ("data", "model") mesh
 # --------------------------------------------------------------------------
 
-def _refuse(args: argparse.Namespace, cfg) -> None:
-    """Raise for what the ranks do not train yet: a sharded checkpoint, an
-    encoder-decoder."""
+def _refuse(args: argparse.Namespace) -> None:
+    """Raise for what the ranks do not write: a sharded checkpoint, which
+    ``repro.launch.train`` has no counterpart of (ROADMAP A3.8)."""
     if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir with --mesh: a sharded checkpoint is not written "
-                                  "yet (ROADMAP Queue A, after A3.5)")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"{cfg.arch_id} on a mesh: the encoder-decoder's training "
-                                  "path takes no blocks yet (ROADMAP Queue A, after A3.5)")
+        raise NotImplementedError("--ckpt-dir with --mesh: the reference writes whole leaves "
+                                  "from one process only; a sharded checkpoint is not "
+                                  "reference behaviour (ROADMAP A3.8)")
 
 
 def run_rank(args: argparse.Namespace) -> None:
@@ -234,14 +269,14 @@ def run_rank(args: argparse.Namespace) -> None:
     "train" rules and of the moments, train, save."""
     from repro_torch.launch import mesh
     from repro_torch.models.transformer import build_model
-    data, tp = mesh_shape(args)
-    world = data * tp
+    axes = mesh_axes(args)
+    world = int(np.prod(mesh_shape(args)))
     with rank_procs.joined(args, world):
         device = rank_procs.rank_device(args.device, args.rank)
-        dm = mesh.device_mesh(mesh.MeshAxes(("data", "model"), (data, tp)), device.type)
+        dm = mesh.device_mesh(axes, device.type)
         with mesh.use_mesh(dm):
             cfg = model_config(args, quiet=True)
-            _refuse(args, cfg)
+            _refuse(args)
             model = build_model(cfg)
             whole = model.init(torch.Generator().manual_seed(SEED), torch.float32, device="meta")
             sharding = mesh.train_sharding(whole, dm)
@@ -275,17 +310,18 @@ def _moment_bytes(params, device) -> int:
 
 
 def launch(args: argparse.Namespace) -> List[Dict]:
-    """Start the DATA x MODEL rank processes of ``--mesh``, wait for all of
-    them, and return each rank's results, in rank order (rank d·MODEL + m
-    at ("data", "model") coordinates (d, m)); raises if one fails."""
-    data, tp = mesh_shape(args)
+    """Start the rank processes of ``--mesh``, wait for all of them, and
+    return each rank's results, in rank order (rank d·MODEL + m at batch
+    coordinate d, pod-major, and "model" coordinate m); raises if one
+    fails."""
     argv = ["--arch", args.arch, "--layers", str(args.layers), "--steps", str(args.steps),
             "--batch", str(args.batch), "--seq", str(args.seq),
             "--microbatches", str(args.microbatches), "--lr", str(args.lr),
-            "--log-every", str(args.log_every), "--device", args.device, "--mesh", args.mesh]
+            "--log-every", str(args.log_every), "--device", args.device, "--mesh", args.mesh,
+            "--frames", str(args.frames)]
     argv += (["--full-config"] if args.full_config else []) + [
         a for kv in args.config for a in ("--config", kv)]
-    return rank_procs.launch("repro_torch.launch.train", argv, data * tp)
+    return rank_procs.launch("repro_torch.launch.train", argv, int(np.prod(mesh_shape(args))))
 
 
 def reference(args: argparse.Namespace) -> Dict:
@@ -319,7 +355,7 @@ def witness(args: argparse.Namespace) -> Dict[str, torch.Tensor]:
     params = tree_map(lambda p: p.double(), model.init(
         torch.Generator(device).manual_seed(SEED), torch.float32))
     batch = next(data_stream(cfg.vocab_size, args.batch, args.seq, seed=DATA_SEED, start_step=0,
-                             device=device))
+                             device=device, frames=args.frames, d_model=cfg.d_model))
     _, _, grads = value_and_grad(model, params, batch, microbatches=args.microbatches,
                                  force="plain")
     return dict(mesh.leaves_with_names(tree_map(lambda g: g.detach().cpu(), grads)))
@@ -341,10 +377,10 @@ def expected(args: argparse.Namespace):
     tree on the meta device, after ``model_placements`` has said that every
     placement runs."""
     from repro_torch.launch import mesh
-    data, tp = mesh_shape(args)
-    axes = mesh.MeshAxes(("data", "model"), (data, tp))
+    axes = mesh_axes(args)
     whole = _whole_meta(args)
-    mesh.model_placements(whole, tp, "train", data)
+    mesh.model_placements(whole, axes.model_size(), "train", axes.sizes["data"],
+                          axes.sizes.get("pod", 1))
     spec_of = mesh.named_specs(mesh.param_specs(whole, axes, "train"))
     shapes = {name: mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
               for name, leaf in mesh.leaves_with_names(whole)}
@@ -357,12 +393,18 @@ def kernel_launches(args: argparse.Namespace) -> Dict[str, int]:
     """The kernel launches of a step on every rank on the card: with remat,
     each attention layer's K1 twice a microbatch (the forward, and again in
     the backward) and K1's gradient kernel once, each SSD layer's K3 and
-    K3's gradient kernel the same."""
+    K3's gradient kernel the same; an encoder-decoder's decoder layers
+    attend twice (themselves and the frames), its encoder layers, outside
+    remat, run K1 and its gradient kernel once each."""
     cfg = model_config(args, quiet=True)
     n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_pattern)
     n_ssd = sum(kind == "ssd" for kind in cfg.layer_pattern)
+    n_enc = 0
+    if cfg.is_enc_dec:
+        n_attn, n_enc = 2 * cfg.num_layers, cfg.encoder.num_layers
     mb = args.microbatches
-    return {"flash_attention": 2 * n_attn * mb, "flash_attention_bwd": n_attn * mb,
+    return {"flash_attention": (2 * n_attn + n_enc) * mb,
+            "flash_attention_bwd": (n_attn + n_enc) * mb,
             "ssd_scan": 2 * n_ssd * mb, "ssd_scan_bwd": n_ssd * mb}
 
 
@@ -406,7 +448,9 @@ def rank_gradients(args: argparse.Namespace, ranks: List[Dict]) -> Dict[str, tor
     """{leaf: step 1's gradient} put together from the ranks' blocks
     (``mesh.whole_leaves``)."""
     from repro_torch.launch import mesh
-    return mesh.whole_leaves(_whole_meta(args), *mesh_shape(args), [r["grads"] for r in ranks])
+    axes = mesh_axes(args)
+    return mesh.whole_leaves(_whole_meta(args), axes.sizes["data"], axes.model_size(),
+                             [r["grads"] for r in ranks], axes.sizes.get("pod", 1))
 
 
 def gradient_errors(args: argparse.Namespace, ranks: List[Dict], ref: Dict) -> Dict[str, float]:
@@ -475,11 +519,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.rank >= 0:
         run_rank(args)
         return
-    if mesh_shape(args) == (1, 1):
+    if np.prod(mesh_shape(args)) == 1:
         cfg, model, params = setup(args)
         run(args, cfg, model, params)
         return
-    _refuse(args, model_config(args, quiet=True))
+    _refuse(args)
     ranks = launch(args)
     for line in ranks[0]["lines"]:
         print(line)

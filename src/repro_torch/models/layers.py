@@ -39,7 +39,10 @@ batch are a block of the microbatch's (:func:`split_rows`).  Serving on a
 mesh with batch axes ("data", or "pod" and "data") holds the MoE experts'
 d over them, gathered where the MoE runs (:func:`moe`), and, where the
 batch axes do not divide the batch, each rank's block of the KV sequence,
-whose attention is merged over "data" (:func:`merge_blocks`).  :func:`rglru` runs
+whose attention is merged over "data" (:func:`merge_blocks`); under
+``kv_seq_shard`` the sequence is cut over "model" instead, and a decode
+attends for every query head (``AttnHeads.whole_q``, ``whole_kv``) and
+merges over "model".  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import math
 import threading
@@ -79,6 +83,8 @@ def dense_init(shape, generator: torch.Generator, *, in_axis: int = 0,
     towards the fan-in."""
     std = 1.0 / math.sqrt(shape[in_axis])
     w = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
+    if w.is_meta:   # nothing to draw: a meta tensor's first draw costs seconds of imports
+        return _made(w)
     return _made(torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
                                              generator=generator))
 
@@ -86,7 +92,15 @@ def dense_init(shape, generator: torch.Generator, *, in_axis: int = 0,
 def embed_init(shape, generator: torch.Generator, *, dtype=torch.float32,
                device=None) -> torch.Tensor:
     w = torch.empty(shape, dtype=dtype, device=device)
-    return _made(w.normal_(0.0, 0.02, generator=generator))
+    return _made(w if w.is_meta else w.normal_(0.0, 0.02, generator=generator))
+
+
+def _fixed(make, shape, device) -> torch.Tensor:
+    """``make()``, a leaf of fixed fp32 values, or an empty one of ``shape``
+    on the meta device, where computing them costs seconds of imports."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return make()
 
 
 _ON_INIT = threading.local()
@@ -303,9 +317,12 @@ def _proj_heads(x, w):
 # columns), "fsdp" (a training rank's blocks of the leaves cut over
 # "data", gathered where they are used), "experts" (a serving rank's
 # blocks of the experts' d, gathered over the batch axes), "merge" (each
-# "data" rank's attention over its block of the KV sequence) and
-# "kv_prefix" (the KV blocks a later prefill chunk gathers over "data");
-# read and reset by the caller (``launch.parallel``, ``launch.train``)
+# "data" rank's attention over its block of the KV sequence), "seq_shard"
+# (under ``kv_seq_shard``, the KV sequence over "model": the query heads
+# and the new token's KV heads gathered to every head, and each "model"
+# rank's attention over its block merged) and "kv_prefix" (the KV blocks a
+# later prefill chunk gathers over the axis that cuts the sequence); read
+# and reset by the caller (``launch.parallel``, ``launch.train``)
 GATHERED: collections.Counter = collections.Counter()
 
 
@@ -328,7 +345,12 @@ class AttnHeads:
     picks, from the KV heads that k holds, those heads' KV heads in the
     order K1 and K2 pair them (query head i with KV head i // (hq / n) of n):
     None where that is all of them, else the slice of them that the rank's
-    queries read evenly."""
+    queries read evenly.  ``q_block`` and ``kv_block`` are the slices of the
+    whole query and KV heads that ``wq`` and ``wk`` hold where they are on
+    heads (None where whole or on head_dim): a cache that holds every KV
+    head whole (the KV sequence over "model", ``kv_seq_shard``) is read
+    through :meth:`over_whole`, and such a decode attends for every query
+    head (:meth:`whole_q`, :meth:`whole_kv`, :meth:`own_q`)."""
 
     group: Any
     rank: int
@@ -337,6 +359,8 @@ class AttnHeads:
     q_dh: bool
     kv_dh: bool
     kv_sel: Any
+    q_block: Any = None
+    kv_block: Any = None
 
     def dh_block(self, t):
         """This rank's block of the last dimension (head_dim) of ``t``."""
@@ -361,6 +385,39 @@ class AttnHeads:
             GATHERED["head_dim"] += kc.numel() * kc.element_size() * (self.tp - 1)
             kc = _all_gather(kc, kc.dim() - 1, self.group)
         return self.attended(kc)
+
+    def over_whole(self) -> "AttnHeads":
+        """How this rank's queries read a cache of every KV head whole: no
+        gather, and the KV heads they read picked from all of them."""
+        sel = self.kv_sel
+        if self.kv_block is not None:
+            base = self.kv_block.start
+            sel = (self.kv_block if sel is None
+                   else slice(base + sel.start, base + sel.stop))
+        return dataclasses.replace(self, kv_dh=False, kv_block=None, kv_sel=sel)
+
+    def _gather(self, t, dim: int):
+        GATHERED["seq_shard"] += t.numel() * t.element_size() * (self.tp - 1)
+        return _all_gather(t, dim, self.group)
+
+    def whole_kv(self, k):
+        """Every KV head, whole, of the rank's ``k`` (.., its KV heads, D
+        or its block of D): its block gathered over "model"
+        (``GATHERED["seq_shard"]``), or ``k`` itself where it holds them."""
+        if k.shape[-1] != self.head_dim:
+            return self._gather(k, k.dim() - 1)
+        if self.kv_block is not None:
+            return self._gather(k, k.dim() - 2)
+        return k
+
+    def whole_q(self, q):
+        """Every query head of the rank's ``q`` (.., its query heads, D):
+        gathered over "model" where ``wq`` is on heads."""
+        return q if self.q_block is None else self._gather(q, q.dim() - 2)
+
+    def own_q(self, ctx):
+        """The rank's query heads of ``ctx`` (.., every query head, D)."""
+        return ctx if self.q_block is None else ctx[..., self.q_block, :]
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,7 +455,8 @@ def attn_heads(cfg: ModelConfig, p) -> AttnHeads:
                          "a rank holds")
     sel = None if (first, n) == (0, hk) else slice(first, first + n)
     return AttnHeads(group=group, rank=m, tp=tp, head_dim=D, q_dh=dq != D, kv_dh=dk != D,
-                     kv_sel=sel)
+                     kv_sel=sel, q_block=slice(q0, q0 + hq) if hq != Hq else None,
+                     kv_block=slice(k0, k0 + hk) if hk != Hkv else None)
 
 
 def attn_project(p, x, name: str, heads: AttnHeads, *, bias: bool = True, whole: bool = True):
@@ -730,6 +788,11 @@ def data_coordinate(mesh) -> Tuple[int, int]:
 BATCH_DIM = "pod_data"
 
 
+def axis_coordinate(mesh, axis: str) -> Tuple[int, int]:
+    """(this rank's coordinate on ``axis``, "data" or "model", its size)."""
+    return model_coordinate(mesh) if axis == "model" else data_coordinate(mesh)
+
+
 def batch_coordinate(mesh) -> Tuple[int, int]:
     """(this rank's coordinate on the batch axes, their size) of ``mesh``:
     on a ("pod", "data", "model") mesh pod-major, p·D + d of P·D, the order
@@ -753,7 +816,7 @@ def batch_group(mesh):
 def split_rows(group):
     """While the block runs, the batch rows the model is given are this
     rank's block of the rows that the ranks of ``group`` (a training step's
-    "data" ranks, ``models.optim``) share: the loss's token sums and counts
+    batch-axes ranks, ``models.optim``) share: the loss's token sums and counts
     and the MoE's router statistics are summed over ``group``, so that every
     rank has the loss of all the rows.  ``None``: the rows are all of them."""
     stack = _AMBIENT.__dict__.setdefault("rows", [])
@@ -986,18 +1049,19 @@ def gather_experts(cfg: ModelConfig, p, x):
     return out
 
 
-def merge_blocks(out, lse, group):
-    """The attention of each "data" rank of ``group`` over its block of the
-    KV sequence (context-parallel decode), merged: every rank's (out (n, 1,
+def merge_blocks(out, lse, group, what: str = "merge"):
+    """The attention of each rank of ``group`` over its block of the KV
+    sequence, merged: the "data" ranks' of a context-parallel decode, or
+    the "model" ranks' under ``kv_seq_shard``.  Every rank's (out (n, 1,
     Hq, D), lse (n, 1, Hq)) is gathered over ``group`` in fp32 (out itself
     is the rank's fp32 merge of its runs) and combined exactly by
-    :func:`attention_merge` in the order of the ranks' "data" coordinates,
-    so every rank gets the same result, bit for bit, from run to run.  A
-    block that saw no key (lse = -inf) weighs 0.  Returns (n, 1, Hq, D) in
-    fp32; ``GATHERED["merge"]`` counts the bytes received."""
+    :func:`attention_merge` in the order of the ranks' coordinates on the
+    group's axis, so every rank gets the same result, bit for bit, from run
+    to run.  A block that saw no key (lse = -inf) weighs 0.  Returns (n, 1,
+    Hq, D) in fp32; ``GATHERED[what]`` counts the bytes received."""
     n = dist.get_world_size(group)
     both = torch.cat([out.float(), lse.float()[..., None]], -1)
-    GATHERED["merge"] += both.numel() * both.element_size() * (n - 1)
+    GATHERED[what] += both.numel() * both.element_size() * (n - 1)
     parts = _all_gather(both, 0, group).chunk(n, 0)
     return attention_merge([(part[..., :-1], part[..., -1]) for part in parts], torch.float32)
 
@@ -1227,7 +1291,9 @@ def rglru_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=Non
     rg = cfg.rglru
     w = rg.lru_width
     kw = dict(dtype=dtype, device=device, lead=lead)
-    lam = torch.linspace(-4.3, -9.0, w, dtype=torch.float32, device=device)
+    shape = tuple(lead) + (w,)
+    lam = _fixed(lambda: torch.linspace(-4.3, -9.0, w, dtype=torch.float32,
+                                        device=device).expand(shape).clone(), shape, device)
     return {
         "w_x": dense_init((cfg.d_model, w), generator, **kw),
         "w_gate_in": dense_init((cfg.d_model, w), generator, **kw),
@@ -1235,7 +1301,7 @@ def rglru_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=Non
         "w_i": dense_init((w, w), generator, **kw),
         "w_out": dense_init((w, cfg.d_model), generator, **kw),
         "conv": dense_init((rg.conv_width, w), generator, **kw),
-        "log_lambda": lam.expand(tuple(lead) + (w,)).clone(),
+        "log_lambda": lam,
     }
 
 
@@ -1357,7 +1423,8 @@ def ssd_params(cfg: ModelConfig, generator: torch.Generator, dtype, device=None,
         "w_in": dense_init((cfg.d_model, 2 * d_in + 2 * ssm.state_dim + nheads), generator,
                            **kw),
         "conv": dense_init((ssm.conv_width, d_in + 2 * ssm.state_dim), generator, **kw),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads, **f32)).expand(heads).clone(),
+        "A_log": _fixed(lambda: torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
+                        .expand(heads).clone(), heads, device),
         "D": torch.ones(heads, **f32),
         "dt_bias": torch.zeros(heads, **f32),
         "w_out": dense_init((d_in, cfg.d_model), generator, **kw),

@@ -24,9 +24,10 @@ buffer exists; a stacked leaf is handed to the model as per-layer leaves
 whose ``.grad`` are views of the stacked ``.grad`` (see
 :func:`value_and_grad`).
 
-On the ranks of a ("data", "model") mesh (a :class:`Sharding`, which
-``launch.mesh.train_sharding`` builds) the step is the reference's
-``train_4k`` program: each rank holds its blocks of the parameters and of
+On the ranks of a ("data", "model") or ("pod", "data", "model") mesh (a
+:class:`Sharding`, which ``launch.mesh.train_sharding`` builds; "data"
+below is the batch axes, flattened pod-major on a pod mesh) the step is
+the reference's ``train_4k`` program: each rank holds its blocks of the parameters and of
 both moments by the "train" rules, runs its block of each microbatch's
 rows, and hands the model each leaf cut over "data" as a
 ``layers.DataBlock``, which the model gathers where a layer uses it (FSDP);
@@ -93,12 +94,13 @@ def tree_leaves(tree: PyTree) -> Iterator[torch.Tensor]:
 
 @dataclass(frozen=True)
 class Sharding:
-    """How one rank of a ("data", "model") mesh holds a parameter tree for
-    training: ``dims``, a tree shaped like the parameters, gives each leaf's
-    dimension (from the right) cut over "data", or None where the rank holds
-    it whole over "data"; ``replicas`` the number of ranks that hold the
-    same block of it; ``group`` is the rank's "data" process group,
-    ``rank`` its "data" coordinate and ``size`` the "data" size.  The
+    """How one rank of a ("data", "model") or ("pod", "data", "model") mesh
+    holds a parameter tree for training: ``dims``, a tree shaped like the
+    parameters, gives each leaf's dimension (from the right) cut over the
+    batch axes ("data", or ("pod", "data") pod-major), or None where the
+    rank holds it whole over them; ``replicas`` the number of ranks that
+    hold the same block of it; ``group`` is the rank's process group of the
+    batch axes, ``rank`` its coordinate on them and ``size`` their size.  The
     "model" cut needs nothing here: the layers read it from the blocks'
     shapes."""
 

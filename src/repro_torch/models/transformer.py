@@ -72,7 +72,20 @@ process does and writes only its block's slots (:func:`_block_prefill`); a
 decode writes the token where its block holds slot p % S, runs K2 over
 each run of its block that the query sees (:func:`block_runs`: a ring's
 block may hold two) with their lse, and the ranks' attention is merged
-over "data" (:func:`_block_decode`, ``layers.merge_blocks``).
+over "data" (:func:`_block_decode`, ``layers.merge_blocks``).  An
+encoder-decoder's cross cache is cut on its frames the same way: every
+rank encodes every frame and keeps its block, and a decode runs K2 over
+the block's frames and merges (:func:`_block_cross`).  Under the deferred
+append a decode reads its block of the cache before the token
+(``block_runs(..., deferred=True)``), the token's own key is counted on the
+rank whose block holds its slot, and that rank alone writes it after the
+layers.  ``init_cache(..., seq_shard=True)`` is the reference's
+``kv_seq_shard`` opt: where the batch axes divide the batch, each "model"
+rank holds its block of the slots (and of the frames) of every KV head
+whole; a decode gathers the ranks' query heads to every head and the
+token's k, v to whole heads, runs K2 for every head over its block and
+merges over "model", keeping its own query heads (the same functions,
+over the block's axis).
 
 An MoE block (``cfg.moe``) replaces the MLP with :func:`layers.moe`, or
 with :func:`layers.moe_a2a` where ``cfg.moe_impl == "a2a"`` (expert
@@ -109,8 +122,9 @@ two segments and merges them exactly (:func:`layers.attention_merge`):
 After the last layer a uniform stack writes every layer's new K/V and
 ``kv_pos`` into the (L, B, S, ...) cache in one ``index_put_``; a mixed
 stack (RecurrentGemma) writes each layer's right after it, as the
-reference's unrolled stack does.  The encoder-decoder keeps the inline
-append, as the reference's ``EncDecLM`` does.
+reference's unrolled stack does; a rank that holds a block of the slots
+writes only the positions its block holds.  The encoder-decoder keeps the
+inline append, as the reference's ``EncDecLM`` does.
 
 Training (``train_loss``, as the reference's) runs every block without a
 cache (:func:`_train_block`, which :func:`run_block` also runs given
@@ -122,7 +136,9 @@ prefill from a zero state, the SSD scan through ``ops.ssd_scan``, which on
 the card is K3 forward and K3's gradient kernel backward.  ``remat`` wraps
 each block in ``torch.utils.checkpoint`` (so K3's forward runs twice a
 layer and its gradient once).  Every architecture trains on the CPU and on
-the card.
+the card, and on a training mesh's ranks: the encoder-decoder's embedding
+and logits vocabulary-parallel, its encoder's and cross attention's
+leaves gathered over "data" where they are used.
 """
 
 from __future__ import annotations
@@ -253,16 +269,19 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
 
 @dataclass(frozen=True)
 class SeqBlock:
-    """A serving rank's block of every attention layer's KV sequence: the
-    physical slots [lo, hi) of each row's ``whole`` (a ring's or a linear
-    row's), block ``index`` of ``count`` over "data", as the cache rules
-    place k, v and kv_pos where the batch axes do not divide the batch
-    (context-parallel decode).  ``init_cache`` keeps it in the cache under
-    "seq_block", a leaf that is not a tensor."""
+    """A serving rank's block of every attention layer's KV sequence (or
+    of an encoder-decoder's cross cache's frames): the physical slots
+    [lo, hi) of each row's ``whole`` (a ring's or a linear row's), block
+    ``index`` of ``count`` over ``axis``, as the cache rules place k, v
+    and kv_pos: over "data" where the batch axes do not divide the batch
+    (context-parallel decode), over "model" under ``kv_seq_shard`` where
+    they do.  ``init_cache`` keeps it in the cache under "seq_block" (the
+    cross cache's under "cross_block"), a leaf that is not a tensor."""
 
     index: int
     count: int
     whole: int
+    axis: str = "data"
 
     @property
     def size(self) -> int:
@@ -277,11 +296,19 @@ class SeqBlock:
         return self.lo + self.size
 
 
-def block_runs(positions, block: SeqBlock, window: Optional[int]):
+def block_runs(positions, block: SeqBlock, window: Optional[int], deferred: bool = False):
     """K2's launches for a decode of queries at ``positions`` (host ints,
     one a row, each written at slot p % S before the attention) over the
     slots [lo, hi) of ``block``: [(the rows' indices, each row's first page
     counted from lo, its context length, the window)], one launch each.
+
+    ``deferred`` (``kv_append="defer"``): the token is not written before
+    the attention, so its slot still holds p − S (a wrapped ring) or
+    nothing (a linear row), and the cache's keys a query at p sees are
+    p − window + 1 .. p − 1 (all of 0 .. p − 1 without a window): those a
+    query at p − 1 with the window less one sees of a cache written up to
+    p − 1, which is what the runs are then counted for.  A query at 0, or
+    under a window of 1, sees no key of the cache.
 
     Slot s holds the newest position p − ((p − s) mod S) ≤ p (negative:
     not written yet), so the block is at most two runs of consecutive
@@ -303,7 +330,14 @@ def block_runs(positions, block: SeqBlock, window: Optional[int]):
     sees no key here (its block's lse is -inf)."""
     groups: Dict[Tuple[str, Optional[int]], List[Tuple[int, int, int]]] = {}
     S, lo, hi = block.whole, block.lo, block.hi
+    if deferred:
+        if window == 1:
+            return []
+        positions = [p - 1 for p in positions]
+        window = None if window is None else window - 1
     for i, p in enumerate(positions):
+        if p < 0:
+            continue
         r = p % S
         if lo <= r < hi:
             groups.setdefault(("own", window), []).append((i, 0, r - lo + 1))
@@ -321,14 +355,36 @@ def block_runs(positions, block: SeqBlock, window: Optional[int]):
 
 
 def _block_group(block: SeqBlock):
-    """The ambient mesh's "data" group, whose ranks hold ``block``'s
-    siblings; raises unless this rank's "data" coordinate is its index."""
+    """The ambient mesh's group of ``block.axis``, whose ranks hold
+    ``block``'s siblings; raises unless this rank's coordinate on it is its
+    index."""
     mesh = L.ambient_mesh()
-    if L.data_coordinate(mesh) != (block.index, block.count):
+    if L.axis_coordinate(mesh, block.axis) != (block.index, block.count):
         raise ValueError(f"the cache holds block {block.index} of {block.count} of the KV "
-                         f"sequence over 'data'; the ambient mesh gives this rank "
-                         f"{L.data_coordinate(mesh)}")
-    return mesh.get_group("data")
+                         f"sequence over {block.axis!r}; the ambient mesh gives this rank "
+                         f"{L.axis_coordinate(mesh, block.axis)}")
+    return mesh.get_group(block.axis)
+
+
+def _merged(block: SeqBlock, out, lse):
+    """The ranks' attention over their blocks merged over ``block.axis``
+    (``layers.merge_blocks``): counted as "merge" over "data", as
+    "seq_shard" over "model"."""
+    return L.merge_blocks(out, lse, _block_group(block),
+                          "merge" if block.axis == "data" else "seq_shard")
+
+
+def _gather_blocks(block: SeqBlock, leaves: Dict) -> Dict:
+    """Whole rows of a rank's blocks of cache leaves (.., B, S / count, ..):
+    each gathered over ``block.axis`` on the slot dimension
+    (``GATHERED["kv_prefix"]``)."""
+    group = _block_group(block)
+    whole = {}
+    for name, t in leaves.items():
+        dim = t.dim() - (1 if name == "kv_pos" else 3)
+        L.GATHERED["kv_prefix"] += t.numel() * t.element_size() * (block.count - 1)
+        whole[name] = L._all_gather(t, dim, group)
+    return whole
 
 
 @dataclass
@@ -378,14 +434,19 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
     k_c, v_c, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     q = q.to(k_c.dtype)
     k_new, v_new = k_new.to(k_c.dtype), v_new.to(v_c.dtype)
-    # what the rank's cache keeps, and the whole heads its queries read
-    k_own, v_own = heads.cached(k_new), heads.cached(v_new)
+    # what the rank's cache keeps (every KV head where "model" cuts the
+    # sequence), and the whole heads its queries read
+    if step.block is not None and step.block.axis == "model":
+        k_own, v_own = heads.whole_kv(k_new), heads.whole_kv(v_new)
+    else:
+        k_own, v_own = heads.cached(k_new), heads.cached(v_new)
     k_new, v_new = heads.attended(k_new), heads.attended(v_new)
     window = cfg.sliding_window
     if deferred is not None:
         deferred.append((k_own, v_own))
     if step.start is None and step.block is not None:
-        ctx = _block_decode(heads, q, k_own, v_own, cache, step, positions, window, force)
+        ctx = _block_decode(heads, q, k_new, v_new, k_own, v_own, cache, step, positions,
+                            window, force, deferred)
     elif step.start is None:
         if deferred is None:
             _write_kv(cache, k_own, v_own, positions, step.rows)
@@ -397,7 +458,7 @@ def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optiona
             ctx = _paged(q, kc, vc, tables, step.context_lens, window, force)
     elif step.block is not None:
         ctx = _block_prefill(heads, q, k_new, v_new, k_own, v_own, cache, step, positions,
-                             window, force)
+                             window, force, deferred)
     else:
         ctx = _prefill_attention(heads, q, k_new, v_new, k_own, v_own, cache, step.start,
                                  positions, window, force, deferred)
@@ -440,54 +501,65 @@ def _prefill_attention(heads: L.AttnHeads, q, k_new, v_new, k_own, v_own, cache:
 
 
 def _block_prefill(heads: L.AttnHeads, q, k_new, v_new, k_own, v_own, cache: Dict,
-                   step: CacheStep, positions, window, force):
+                   step: CacheStep, positions, window, force, deferred=None):
     """A prefill chunk on a rank that holds its block of the KV sequence
-    (``step.block``): every rank has every row's tokens, so each attends as
-    one process does and keeps the slots of its block.  The first chunk
-    reads no cache: K1 over its own keys, causal with the window (one
-    process's first chunk reads back exactly those keys); a later chunk
-    gathers the layer's blocks over "data" into whole rows
+    (``step.block``): every rank attends for its own query heads as one
+    process does and keeps the slots of its block.  The first chunk reads
+    no cache: K1 over its own keys, causal with the window (one process's
+    first chunk reads back exactly those keys); a later chunk gathers the
+    layer's blocks over the block's axis into whole rows
     (``GATHERED["kv_prefix"]``), attends over them as one process does
-    (:func:`_prefill_attention`, which writes the chunk into them) and
-    keeps its block of them."""
+    (:func:`_prefill_attention`, which writes the chunk into them, or
+    reads them as they stand under ``deferred``) and keeps its block of
+    them.  Over "model" (``kv_seq_shard``) the cache holds every KV head
+    whole, ``k_own``/``v_own`` are the chunk's, and the rank's queries read
+    their KV heads of them (``AttnHeads.over_whole``).  Under ``deferred``
+    nothing is written here (``_apply_deferred_append`` writes the block's
+    slots after the layers)."""
     block = step.block
     if step.start == 0:
         ctx = ops.flash_attention(q, k_new, v_new, causal=True, window=window, force=force)
-        _write_kv(cache, k_own, v_own, positions, None, block)
+        if deferred is None:
+            _write_kv(cache, k_own, v_own, positions, None, block)
         return ctx
-    group = _block_group(block)
-    whole = {}
-    for name in ("k", "v", "kv_pos"):
-        t = cache[name]
-        L.GATHERED["kv_prefix"] += t.numel() * t.element_size() * (block.count - 1)
-        whole[name] = L._all_gather(t, 1, group)
-    ctx = _prefill_attention(heads, q, k_new, v_new, k_own, v_own, whole, step.start, positions,
-                             window, force)
-    for name in ("k", "v", "kv_pos"):
-        cache[name].copy_(whole[name][:, block.lo:block.hi])
+    whole = _gather_blocks(block, {name: cache[name] for name in ("k", "v", "kv_pos")})
+    view = heads if block.axis == "data" else heads.over_whole()
+    ctx = _prefill_attention(view, q, k_new, v_new, k_own, v_own, whole, step.start, positions,
+                             window, force, deferred)
+    if deferred is None:
+        for name in ("k", "v", "kv_pos"):
+            cache[name].copy_(whole[name][:, block.lo:block.hi])
     return ctx
 
 
-def _block_decode(heads: L.AttnHeads, q, k_own, v_own, cache: Dict, step: CacheStep,
-                  positions, window, force):
+def _block_decode(heads: L.AttnHeads, q, k_new, v_new, k_own, v_own, cache: Dict,
+                  step: CacheStep, positions, window, force, deferred=None):
     """A decode on a rank that holds its block of the KV sequence
     (``step.block``): the token's k, v and position are written where the
     rank's block holds slot p % S, before the attention, as one process
-    writes them; K2 runs over each of ``step.runs`` (:func:`block_runs`)
-    with its lse, the runs are merged, and the ranks' blocks are merged
-    over "data" (``layers.merge_blocks``).  Where the cache holds a block of
-    head_dim, the decoded rows of the rank's block are gathered over
-    "model" to whole heads first (``layers.AttnHeads.gathered``).  Returns
-    (n, 1, Hq, D) fp32."""
+    writes them (after every layer under ``deferred``); K2 runs over each
+    of ``step.runs`` (:func:`block_runs`) with its lse, the runs are merged,
+    and the ranks' blocks are merged over the block's axis
+    (``layers.merge_blocks``).
+
+    Over "data", the rank attends for its query heads: where the cache
+    holds a block of head_dim, the decoded rows of its block are gathered
+    over "model" to whole heads first (``layers.AttnHeads.gathered``).
+    Over "model" (``kv_seq_shard``; the cache holds every KV head whole,
+    and ``k_own``/``v_own`` are the token's every KV head), the rank's
+    query heads are gathered to every head, K2 runs for each of them over
+    the block, and the rank keeps its own query heads of the merge.
+
+    Under ``deferred`` the runs are those of the cache before the token
+    (``block_runs(..., deferred=True)``), and the token's own key, whose
+    output is its value and whose lse its one scaled score, is counted on
+    the rank whose block holds slot p % S, so that the merge counts it
+    once.  Returns (n, 1, Hq, D) fp32: the rank's query heads."""
     block = step.block
-    _write_kv(cache, k_own, v_own, positions, step.rows, block)
-    rows = step.rows
-    if heads.kv_dh:
-        kc, vc = heads.gathered(cache["k"][rows]), heads.gathered(cache["v"][rows])
-        at = torch.arange(rows.shape[0], device=rows.device)
-    else:
-        kc, vc = heads.attended(cache["k"]), heads.attended(cache["v"])
-        at = rows
+    if deferred is None:
+        _write_kv(cache, k_own, v_own, positions, step.rows, block)
+    q, kc, vc, at = _block_keys(heads, q, cache["k"], cache["v"], step.rows, block)
+    k_self, v_self = (k_own, v_own) if block.axis == "model" else (k_new, v_new)
     per = block.size // PAGE_SIZE
     pages = torch.arange(per, device=q.device)
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -497,9 +569,30 @@ def _block_decode(heads: L.AttnHeads, q, k_own, v_own, cache: Dict, step: CacheS
         tables = (at[idx][:, None] * per + (first[:, None] + pages).clamp(max=per - 1)).int()
         o, m = _paged(q[idx], kc, vc, tables, lens, w, force, return_lse=True)
         segs.append((out.index_copy(0, idx, o.float()), lse.index_copy(0, idx, m)))
+    if deferred is not None:
+        slot = positions[:, 0] % block.whole
+        own = ((slot >= block.lo) & (slot < block.hi))[:, None, None]
+        o, m = _self_segment(q, k_self, v_self)
+        segs.append((o.float(), torch.where(own, m, -math.inf)))
     if segs:
         out, lse = L.attention_merge(segs, torch.float32, return_lse=True)
-    return L.merge_blocks(out, lse, _block_group(block))
+    ctx = _merged(block, out, lse)
+    return heads.own_q(ctx) if block.axis == "model" else ctx
+
+
+def _block_keys(heads: L.AttnHeads, q, k_c, v_c, rows, block: SeqBlock):
+    """What K2 reads for a decode of ``rows`` over a rank's block of the
+    slots: (queries, keys, values, the rows of the keys that hold
+    ``rows``).  Over "model" the cache holds every KV head whole and the
+    queries are gathered to every head; over "data" the rank's queries
+    read their KV heads, the decoded rows gathered over "model" to whole
+    heads where the cache holds a block of head_dim."""
+    if block.axis == "model":
+        return heads.whole_q(q), k_c, v_c, rows
+    if heads.kv_dh:
+        return (q, heads.gathered(k_c[rows]), heads.gathered(v_c[rows]),
+                torch.arange(rows.shape[0], device=rows.device))
+    return q, heads.attended(k_c), heads.attended(v_c), rows
 
 
 def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Optional[str],
@@ -507,8 +600,9 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
     """A block without a cache, the reference's ``cache is None`` branch:
     it attends over the batch's own T positions (causal, the config's
     window) through ``ops.flash_attention`` and writes nothing; ``cross``
-    is (the cross-attention params, the encoder's (k, v) (B, F, Hkv, D)),
-    over which the decoder attends without a mask.  Returns (y, the MoE
+    is (the cross-attention params, the encoder's (k, v) (B, F, Hkv, D):
+    on a "model" rank the KV heads its query heads read, whole), over which
+    the decoder attends without a mask.  Returns (y, the MoE
     block's ``moe_aux_loss`` or None)."""
     h = L.apply_norm(cfg, x, p["norm1"])
     if kind == "ssd":
@@ -525,7 +619,11 @@ def _train_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, force: Opti
     x = x + L.attn_out(cfg, p["attn"], ctx)
     if cross is not None:
         cp, (ek, ev) = cross
-        qx = L._proj_heads(L.apply_norm(cfg, x, cp["norm"]), cp["attn"]["wq"])
+        xh = L.attn_heads(cfg, cp["attn"])
+        hx = L.apply_norm(cfg, x, cp["norm"])
+        if xh.group is not None:
+            hx = L._Copy.apply(hx, xh.group)
+        qx = L.attn_project(cp["attn"], hx, "q", xh, bias=False)
         x = x + L.attn_out(cfg, cp["attn"], ops.flash_attention(qx, ek, ev, causal=False,
                                                                 force=force))
     h2 = L.apply_norm(cfg, x, p["norm2"])
@@ -646,16 +744,23 @@ def _write_kv(layers: Dict, k_new, v_new, positions, rows, block: Optional[SeqBl
     kv_pos[idx] = positions.to(kv_pos.dtype)
 
 
+def _self_segment(q, k_new, v_new):
+    """A decoded token's attention over its own key alone, as a segment of
+    an online-softmax merge: (its value for every query head, in q's type;
+    the one scaled score, fp32, the lse)."""
+    G = q.shape[2] // k_new.shape[2]
+    k_self = k_new.repeat_interleave(G, dim=2)                     # (n, 1, Hq, D)
+    return (v_new.repeat_interleave(G, dim=2).to(q.dtype),
+            (q.float() * k_self.float()).sum(-1) / math.sqrt(q.shape[-1]))
+
+
 def _deferred_decode(q, k_new, v_new, k_c, v_c, tables, lens, window, force):
     """Attention of one decoded token at pos over [cache[:pos] ‖ itself]
     without writing the cache: K2 over the cache's pages ``tables``
     (``lens`` is pos in defer mode; the window less one, since the token
     itself is one of the ``window`` keys it sees) and the token's own key,
     merged."""
-    G = q.shape[2] // k_new.shape[2]
-    k_self = k_new.repeat_interleave(G, dim=2)                     # (n, 1, Hq, D)
-    seg_self = (v_new.repeat_interleave(G, dim=2).to(q.dtype),
-                (q.float() * k_self.float()).sum(-1) / math.sqrt(q.shape[-1]))
+    seg_self = _self_segment(q, k_new, v_new)
     if window == 1:
         return seg_self[0]
     seg_cache = _paged(q, k_c, v_c, tables, lens, None if window is None else window - 1,
@@ -690,13 +795,14 @@ def _apply_deferred_append(layers: Dict, new_kv: List, positions, step: CacheSte
     leaf (:func:`_write_kv`): ``layers`` is a stacked (L, B, S, ...) cache
     and ``new_kv`` the L layers' (k, v) in order, or one layer's cache and
     its one (k, v).  positions: (n, T); the rows are ``step.rows`` on a
-    decode, else all."""
+    decode, else all; on a rank that holds ``step.block`` of the sequence,
+    only the positions whose slots it holds."""
     if layers["k"].dim() == 5:                                     # (L, B, S, Hkv, D)
         k_new = torch.stack([kv[0] for kv in new_kv])
         v_new = torch.stack([kv[1] for kv in new_kv])
     else:
         (k_new, v_new), = new_kv
-    _write_kv(layers, k_new, v_new, positions, step.rows)
+    _write_kv(layers, k_new, v_new, positions, step.rows, step.block)
 
 
 def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
@@ -707,23 +813,64 @@ def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
     rows of the cache) runs K1 with ``causal=False``; a decode (``step.rows``)
     runs K2 over those rows' cross cache, F keys each.  On a rank whose
     cross cache holds a block of head_dim, those keys are gathered to whole
-    heads first, as the self-attention's are."""
+    heads first, as the self-attention's are.
+
+    Where the rank holds a block of the frames (``kv["block"]``, a
+    :class:`SeqBlock` over "data" or, under ``kv_seq_shard``, "model"), a
+    prefill attends over the frames the encoder just gave (``kv["fresh"]``,
+    the rank's heads of every frame) or, without them, over the blocks
+    gathered over the block's axis; a decode runs K2 over the block's
+    frames, no window (:func:`_block_cross`)."""
     heads = L.attn_heads(cfg, cp["attn"])
     hx = L.apply_norm(cfg, x, cp["norm"])
     if heads.group is not None:
         hx = L._Copy.apply(hx, heads.group)
-    k_c = kv["k"]
+    k_c, block = kv["k"], kv.get("block")
     qx = L.attn_project(cp["attn"], hx, "q", heads, bias=False).to(k_c.dtype)
+    F = kv["frames"]
     if step.rows is None:
-        F = kv["frames"]
-        ctx = ops.flash_attention(qx, heads.gathered(k_c[:, :F]), heads.gathered(kv["v"][:, :F]),
-                                  causal=False, force=force)
+        view, k_all, v_all = heads, k_c, kv["v"]
+        if kv.get("fresh") is not None:
+            k_all, v_all = kv["fresh"]
+        elif block is not None:
+            whole = _gather_blocks(block, {"k": k_c, "v": kv["v"]})
+            k_all, v_all = whole["k"], whole["v"]
+            view = heads if block.axis == "data" else heads.over_whole()
+        ctx = ops.flash_attention(qx, view.gathered(k_all[:, :F].to(k_c.dtype)),
+                                  view.gathered(v_all[:, :F].to(k_c.dtype)), causal=False,
+                                  force=force)
+    elif block is not None:
+        ctx = _block_cross(heads, qx, kv, step, force)
     else:
         # every row's F frames: the whole padded row, pages counted from 0
         frames = CacheStep(rows=step.rows, block_tables=step.cross_tables, live=k_c.shape[1])
         kc, vc, tables = _decode_view(heads, k_c, kv["v"], frames, step.rows[:, None] * 0, False)
         ctx = _paged(qx, kc, vc, tables, step.cross_lens, None, force)
     return L.attn_out(cfg, cp["attn"], ctx.to(x.dtype))
+
+
+def _block_cross(heads: L.AttnHeads, q, kv: Dict, step: CacheStep, force):
+    """A decode's cross-attention on a rank that holds a block of the
+    frames (``kv["block"]``): K2 over the real frames of the block (none
+    where the padding fills it: lse -inf), no window, merged over the
+    block's axis; over "model" for every query head of a cache of every KV
+    head, the rank keeping its own, as :func:`_block_decode` does.
+    Returns (n, 1, Hq, D) fp32."""
+    block, rows = kv["block"], step.rows
+    n = rows.shape[0]
+    q, kc, vc, at = _block_keys(heads, q, kv["k"], kv["v"], rows, block)
+    valid = min(max(kv["frames"] - block.lo, 0), block.size)
+    if valid:
+        per = block.size // PAGE_SIZE
+        tables = (at[:, None] * per + torch.arange(per, device=rows.device)).int()
+        lens = torch.full((n,), valid, dtype=torch.int32, device=rows.device)
+        out, lse = _paged(q, kc, vc, tables, lens, None, force, return_lse=True)
+        out = out.float()
+    else:
+        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(q.shape[:-1], -math.inf, dtype=torch.float32, device=q.device)
+    ctx = _merged(block, out, lse)
+    return heads.own_q(ctx) if block.axis == "model" else ctx
 
 
 def _recurrent_mixer(cfg: ModelConfig, kind: str, p: Dict, h, cache: Dict,
@@ -788,6 +935,17 @@ def _page_tables(rows, positions, S: int, batch: int, ring: bool, device):
     j = (first[:, None] + torch.arange(width, device=device)[None, :]) % per_row
     rows = torch.as_tensor(rows, device=device).long()
     return (rows[:, None] * per_row + j).int().contiguous(), first
+
+
+def _device_runs(positions, block: SeqBlock, cfg: ModelConfig):
+    """:func:`block_runs` of a decode at ``positions`` (n, 1), read on the
+    host once a step, with each launch's rows, first pages and context
+    lengths on the device."""
+    dev = positions.device
+    return [(torch.tensor(ix, device=dev), torch.tensor(first, device=dev),
+             torch.tensor(lens, dtype=torch.int32, device=dev), w)
+            for ix, first, lens, w in block_runs(positions[:, 0].tolist(), block,
+                                                 cfg.sliding_window, cfg.kv_append == "defer")]
 
 
 def _prefill_start(cache, S: int, T: int, start: Optional[int] = None,
@@ -955,7 +1113,8 @@ class TransformerLM:
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
-                   device=None, window_slack: int = 0, params=None) -> Dict[str, Any]:
+                   device=None, window_slack: int = 0, params=None,
+                   seq_shard: bool = False) -> Dict[str, Any]:
         """An empty cache of ``batch`` rows for ``cache_size`` positions, a
         multiple of PAGE_SIZE where there is attention (``cuda`` unless
         ``device`` says otherwise), as the reference's: a windowed attention
@@ -964,15 +1123,16 @@ class TransformerLM:
         rows hold a state of fixed size and no positions.  Each layer's
         leaves take their heads, head_dim and width from ``params`` (a
         tensor-parallel rank's blocks, ``launch.mesh.shard_params``), the
-        config's without them.  Under a mesh with batch axes, only this
-        rank's blocks of it by the cache rules for ``batch`` rows
-        (:func:`_placed_cache`)."""
+        config's without them.  Under a mesh with batch axes, or with
+        ``seq_shard`` (the reference's ``kv_seq_shard`` opt: the KV sequence
+        over "model"), only this rank's blocks of it by the cache rules for
+        ``batch`` rows (:func:`_placed_cache`)."""
         if self.has_attn and cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         return _placed_cache(self.cfg, batch, resolve_device(device), params,
                              lambda dev, p: self._cache(batch, cache_size, dtype, dev,
-                                                        window_slack, p))
+                                                        window_slack, p), seq_shard)
 
     def _cache(self, batch, cache_size, dtype, device, window_slack, params):
         cfg = self.cfg
@@ -1032,12 +1192,7 @@ class TransformerLM:
         positions = cache["cache_len"][rows].long()[:, None]
         step = CacheStep(rows=rows, block=cache.get("seq_block"))
         if step.block is not None:
-            # each launch's rows, first pages and context lengths, on the device
-            dev = tokens.device
-            step.runs = [(torch.tensor(ix, device=dev), torch.tensor(first, device=dev),
-                          torch.tensor(lens, dtype=torch.int32, device=dev), w)
-                         for ix, first, lens, w in block_runs(
-                             positions[:, 0].tolist(), step.block, self.cfg.sliding_window)]
+            step.runs = _device_runs(positions, step.block, self.cfg)
         elif self.has_attn:
             kv = self._attn_cache(cache)["k"]
             step.block_tables, first = _page_tables(rows, positions[:, 0], kv.shape[-3],
@@ -1109,7 +1264,7 @@ class EncDecLM:
         positions = torch.arange(F, device=x.device).expand(B, F)
         enc = params["encoder"]
         for i in range(cfg.encoder.num_layers):
-            p = _layer(enc, i)
+            p = L.gathered(_layer(enc, i))
             hn = L.apply_norm(cfg, x, p["norm1"])
             heads = L.attn_heads(cfg, p["attn"])
             q, k, v = L.attn_qkv(cfg, p["attn"], hn, positions, heads)
@@ -1119,19 +1274,26 @@ class EncDecLM:
             x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
         return L.apply_norm(cfg, x, params["enc_final_norm"])
 
-    def _cross_kv(self, params, enc_out):
+    def _cross_kv(self, params, enc_out, train: bool = False):
         """Every decoder layer's cross-attention K and V of the encoder
         states: two (L, B, F, Hkv, D) tensors, a rank's block of them where
         it holds the layers' blocks (its KV heads, or its block of head_dim:
-        no RoPE, so the rank's own projection is what its cache keeps)."""
+        no RoPE, so the rank's own projection is what its cache keeps).
+        ``train``: lists of each layer's, whole heads (a head_dim block
+        gathered over "model" with its gradient), the KV heads the rank's
+        query heads read; each layer's leaves gathered over "data" where a
+        training rank holds a block of them (``layers.gathered``)."""
         ks, vs = [], []
         for i in range(self.cfg.num_layers):
-            cp = _layer(params["cross"], i)["attn"]
+            cp = L.gathered(_layer(params["cross"], i)["attn"])
             heads = L.attn_heads(self.cfg, cp)
             x = enc_out if heads.group is None else L._Copy.apply(enc_out, heads.group)
-            ks.append(L.attn_project(cp, x, "k", heads, bias=False, whole=False))
-            vs.append(L.attn_project(cp, x, "v", heads, bias=False, whole=False))
-        return torch.stack(ks), torch.stack(vs)
+            kv = [L.attn_project(cp, x, n, heads, bias=False, whole=train) for n in "kv"]
+            if train:
+                kv = [heads.attended(t) for t in kv]
+            ks.append(kv[0])
+            vs.append(kv[1])
+        return (ks, vs) if train else (torch.stack(ks), torch.stack(vs))
 
     # ------------------------------------------------------------- train --
     def train_loss(self, params, batch, *, remat: bool = True, loss_chunk: int = 512,
@@ -1144,35 +1306,45 @@ class EncDecLM:
         ``labels`` over the whole (B, S, vocab) in fp32 (no chunking, as the
         reference; ``loss_chunk`` is unused), with ``loss_mask`` if given.
         ``remat`` checkpoints the decoder's blocks, as the reference does.
-        Returns (loss, {"loss", "tokens"})."""
+        On a training rank (as :meth:`TransformerLM.train_loss`): the
+        embedding and the logits are vocabulary-parallel where the rank
+        holds a block of the vocabulary (``layers.embed``,
+        ``layers.unembed``), each leaf cut over "data" is gathered where it
+        is used, the frames' rows are split with the tokens', and the token
+        losses and counts are summed over the rows' group.  Returns (loss,
+        {"loss", "tokens"})."""
         cfg = self.cfg
         extra = set(batch) - {"tokens", "labels", "loss_mask", "frontend_embeds"}
         if extra:
             raise ValueError(f"unsupported inputs {sorted(extra)}: positions "
                              "always run from 0")
         enc_out = self.encode(params, batch["frontend_embeds"], force=force)
-        ck, cv = self._cross_kv(params, enc_out)
+        ck, cv = self._cross_kv(params, enc_out, train=True)
         tokens, labels = batch["tokens"], batch["labels"].long()
         B, S = tokens.shape
-        x = params["embed"][tokens] + params["pos_embed"][:S][None]
+        embed = L.gathered(params["embed"])
+        x = L.embed(cfg, embed, tokens) + L.gathered(params["pos_embed"])[:S][None]
         positions = torch.arange(S, device=x.device).expand(B, S)
         crosses = [(_layer(params["cross"], i), (ck[i], cv[i])) for i in range(cfg.num_layers)]
         x, _ = _train_stack(cfg, ["attn"] * cfg.num_layers, params["decoder"], x, positions,
                             remat=remat, force=force, crosses=crosses)
         x = L.apply_norm(cfg, x, params["final_norm"])
-        logp = torch.log_softmax((x @ params["embed"].T).float(), dim=-1)
+        logp = torch.log_softmax(L.at_least_f32(L.unembed(cfg, {"embed": embed}, x)), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None])[..., 0]
         mask = batch.get("loss_mask")
         mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if mask is None
                 else mask.float())
-        tokens_n = torch.clamp(mask.sum(), min=1.0)
-        loss = torch.sum(-ll * mask) / tokens_n
-        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
+        total, count = torch.sum(-ll * mask), mask.sum()
+        rows = L.row_group()
+        if rows is not None:
+            total, count = L._Reduce.apply(total, rows), L._all_reduce(count, rows)
+        loss = total / torch.clamp(count, min=1.0)
+        return loss, {"loss": loss.detach(), "tokens": count}
 
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch: int, cache_size: int, dtype=torch.bfloat16,
                    device=None, *, enc_frames: Optional[int] = None,
-                   params=None) -> Dict[str, Any]:
+                   params=None, seq_shard: bool = False) -> Dict[str, Any]:
         """The decoder's self-attention cache, as :class:`TransformerLM`'s,
         and the cross-attention K/V of ``enc_frames`` frames (the encoder's
         ``max_source_positions`` by default) a row, padded to a whole number
@@ -1180,13 +1352,15 @@ class EncDecLM:
         The K/V take their heads and head_dim from ``params`` (a
         tensor-parallel rank's blocks of the decoder's and the cross
         attention's), the config's without them.  Under a mesh with batch
-        axes, this rank's rows of it (:func:`_placed_cache`)."""
+        axes, or with ``seq_shard``, this rank's blocks of it
+        (:func:`_placed_cache`): its rows, or its block of the KV sequence and
+        of the frames."""
         if cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
         return _placed_cache(self.cfg, batch, resolve_device(device), params,
                              lambda dev, p: self._cache(batch, cache_size, dtype, dev, enc_frames,
-                                                        p))
+                                                        p), seq_shard)
 
     def _cache(self, batch, cache_size, dtype, device, enc_frames, params):
         cfg = self.cfg
@@ -1198,16 +1372,18 @@ class EncDecLM:
         return {"layers": block_cache(cfg, "attn", batch, cache_size, dtype, device,
                                       lead=(cfg.num_layers,),
                                       p=None if params is None else params["decoder"]),
-                "cross_k": xk, "cross_v": torch.zeros_like(xk), "cross_frames": F,
+                "cross_k": xk, "cross_v": torch.zeros(xk.shape, dtype=dtype, device=device),
+                "cross_frames": F,
                 "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
-    def _decoder(self, params, tokens, positions, cache, step: CacheStep, force):
+    def _decoder(self, params, tokens, positions, cache, step: CacheStep, force, fresh=None):
         cfg = self.cfg
         pos = torch.clamp(positions, 0, cfg.max_seq_len - 1)
         x = L.embed(cfg, params["embed"], tokens) + params["pos_embed"][pos]
         for i in range(cfg.num_layers):
             kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i],
-                  "frames": cache["cross_frames"]}
+                  "frames": cache["cross_frames"], "block": cache.get("cross_block"),
+                  "fresh": None if fresh is None else (fresh[0][i], fresh[1][i])}
             x = run_block(cfg, "attn", _layer(params["decoder"], i), x, positions,
                           _layer(cache["layers"], i), step=step, force=force,
                           cross=(_layer(params["cross"], i), kv))
@@ -1227,6 +1403,7 @@ class EncDecLM:
                              "always follow the cache length")
         tokens = inputs["tokens"]
         B, T = tokens.shape
+        fresh = None
         if "frontend_embeds" in inputs:
             fe = inputs["frontend_embeds"]
             if fe.shape[1] != cache["cross_frames"]:
@@ -1235,14 +1412,30 @@ class EncDecLM:
             ck, cv = self._cross_kv(params, self.encode(params, fe.to(params["embed"].dtype),
                                                         force=force))
             F = fe.shape[1]
-            cache["cross_k"][:, :, :F] = ck.to(cache["cross_k"].dtype)
-            cache["cross_v"][:, :, :F] = cv.to(cache["cross_v"].dtype)
+            xb = cache.get("cross_block")
+            if xb is None:
+                cache["cross_k"][:, :, :F] = ck.to(cache["cross_k"].dtype)
+                cache["cross_v"][:, :, :F] = cv.to(cache["cross_v"].dtype)
+            else:
+                # every rank encoded every frame: it keeps its block of them
+                # (every KV head over "model") and attends over them all now
+                heads = L.attn_heads(self.cfg, _layer(params["cross"], 0)["attn"])
+                hi = min(xb.hi, F)
+                for name, t in (("cross_k", ck), ("cross_v", cv)):
+                    if xb.axis == "model":
+                        t = heads.whole_kv(t)
+                    if hi > xb.lo:
+                        cache[name][:, :, :hi - xb.lo] = t[:, :, xb.lo:hi].to(cache[name].dtype)
+                fresh = (ck, cv)
         if T == 1:
             rows = torch.arange(B, device=tokens.device)
             return self.decode_slots(params, cache, tokens, rows, force=force), cache
-        start = _prefill_start(cache, cache["layers"]["k"].shape[-3], T, start)
+        block = cache.get("seq_block")
+        S = cache["layers"]["k"].shape[-3] if block is None else block.whole
+        start = _prefill_start(cache, S, T, start)
         positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
-        logits = self._decoder(params, tokens, positions, cache, CacheStep(start=start), force)
+        logits = self._decoder(params, tokens, positions, cache,
+                               CacheStep(start=start, block=block), force, fresh)
         cache["cache_len"] += T
         return logits, cache
 
@@ -1258,53 +1451,50 @@ class EncDecLM:
         positions = cache["cache_len"][rows].long()[:, None]
         kv, xk = cache["layers"]["k"], cache["cross_k"]
         n = rows.shape[0]
-        step = CacheStep(
-            rows=rows,
-            block_tables=_page_tables(rows, positions[:, 0], kv.shape[-3], kv.shape[-4], False,
-                                      tokens.device)[0],
-            context_lens=(positions[:, 0] + 1).int(),
-            cross_tables=_page_tables(rows, positions[:, 0] * 0, xk.shape[-3], xk.shape[-4],
-                                      False, tokens.device)[0],
-            cross_lens=torch.full((n,), cache["cross_frames"], dtype=torch.int32,
-                                  device=tokens.device))
+        step = CacheStep(rows=rows, block=cache.get("seq_block"))
+        if step.block is not None:
+            step.runs = _device_runs(positions, step.block, self.cfg)
+        else:
+            step.block_tables = _page_tables(rows, positions[:, 0], kv.shape[-3], kv.shape[-4],
+                                             False, tokens.device)[0]
+            step.context_lens = (positions[:, 0] + 1).int()
+        if "cross_block" not in cache:
+            step.cross_tables = _page_tables(rows, positions[:, 0] * 0, xk.shape[-3],
+                                             xk.shape[-4], False, tokens.device)[0]
+            step.cross_lens = torch.full((n,), cache["cross_frames"], dtype=torch.int32,
+                                         device=tokens.device)
         logits = self._decoder(params, tokens, positions, cache, step, force)
         cache["cache_len"][rows] += 1
         return logits
 
 
-def _placed_cache(cfg: ModelConfig, batch: int, device, params, build) -> Dict[str, Any]:
+def _placed_cache(cfg: ModelConfig, batch: int, device, params, build,
+                  seq_shard: bool = False) -> Dict[str, Any]:
     """``build(device, params)``, a model's cache; under an ambient mesh
-    with batch axes, only this rank's blocks of it by the cache rules for
-    ``batch`` rows (``launch.mesh.shard_cache``, the one place the rules
-    live), worked out on the meta device and then allocated on ``device``:
-    its rows where the batch axes divide ``batch``; else its block of the
-    attention layers' KV slots over "data" (a :class:`SeqBlock` in the
-    cache's "seq_block"), the recurrent states whole.  Raises for what
-    context parallelism does not run yet: ``kv_append="defer"`` and an
-    encoder-decoder's cross cache (ROADMAP A3.6)."""
+    with batch axes, or with ``seq_shard`` (the reference's
+    ``kv_seq_shard``) on more than one "model" rank, only this rank's blocks
+    of it by the cache rules for ``batch`` rows (``launch.mesh.shard_cache``,
+    the one place the rules live), worked out on the meta device and then
+    allocated on ``device``: its rows where the batch axes divide
+    ``batch``, else its block of the attention layers' KV slots (and of an
+    encoder-decoder's frames) over "data", the recurrent states whole; with
+    ``seq_shard``, where the batch axes divide ``batch``, its block of the
+    KV slots (and frames) over "model" of every KV head whole.  A block is
+    a :class:`SeqBlock` in the cache's "seq_block" (the frames' in
+    "cross_block").  Raises unless a block is a whole number of K2's pages,
+    naming the leaf."""
     mesh = L.ambient_mesh()
-    if L.batch_coordinate(mesh)[1] == 1:
+    if L.batch_coordinate(mesh)[1] == 1 and not (seq_shard and L.model_coordinate(mesh)[1] > 1):
         return build(device, params)
-    from repro_torch.launch.mesh import leaves_with_names, shard_cache
+    from repro_torch.launch.mesh import mesh_axes, seq_blocks, shard_cache
     whole = build("meta", None)
-    cache = _allocate(shard_cache(build("meta", params), mesh, batch=batch, whole=whole), device)
-    held = dict(leaves_with_names(cache))
-    spans = {name: (leaf.shape[-3], held[name].shape[-3])
-             for name, leaf in leaves_with_names(whole)
-             if name.rsplit("/", 1)[-1] in ("k", "v", "cross_k", "cross_v")}
-    cut = sorted(name for name, (S, S_loc) in spans.items() if S != S_loc)
-    if cut:
-        if cfg.is_enc_dec or cfg.kv_append != "inline":
-            raise NotImplementedError(
-                f"context-parallel decode ({batch} rows on {L.batch_coordinate(mesh)[1]} batch "
-                "ranks) of " + ("an encoder-decoder's cross cache" if cfg.is_enc_dec
-                                else f"kv_append={cfg.kv_append!r}") + " (ROADMAP A3.6)")
-        S, S_loc = spans[cut[0]]
-        if S_loc % PAGE_SIZE:
-            raise ValueError(f"a block of {S_loc} of {S} KV slots a rank is not a whole number "
-                             f"of K2's pages of {PAGE_SIZE}")
-        d, D = L.data_coordinate(mesh)
-        cache["seq_block"] = SeqBlock(d, D, S)
+    # every KV head whole where "model" may cut the sequence: cut the whole tree
+    held = whole if seq_shard else build("meta", params)
+    cache = _allocate(shard_cache(held, mesh, batch=batch, whole=whole, seq_shard=seq_shard),
+                      device)
+    axes = mesh_axes(mesh)
+    cache.update(seq_blocks(whole, axes, {a: mesh[a].get_local_rank() for a in axes.names},
+                            batch=batch, seq_shard=seq_shard))
     return cache
 
 

@@ -7,14 +7,17 @@ so parallel test workers cannot collide).  CASES is a file of
 ``torch.save``'d cases, each a config, a whole parameter tree (from the JAX
 model through the bridge), the mesh's axis names and sizes (their product
 is WORLD), prompts, the lengths of the prompt's prefill chunks, the
-decodes' tokens and the cache size.  For each case the rank builds the
+decodes' tokens and the cache size, and optionally ``seq_shard`` (the
+reference's ``kv_seq_shard``) and an encoder-decoder's ``frames`` (B, F, d).
+For each case the rank builds the
 mesh (``launch.mesh.device_mesh``), cuts its blocks by the serve rules
 (``launch.mesh.shard_params``: the MoE experts' d over the batch axes
 among them), builds the cache of its blocks (``init_cache(..., params=)``
-under the mesh: its rows, or its block of the KV sequence), prefills its
-rows of the prompts (``launch.mesh.batch_rows``: every row where the batch
-axes do not divide the batch) chunk by chunk and decodes the fed tokens of
-those rows through ``decode_slots``.  It saves its leaves' and cache's
+under the mesh: its rows, or its block of the KV sequence over "data" or,
+with ``seq_shard``, over "model", and of the frames), prefills its rows of
+the prompts (``launch.mesh.batch_rows``: every row where the batch axes do
+not divide the batch) chunk by chunk, the frames with the first, and
+decodes the fed tokens of those rows through ``decode_slots``.  It saves its leaves' and cache's
 shapes, its coordinates, its rows, the logits after each chunk and each
 decode, its cache's values after the prefill and after the decodes and the
 bytes it gathered (``layers.GATHERED``) to OUT/rank<RANK>.pt.  It imports
@@ -39,13 +42,19 @@ def serve(case):
     with mesh.use_mesh(dm), torch.no_grad():
         model = build_model(case["cfg"])
         params = mesh.shard_params(case["params"])
-        cache = model.init_cache(B, case["cache_size"], torch.float32, "cpu", params=params)
+        frames = case.get("frames")
+        extra = {} if frames is None else {"enc_frames": frames.shape[1]}
+        cache = model.init_cache(B, case["cache_size"], torch.float32, "cpu", params=params,
+                                 seq_shard=case.get("seq_shard", False), **extra)
         rows = mesh.batch_rows(B)
         mine = torch.arange(rows.stop - rows.start)
         layers.GATHERED.clear()
         logits, s0 = [], 0
         for n in case["chunks"]:
-            logits.append(model.prefill(params, {"tokens": prompt[rows, s0:s0 + n]}, cache)[0])
+            inputs = {"tokens": prompt[rows, s0:s0 + n]}
+            if frames is not None and s0 == 0:
+                inputs["frontend_embeds"] = frames[rows]
+            logits.append(model.prefill(params, inputs, cache)[0])
             s0 += n
         kept = [_values(cache)]
         for t in range(fed.shape[0]):
@@ -55,6 +64,7 @@ def serve(case):
               for what, tree in (("params", params), ("cache", cache))}
     return dict(shapes, logits=logits, cache_values=kept, rows=(rows.start, rows.stop),
                 gathered=dict(layers.GATHERED), block=cache.get("seq_block"),
+                cross_block=cache.get("cross_block"),
                 coords={a: dm[a].get_local_rank() for a in axes.names})
 
 

@@ -5,9 +5,10 @@
 WORLD ranks join the group through the ``FileStore`` at STORE (no TCP port,
 so parallel test workers cannot collide).  CASES is a file of
 ``torch.save``'d cases, each a config, a whole parameter tree (from the JAX
-model through the bridge), the batches of its steps, the mesh's
-("data", "model") sizes, whose product is WORLD, the microbatches and the
-optimizer's config.  For each case the rank cuts its blocks by the "train"
+model through the bridge), the batches of its steps (an encoder-decoder's
+with its frames), the mesh's ("data", "model") or ("pod", "data", "model")
+sizes, whose product is WORLD, the microbatches and the optimizer's
+config.  For each case the rank cuts its blocks by the "train"
 rules (``launch.mesh.shard_params(..., mode="train")``), builds the
 ``Sharding`` of its mesh (``launch.mesh.train_sharding``), and trains
 through ``make_train_step`` on the whole batch (it takes its rows).  It
@@ -29,8 +30,8 @@ from repro_torch.models.transformer import build_model
 
 
 def train(case):
-    data, tp = case["mesh"]
-    dm = mesh.device_mesh(mesh.MeshAxes(("data", "model"), (data, tp)), "cpu")
+    sizes = case["mesh"]
+    dm = mesh.device_mesh(mesh.MeshAxes(("pod", "data", "model")[-len(sizes):], sizes), "cpu")
     with mesh.use_mesh(dm):
         model = build_model(case["cfg"])
         # a copy: cases may share one tree, and a leaf the rank holds whole

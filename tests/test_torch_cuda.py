@@ -823,3 +823,35 @@ def test_serving_on_a_two_by_two_mesh_on_the_card(gen):     # gen: skips without
                                            "2,2", "--dtype", "float32", "--decodes", "3"])
         launches = parallel.check(args, parallel.launch(args), parallel.reference(args), 2e-4)
         assert launches["flash_attention"] == 4 * 2 and launches["paged_attention"] > 0
+
+
+def test_sequence_blocks_and_pod_training_on_the_card(gen):     # gen: skips without a card
+    """The rest of the reference's sharded program on gloo ranks sharing
+    the card in fp32 at reduced size (head_dim 32: K2 takes 32 and up),
+    against the one-process model on the same weights: ``launch.parallel
+    --opt kv_seq_shard`` (llama3_8b's slots over 2 "model" ranks, every KV
+    head whole), ``--opt kv_defer_append`` at batch 1 past mixtral_8x7b's
+    64-slot ring on (2, 1), whisper_base's frames over (2, 1) at batch 1
+    (``parallel.check`` at 2e-4: each rank's blocks and their allocated
+    bytes, K1 and K2 launches by ``parallel.kernel_launches``); and
+    ``launch.train --mesh 2,1,2`` of llama3_8b, one step (``train.check``,
+    K1 and K1-bwd on every rank)."""
+    from repro_torch.launch import parallel, train
+    for argv in (["--arch", "llama3_8b", "--mesh", "1,2", "--batch", "2", "--prompt", "40",
+                  "--opt", "kv_seq_shard"],
+                 ["--arch", "mixtral_8x7b", "--mesh", "2,1", "--batch", "1", "--prompt", "80",
+                  "--opt", "kv_defer_append"],
+                 ["--arch", "whisper_base", "--mesh", "2,1", "--batch", "1", "--prompt", "12",
+                  "--frames", "32"]):
+        args = parallel.parse_args(argv + ["--reduced", "--config", "head_dim=32", "--dtype",
+                                           "float32", "--decodes", "3"])
+        launches = parallel.check(args, parallel.launch(args), parallel.reference(args), 2e-4)
+        assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0
+    args = train.parse_args(["--arch", "llama3_8b", "--config", "head_dim=32", "--config",
+                             "d_model=128", "--mesh", "2,1,2", "--steps", "1", "--batch", "8",
+                             "--seq", "64"])
+    ranks, ref = train.launch(args), train.reference(args)
+    launches = train.check(args, ranks, ref, train.gradient_errors(args, ranks, ref),
+                           loss_tol=1e-4, norm_tol=1e-3, leaf_tol=1e-3)
+    expect = {k: 4 * n for k, n in train.kernel_launches(args).items() if n}
+    assert {k: launches[k] for k in expect} == expect

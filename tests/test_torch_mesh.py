@@ -234,3 +234,58 @@ def test_serve_placements_and_cache_blocks_at_a_mesh(arch, which):
         assert (seq is not None) == (not shard_batch and model.has_attn), cell
         if seq is not None:
             assert seq == SeqBlock(ax.sizes["data"] - 1, ax.sizes["data"], seq.whole)
+
+
+@pytest.mark.parametrize("which", AXES)
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_seq_shard_cache_blocks_at_a_mesh(arch, which):
+    """``kv_seq_shard`` at the production meshes, for each decode cell the
+    config takes: the port's ``cache_specs(..., seq_shard=True)`` of its
+    full-size cache are the reference's ``cache_shardings`` specs (its
+    ``_cache_spec`` of every leaf of its abstract cache at the cell, the
+    batch sharded where the batch axes divide it) leaf for leaf; on the
+    last device ``shard_cache`` and ``init_cache(..., seq_shard=True)``
+    under the mesh give the block of that spec, with a ``SeqBlock`` over
+    "model" where the batch axes divide the batch (``decode_32k``: every
+    KV head whole) and over "data" where they do not (``long_500k``, the
+    "model" cut falling to the heads).  Whisper's cross cache is placed by
+    the reference's unpadded 1500 frames, which 16 ranks do not divide: on
+    head_dim, as the reference places it, though the port's padded 1504
+    would divide."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import SeqBlock
+    from test_torch_serve_mesh import _Coords
+    ax, ref_ax = _axes(which)
+    names, sizes = PRODUCTION[which]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    jmodel = jax_build_model(jax_get_config(arch))
+    last = _Coords(names, sizes, {a: n - 1 for a, n in zip(names, sizes)})
+    cells = [c for c in DECODE_CELLS if c != "long_500k" or cfg.supports_long_context()]
+    for cell in cells:
+        B, S = DECODE_CELLS[cell]
+        shard_batch = B % ref_ax.batch_size() == 0
+        whole = model.init_cache(B, S, torch.bfloat16, "meta")
+        got = _named_specs(whole, mesh.cache_specs(whole, ax, batch=B, seq_shard=True))
+        ref = {jmesh._leaf_name(path): tuple(jmesh._cache_spec(
+                   jmesh._leaf_name(path), tuple(leaf.shape), ref_ax, shard_batch=shard_batch,
+                   seq_shard=True))
+               for path, leaf in jax.tree_util.tree_flatten_with_path(
+                   jmodel.abstract_cache(B, S, jnp.bfloat16))[0]}
+        assert got == ref, (arch, cell)
+        block = dict(mesh.leaves_with_names(
+            mesh.shard_cache(whole, last, batch=B, seq_shard=True)))
+        with mesh.use_mesh(last):
+            held = model.init_cache(B, S, torch.bfloat16, "meta", seq_shard=True)
+        for name, leaf in mesh.leaves_with_names(whole):
+            exp = mesh.shard_shape(tuple(leaf.shape), ref[name], ax)
+            if name.startswith("cross_"):
+                assert ref[name][-3] is None and ref[name][-1] == "model", ref[name]
+            assert tuple(block[name].shape) == exp, (cell, name)
+            assert tuple(dict(mesh.leaves_with_names(held))[name].shape) == exp, (cell, name)
+        seq = held.get("seq_block")
+        assert (seq is not None) == model.has_attn, cell
+        if seq is not None:
+            axis = "model" if shard_batch else "data"
+            assert seq == SeqBlock(sizes[names.index(axis)] - 1, sizes[names.index(axis)],
+                                   seq.whole, axis), cell

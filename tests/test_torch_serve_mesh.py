@@ -28,7 +28,7 @@ bridge and the ranks' cut (``launch.mesh.shard_params``).  The cases:
 
 Each holds every rank's logits after each prefill chunk and each of 3
 decodes within 2e-4 of the one-process port model's (fp32) and within 2e-3
-of the JAX model's (its ring given the whole context through
+of the JAX model's (jitted; its ring given the whole context through
 ``window_slack``), each rank's parameter and cache shapes to
 ``mesh.shard_shape`` of the serve rules at the mesh, and each rank's cache
 (K, V, ``kv_pos``, recurrent states, lengths) after the prefill and after
@@ -36,10 +36,12 @@ the decodes to the one-process cache's block of the rules
 (``mesh.shard_cache``).  ``transformer.block_runs`` is held to the keys a
 query sees, rank by rank, on rings and linear rows.  The launcher
 (``repro_torch.launch.parallel --mesh``) serves reduced mixtral at (2, 2)
-and qwen3 at (2, 1, 2), as phases 33-34 do on the card.  What context
-parallelism does not run yet raises.
+and qwen3 at (2, 1, 2), as phases 33-34 do on the card.  A block that is
+not whole pages of K2 raises.
 """
 
+import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -86,32 +88,43 @@ def _world(name):
     return int(np.prod(CASES[name][2]))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch):
+    """The reduced JAX model's weights from ``jax.random.key(43)`` and the
+    port's copy through the bridge, drawn once an arch (cases share them)."""
+    jp = jax_build_model(jax_reduced_config(arch)).init(jax.random.key(43), jnp.float32)
+    return jp, from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
 def _case(name):
     """(the worker's case, a function that returns the JAX logits at each
     step), the JAX model being run only when it is called."""
     arch, names, sizes, B, chunks, cache_size = CASES[name]
     jcfg = jax_reduced_config(arch)
     jm = jax_build_model(jcfg)
-    jp = jm.init(jax.random.key(43), jnp.float32)
+    jp, params = _jax_params(arch)
     rng = np.random.default_rng(43)
     prompt = rng.integers(0, jcfg.vocab_size, (B, sum(chunks)))
     fed = rng.integers(0, jcfg.vocab_size, (DECODES, B, 1))
 
     def jax_logits():
+        # jitted: run eagerly, the JAX model took most of the file's time
+        # (84 s of the 12 cases on one CPU process), and the 2e-3
+        # comparison does not see XLA's fusions
+        prefill, decode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
         # the JAX ring holds the whole context, so that a chunk may outrun it
         cache = jm.init_cache(B, cache_size, jnp.float32, window_slack=cache_size)
         out, s0 = [], 0
         for n in chunks:
-            logits, cache = jm.prefill(jp, {"tokens": jnp.asarray(prompt[:, s0:s0 + n])}, cache)
+            logits, cache = prefill(jp, {"tokens": jnp.asarray(prompt[:, s0:s0 + n])}, cache)
             out.append(np.asarray(logits))
             s0 += n
         for t in range(DECODES):
-            logits, cache = jm.decode_step(jp, cache, jnp.asarray(fed[t]))
+            logits, cache = decode(jp, cache, jnp.asarray(fed[t]))
             out.append(np.asarray(logits))
         return out
 
-    case = {"cfg": get_reduced_config(arch), "mesh": (names, sizes),
-            "params": from_numpy(jax.tree.map(np.asarray, jp), device="cpu"),
+    case = {"cfg": get_reduced_config(arch), "mesh": (names, sizes), "params": params,
             "prompt": torch.from_numpy(prompt), "chunks": list(chunks),
             "fed": torch.from_numpy(fed), "cache_size": cache_size}
     return case, jax_logits
@@ -329,16 +342,28 @@ def _in_process(cfg, names, sizes, coords, B, cache_size, **kw):
 
 
 def test_what_context_parallelism_does_not_run_raises():
-    """``kv_append="defer"`` and an encoder-decoder's cross cache under
-    context parallelism raise, naming their ROADMAP item; an
-    encoder-decoder's rows over "data" build."""
+    """A block of the KV sequence or of the frames that is not a whole
+    number of K2's pages raises, naming the leaf: 64 linear slots over 8
+    "data" ranks, whisper's 1500 frames over 4 "model" ranks under
+    ``kv_seq_shard`` (the reference's rule divides 1500; the port's 1504
+    padded slots give 376 a rank).  ``kv_append="defer"`` and an
+    encoder-decoder's cross cache, which raised until context parallelism
+    ran them (tests/test_torch_defer_mesh.py), build with their blocks;
+    an encoder-decoder's rows over "data" build as before."""
     coords = {"data": 1, "model": 0}
-    with pytest.raises(NotImplementedError, match="A3.6"):
-        _in_process(get_reduced_config("llama3_8b").replace(kv_append="defer"), DM, (2, 1),
-                    coords, 1, 64)
-    with pytest.raises(NotImplementedError, match="A3.6"):
-        _in_process(get_reduced_config("whisper_base"), DM, (2, 1), coords, 1, 64,
-                    enc_frames=32)
+    with pytest.raises(ValueError, match="layers/k.*whole number of K2's pages"):
+        _in_process(get_reduced_config("llama3_8b"), DM, (8, 1), coords, 1, 64)
+    small = get_reduced_config("whisper_base")
+    whisper = small.replace(encoder=dataclasses.replace(small.encoder, max_source_positions=1500))
+    with pytest.raises(ValueError, match="cross_k.*376 of 1504 slots"):
+        _in_process(whisper, DM, (1, 4), {"data": 0, "model": 1}, 4, 64, seq_shard=True)
+    defer = _in_process(get_reduced_config("llama3_8b").replace(kv_append="defer"), DM, (2, 1),
+                        coords, 1, 64)
+    assert defer["seq_block"] == transformer.SeqBlock(1, 2, 64)
+    cross = _in_process(get_reduced_config("whisper_base"), DM, (2, 1), coords, 1, 64,
+                        enc_frames=32)
+    assert cross["cross_block"] == transformer.SeqBlock(1, 2, 32)
+    assert cross["cross_k"].shape[2] == 16 and cross["seq_block"].whole == 64
     rows = _in_process(get_reduced_config("whisper_base"), DM, (2, 1), coords, 4, 64,
                        enc_frames=32)
     assert rows["cross_k"].shape[1] == 2 and "seq_block" not in rows

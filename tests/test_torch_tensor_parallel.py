@@ -68,14 +68,17 @@ def _case(name):
     jcfg = jax_reduced_config(arch).replace(**overrides)
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.key(41), jnp.float32)
+    # jitted: eagerly, the JAX model took most of the file's time; the 2e-3
+    # comparison does not see XLA's fusions
+    prefill, decode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
     rng = np.random.default_rng(41)
     prompt = rng.integers(0, jcfg.vocab_size, (2, 24))
     fed = rng.integers(0, jcfg.vocab_size, (3, 2, 1))
     cache = jm.init_cache(2, CACHE, jnp.float32)
-    logits, cache = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, cache)
+    logits, cache = prefill(jp, {"tokens": jnp.asarray(prompt)}, cache)
     jlogits = [np.asarray(logits)]
     for t in range(3):
-        logits, cache = jm.decode_step(jp, cache, jnp.asarray(fed[t]))
+        logits, cache = decode(jp, cache, jnp.asarray(fed[t]))
         jlogits.append(np.asarray(logits))
     cfg = get_reduced_config(arch).replace(**overrides)
     params = from_numpy(jax.tree.map(np.asarray, jp), device="cpu")

@@ -84,6 +84,9 @@ def _case(name):
     jcfg = jax_reduced_config(arch).replace(**overrides)
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.key(41), jnp.float32)
+    # jitted: eagerly, the JAX model took most of the file's time; the 2e-3
+    # comparison does not see XLA's fusions
+    prefill, decode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
     rng = np.random.default_rng(41)
     prompt = rng.integers(0, jcfg.vocab_size, (2, sum(chunks)))
     fed = rng.integers(0, jcfg.vocab_size, (DECODES, 2, 1))
@@ -97,12 +100,12 @@ def _case(name):
     jlogits, s0 = [], 0
     for n in chunks:
         inputs["tokens"] = jnp.asarray(prompt[:, s0:s0 + n])
-        logits, cache = jm.prefill(jp, inputs, cache)
+        logits, cache = prefill(jp, inputs, cache)
         jlogits.append(np.asarray(logits))
         inputs.pop("frontend_embeds", None)
         s0 += n
     for t in range(DECODES):
-        logits, cache = jm.decode_step(jp, cache, jnp.asarray(fed[t]))
+        logits, cache = decode(jp, cache, jnp.asarray(fed[t]))
         jlogits.append(np.asarray(logits))
     cfg = get_reduced_config(arch).replace(**overrides)
     params = from_numpy(jax.tree.map(np.asarray, jp), device="cpu")

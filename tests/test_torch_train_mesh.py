@@ -119,10 +119,10 @@ def _to_jax(arch, overrides, params):
         lambda path, _: jnp.asarray(named[jmesh._leaf_name(path)].numpy()), tree)
 
 
-def _jax_train(jcfg, jp, batches):
+def _jax_train(jcfg, jp, batches, opt=OPT):
     """Each step's (loss, grad_norm) of the JAX package's train step, jitted,
     in one process."""
-    step = jax.jit(jax_make_train_step(jax_build_model(jcfg), JaxOptimizerConfig(**OPT),
+    step = jax.jit(jax_make_train_step(jax_build_model(jcfg), JaxOptimizerConfig(**opt),
                                        microbatches=MICROBATCHES, remat=True))
     opt, out = jax_init_adamw(jp), []
     for tokens, labels in batches:
@@ -137,17 +137,17 @@ def _torch_batches(batches):
             for t, lab in batches]
 
 
-def _one_process(cfg, params, batches):
+def _one_process(cfg, params, batches, opt=OPT):
     """The port in one process: ([(loss, grad_norm)] a step, step 1's
     gradients, the parameters after the steps), named."""
     model = build_model(cfg)
     params = tree_map(lambda p: p.detach().clone(), params)
-    opt, out, step1 = init_adamw(params), [], None
+    state, out, step1 = init_adamw(params), [], None
     for batch in batches:
         loss, _, grads = value_and_grad(model, params, batch, microbatches=MICROBATCHES)
         if step1 is None:
             step1 = dict(mesh.leaves_with_names(tree_map(lambda g: g.detach().clone(), grads)))
-        _, _, m = adamw_update(OptimizerConfig(**OPT), params, grads, opt)
+        _, _, m = adamw_update(OptimizerConfig(**opt), params, grads, state)
         out.append((float(loss), float(m["grad_norm"])))
     return out, step1, dict(mesh.leaves_with_names(params))
 
