@@ -121,6 +121,13 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 6d. serves the smoke traffic in a block pool too small for its decodes,
    checks that the engine preempted, and holds the tokens against the same
    traffic in phase 5's pool as in 6c;
+6e. runs the serve CLI in this process, in real mode at full size, as a
+   user calls it (``repro_torch.launch.serve.main``, prefix caching on):
+   qwen2_5_3b in bf16, 8 synthesized requests at 8 per second that share a
+   512-token prefix; it checks that every request finished with its
+   ``max_new_tokens`` tokens, that the engine's prefix cache hit, and that
+   K1 and K2 ran while it served (counts set to 0 once the stack is built),
+   and prints the hits, TTFT p50 and the phase's seconds;
 7. builds mamba2_370m at full width and depth in bf16 from a seeded
    generator and compares its logits with K3 against the plain scan after a
    256-token prefill, a ragged 379-token chunk from the carried state, and a
@@ -335,15 +342,18 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    for every query head and merges the (out, lse) over "model"; it prints
    the bytes a rank received a decode beside phase 26's head_dim gather,
    a row each;
-37. context parallelism on (2, 1) meshes at batch 1: recurrentgemma_2b at
-   full size under ``kv_defer_append`` (one 3072-token prompt past its
+37. context parallelism at batch 1: recurrentgemma_2b at full size under
+   ``kv_defer_append`` on (2, 1) (one 3072-token prompt past its
    2048-slot ring, 1024 a rank: K2 over the runs of the rank's block of
    the cache before the token, the token's own key counted on the rank
    whose block holds its slot, which alone writes it after the layer), and
-   whisper_base at full size with 1500 frames (1504 padded, 752 slots a
-   rank; every rank encodes every frame and keeps its block; a decode's
-   self and cross attention each K2 over the rank's block, merged over
-   "data").  36-37 have 33's gates;
+   whisper_base at full size with 1500 frames on (4, 1) (375 frames a
+   rank, as the reference's rules cut them, stored in 384 slots, the pad
+   after them; every rank encodes every frame and keeps its block; a
+   decode's self and cross attention each K2 over the rank's block, the
+   cross attention's over its 375 frames, merged over "data"; each rank's
+   cache bytes are ``mesh.shard_bytes`` at 1500 frames plus the pad).
+   36-37 have 33's gates;
 38. qwen2_5_3b trained as phase 31 on the ("pod", "data", "model") mesh
    of (2, 1, 2): FSDP over ("pod", "data") pod-major, the bytes a rank
    gathers and reduces those of phase 31's (2, 2);
@@ -355,7 +365,7 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
 
 Each model is freed before the next is built.  It prints one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
-serving runs of 5, 5b, 6c, 6d, 8, 9b, 11, 14, 16 and 19, the 8 training
+serving runs of 5, 5b, 6c, 6d, 6e, 8, 9b, 11, 14, 16 and 19, the 8 training
 steps of phases 21 and 22, the ranks' prefills and decodes of phases 23,
 25-30 and 33-37 and the ranks' training steps of phases 31-32 and 38-39),
 the card's name and power limit, and
@@ -370,6 +380,7 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -2006,6 +2017,9 @@ def main() -> int:
     launches.update(serve_preempted(cfg, model, params, ("flash_attention", "paged_attention")))
     del model, params
     torch.cuda.empty_cache()
+    log("== 6e. the serve CLI in real mode: qwen2_5_3b, 8 requests sharing a 512-token prefix")
+    launches.update(serve_cli_prefix())
+    torch.cuda.empty_cache()
 
     log("== 7. mamba2_370m, full width and depth, bf16, random weights (seed 0)")
     cfg, model, params = build_full("mamba2_370m")
@@ -2134,10 +2148,11 @@ def main() -> int:
     seq_shard_against_head_dim()
     torch.cuda.empty_cache()
     log("== 37. context parallelism under the deferred append and over frames: recurrentgemma_2b "
-        "with kv_defer_append and whisper_base's cross cache, each on a (2, 1) mesh")
+        "with kv_defer_append on a (2, 1) mesh, whisper_base's cross cache on (4, 1)")
     launches.update(tensor_parallel("37a", SERVE_MESH))
     torch.cuda.empty_cache()
     launches.update(tensor_parallel("37b", SERVE_MESH))
+    frame_pad("37b")
     torch.cuda.empty_cache()
     log("== 38. qwen2_5_3b trained on a ('pod', 'data', 'model') mesh of (2, 1, 2): FSDP over "
         "('pod', 'data'), K1 and K1-bwd on every rank")
@@ -2680,6 +2695,61 @@ def serve_preempted(cfg, model, params, path_kernels, dtype=torch.bfloat16):
     compare_runs("preempted against unpressured", reqs, stack.runner.logits,
                  waves["roomy"][0], waves["roomy"][1].runner.logits, cfg.vocab_size)
     return {name: counts[name] for name in path_kernels}
+
+
+def serve_cli_prefix():
+    """Phase 6e: ``serve.main`` in real mode at full size, as a user runs
+    the CLI: qwen2_5_3b in bf16, 8 requests at 8 a second sharing a
+    512-token prefix, prefix caching on.  The stack and the requests are
+    kept through stand-ins for the CLI's ``build_stack`` and
+    ``synthesize``; the launch counts are set to 0 once the stack is built
+    (after the runner's warm-up) and read when the CLI returns.  Every
+    request must finish with its ``max_new_tokens`` tokens, the engine's
+    prefix cache must hit, and K1 and K2 must run.  Returns their
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    seen = {}
+    build, synthesize = serve.build_stack, serve.synthesize
+
+    def built(*a, **k):
+        seen["stack"] = build(*a, **k)
+        ops.reset_launch_counts()
+        return seen["stack"]
+
+    def synthesized(*a, **k):
+        seen["reqs"] = synthesize(*a, **k)
+        return seen["reqs"]
+
+    t0 = time.monotonic()
+    out = io.StringIO()
+    serve.build_stack, serve.synthesize = built, synthesized
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = serve.main(["--arch", "qwen2_5_3b", "--shared-prefix", "512",
+                                  "--num-requests", "8", "--qps", "8", "--json"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        serve.build_stack, serve.synthesize = build, synthesize
+    secs = time.monotonic() - t0
+    for line in out.getvalue().splitlines():
+        log(f"  serve: {line}")
+    reqs, engine = seen["reqs"], seen["stack"].engine
+    pc = engine.prefix_cache.stats
+    short = [(r.request_id, r.num_generated, r.max_new_tokens) for r in reqs
+             if not r.finished or r.num_generated != r.max_new_tokens]
+    if short or summary["num_requests"] != len(reqs):
+        raise AssertionError(f"requests unfinished or short of their tokens: {short}")
+    if pc.device_hits <= 0:
+        raise AssertionError(f"the CLI's prefix cache never hit: {pc}")
+    if counts["flash_attention"] <= 0 or counts["paged_attention"] <= 0:
+        raise AssertionError(f"K1 or K2 did not run while the CLI served: {counts}")
+    log(f"phase 6e: prefix hits {pc.device_hits} blocks ({pc.hit_tokens} of {pc.query_tokens} "
+        f"prompt tokens, cached_prefix_len {[r.cached_prefix_len for r in reqs]}), TTFT p50 "
+        f"{summary['ttft_p50_ms']:.3f} ms, {len(reqs)} requests, {secs:.1f} s; launches "
+        f"{dict(counts)}")
+    return {name: counts[name] for name in ("flash_attention", "paged_attention")}
 
 
 def time_rglru(cfg, params):
@@ -3239,12 +3309,12 @@ SERVE_MESH = {
             "runs K2 over the runs of the rank's block of the cache before the token, the "
             "token's own key counted on the rank whose block holds its slot, and the rank "
             "writes it after the layer"),
-    "37b": (["--arch", "whisper_base", "--mesh", "2,1", "--batch", "1", "--prompt", "64",
+    "37b": (["--arch", "whisper_base", "--mesh", "4,1", "--batch", "1", "--prompt", "64",
              "--frames", "1500", "--decodes", "4"],
-            "whisper_base at full size, batch 1 on 2 'data' ranks: 1500 frames (1504 padded, "
-            "752 slots a rank) and the decoder's 96 KV slots (48 a rank), every rank encoding "
-            "every frame; a decode runs K2 over the rank's block of its own and of the "
-            "frames, each merged over 'data'"),
+            "whisper_base at full size, batch 1 on 4 'data' ranks: 1500 frames, 375 a rank in "
+            "384 slots (the pad after them), and the decoder's 128 KV slots (32 a rank), every "
+            "rank encoding every frame; a decode runs K2 over the rank's block of its own and "
+            "of the frames (375 of them), each merged over 'data'"),
 }
 
 
@@ -3335,6 +3405,38 @@ def tensor_parallel(phase, table=TENSOR_PARALLEL):
 # phase: (rows, {what: bytes} rank 0 received in each decode), recorded by
 # tensor_parallel for phase 36's comparison
 DECODE_GATHERED = {}
+
+
+def frame_pad(phase):
+    """Phase 37b's cache in bytes: a rank's blocks by the cache rules at the
+    reference's frame count (``mesh.shard_bytes`` of the specs on a tree
+    whose cross cache holds 1500 frames, unpadded) and the pad of its block
+    of the frames, which must be the pad slots (``whole_pages(F / n) − F /
+    n``) of every layer's k and v exactly; ``parallel.check`` has held each
+    rank's allocated cache to their sum."""
+    from repro_torch.launch import mesh, parallel
+    from repro_torch.models.transformer import build_model, whole_pages
+    args = parallel.parse_args(SERVE_MESH[phase][0])
+    axes = parallel.mesh_axes(args)
+    cfg = parallel.model_config(args)
+    with mesh.use_mesh(None):
+        whole = parallel._init_cache(args, build_model(cfg), torch.bfloat16, "meta", None)
+    F, n = whole["cross_frames"], axes.sizes["data"]
+    ref = dict(whole)
+    for name in ("cross_k", "cross_v"):
+        shape = list(whole[name].shape)
+        shape[-3] = F
+        ref[name] = torch.empty(shape, dtype=whole[name].dtype, device="meta")
+    at_frames = mesh.shard_bytes(ref, mesh.cache_specs(whole, axes, batch=args.batch), axes)
+    (_, _), (_, c_sizes) = parallel.expected(args)
+    slots = whole_pages(F // n) - F // n
+    pad = 2 * cfg.num_layers * args.batch * slots * cfg.num_kv_heads * cfg.head_dim * 2
+    if sum(c_sizes) != at_frames + pad:
+        raise AssertionError(f"a rank's cache {sum(c_sizes)} bytes is not shard_bytes at {F} "
+                             f"frames {at_frames} plus the pad {pad}")
+    log(f"phase {phase}: a rank's cache {sum(c_sizes):,} bytes = mesh.shard_bytes at {F} frames "
+        f"{at_frames:,} + the pad {pad:,} ({slots} slots after its {F // n} frames, of "
+        f"{cfg.num_layers} layers' k and v)")
 
 
 def seq_shard_against_head_dim():

@@ -101,7 +101,7 @@ __all__ = ["MeshAxes", "Spec", "param_specs", "cache_specs", "batch_specs", "lea
            "named_specs", "shard_shape", "shard_bytes", "device_mesh", "use_mesh", "ambient_mesh",
            "model_placements", "shard_params", "build_params", "train_sharding", "whole_leaves",
            "model_coordinate", "data_coordinate", "batch_coordinate", "shard_cache",
-           "batch_rows", "mesh_axes", "seq_blocks"]
+           "batch_rows", "mesh_axes", "seq_blocks", "cache_shapes"]
 
 Spec = Tuple[Any, ...]
 
@@ -662,6 +662,40 @@ def build_params(model, generator: torch.Generator, dtype=torch.float32, device=
     return _walk(params, lambda name, leaf: _block(leaf, cuts[name], whole[name]))
 
 
+def _frame_dim(cache: Any, name: str, leaf) -> Optional[int]:
+    """The frame dimension of ``leaf`` where it is an encoder-decoder's
+    ``cross_k``/``cross_v`` (``cache`` holds ``cross_frames``), else None."""
+    frames = cache.get("cross_frames") if isinstance(cache, dict) else None
+    if frames is None or name.rsplit("/", 1)[-1] not in ("cross_k", "cross_v"):
+        return None
+    return leaf.dim() - 3
+
+
+def cache_shapes(cache: Any, axes: MeshAxes, *, batch: int,
+                 seq_shard: bool = False) -> Dict[str, Tuple[int, ...]]:
+    """{leaf name: the shape of a rank's block} of a cache tree by the cache
+    rules at ``batch`` rows (:func:`shard_cache` cuts these blocks): each
+    leaf's :func:`shard_shape` of its spec, an encoder-decoder's
+    ``cross_k``/``cross_v`` at the reference's ``cross_frames`` frames, the
+    block's frames then stored in whole pages of K2
+    (``transformer.whole_pages``: the one-process cache's padded row where
+    the rules leave the frames whole).  Their bytes are :func:`shard_bytes`
+    of the specs at the reference's frames plus the pad."""
+    from repro_torch.models.transformer import whole_pages
+    spec_of = named_specs(cache_specs(cache, axes, batch=batch, seq_shard=seq_shard))
+    out = {}
+    for name, leaf in leaves_with_names(cache):
+        shape = list(leaf.shape)
+        dim = _frame_dim(cache, name, leaf)
+        if dim is not None:
+            shape[dim] = cache["cross_frames"]
+        shape = list(shard_shape(shape, spec_of[name], axes))
+        if dim is not None:
+            shape[dim] = whole_pages(shape[dim])
+        out[name] = tuple(shape)
+    return out
+
+
 def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None,
                 seq_shard: bool = False) -> Any:
     """One rank's blocks of a cache tree by the cache rules
@@ -674,11 +708,16 @@ def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None,
     (context-parallel decode, the rest of the cache whole over the batch
     axes), and its "model" blocks: with ``seq_shard`` (the reference's
     ``kv_seq_shard``), where the batch axes divide ``batch``, the KV
-    sequence over "model" and the heads whole.  The specs are read from ``whole`` (the
-    whole tree, ``cache`` itself by default; the meta device will do), and
-    a dimension of ``cache`` already smaller than ``whole``'s (a rank's
-    heads, as ``init_cache(..., params=)`` cuts them) is kept as it is.
-    A cut leaf is a copy (a meta leaf stays on the meta device)."""
+    sequence over "model" and the heads whole.  An encoder-decoder's
+    frames are cut as the reference cuts its unpadded ``cross_frames``
+    (F / n frames a rank, from i·F / n), each block padded with zeros after
+    its frames to whole pages of K2 (:func:`cache_shapes`).  The specs are
+    read from ``whole`` (the whole tree, ``cache`` itself by default; the
+    meta device will do), and a dimension of ``cache`` already smaller than
+    ``whole``'s (a rank's heads, as ``init_cache(..., params=)`` cuts them)
+    is kept as it is.  A cut leaf is a copy (a meta leaf stays on the meta
+    device)."""
+    from repro_torch.models.transformer import whole_pages
     mesh = ambient_mesh() if mesh is None else mesh
     axes = mesh_axes(mesh)
     coord = {a: mesh[a].get_local_rank() for a in axes.names}
@@ -688,13 +727,21 @@ def shard_cache(cache: Any, mesh=None, *, batch: int, whole: Any = None,
 
     def cut(name, leaf):
         out = leaf
+        frame_dim = _frame_dim(whole, name, leaf)
         for i, entry in enumerate(spec_of[name]):
             if entry is None or out.shape[i] != whole_shape[name][i]:
                 continue
             k, n = 0, 1
             for a in (entry,) if isinstance(entry, str) else entry:
                 k, n = k * axes.sizes[a] + coord[a], n * axes.sizes[a]
-            out = out.narrow(i, k * (out.shape[i] // n), out.shape[i] // n)
+            if i != frame_dim:
+                out = out.narrow(i, k * (out.shape[i] // n), out.shape[i] // n)
+                continue
+            span = whole["cross_frames"] // n
+            out = out.narrow(i, k * span, span)
+            pad = list(out.shape)
+            pad[i] = whole_pages(span) - span
+            out = torch.cat([out, torch.zeros(pad, dtype=out.dtype, device=out.device)], i)
         if out is leaf:
             return leaf
         # a meta block needs no copy (and a meta copy of a view costs seconds of imports)
@@ -711,10 +758,12 @@ def seq_blocks(whole: Any, axes: MeshAxes, coords: Dict[str, int], *, batch: int
     layers' KV slots, "cross_block": an encoder-decoder's frames}, each a
     ``models.transformer.SeqBlock`` over the axis that the rules place the
     slot dimension on ("data" for context parallelism, "model" under
-    ``seq_shard``), and only where one of more than one rank does.  Raises
-    unless a block is a whole number of K2's pages, naming the leaf:
-    whisper's frames, padded to 1504, split so over 2 ranks (752 slots,
-    where the reference's 1500 give 750), not over 4 (376)."""
+    ``seq_shard``), and only where one of more than one rank does.  A block
+    of the frames counts the reference's ``cross_frames`` (whisper's 1500:
+    750 a rank over 2, 375 over 4, stored in whole pages of K2; the rules
+    leave them whole over 8 or 16).  Raises unless a block of the KV
+    sequence is a whole number of K2's pages, naming the leaf: a rank's
+    slots are read by page, and no reference cell cuts them otherwise."""
     from repro_torch.models.transformer import PAGE_SIZE, SeqBlock
     spec_of = named_specs(cache_specs(whole, axes, batch=batch, seq_shard=seq_shard))
     out: Dict[str, Any] = {}
@@ -723,13 +772,17 @@ def seq_blocks(whole: Any, axes: MeshAxes, coords: Dict[str, int], *, batch: int
         axis = spec_of[name][leaf.dim() - 3] if kind in ("k", "cross_k") else None
         if axis is None or axes.sizes[axis] == 1:
             continue
-        S, n = leaf.shape[-3], axes.sizes[axis]
-        if S % n or (S // n) % PAGE_SIZE:
-            raise ValueError(f"{name} {tuple(leaf.shape)}: a block of {S / n:g} of {S} slots a "
-                             f"rank over {axis!r} is not a whole number of K2's pages of "
-                             f"{PAGE_SIZE}")
-        key = "cross_block" if kind == "cross_k" else "seq_block"
-        block = SeqBlock(coords.get(axis, 0), n, S, axis)
+        n = axes.sizes[axis]
+        if kind == "cross_k":
+            key, block = "cross_block", SeqBlock(coords.get(axis, 0), n, whole["cross_frames"],
+                                                 axis)
+        else:
+            S = leaf.shape[-3]
+            if S % n or (S // n) % PAGE_SIZE:
+                raise ValueError(f"{name} {tuple(leaf.shape)}: a block of {S / n:g} of {S} "
+                                 f"slots a rank over {axis!r} is not a whole number of K2's "
+                                 f"pages of {PAGE_SIZE}")
+            key, block = "seq_block", SeqBlock(coords.get(axis, 0), n, S, axis)
         if out.setdefault(key, block) != block:
             raise ValueError(f"{name}: the attention layers' caches are cut unlike {out[key]}")
     return out

@@ -527,8 +527,9 @@ def expected(args: argparse.Namespace):
     cache, and the bytes of each tensor), from the whole trees on the meta
     device: each leaf the :func:`~repro_torch.launch.mesh.shard_shape` of its
     serve placement at the ranks' mesh (:func:`mesh_axes`; the cache's by
-    the cache rules at ``--batch``, which is
-    :func:`~repro_torch.launch.mesh.shard_bytes` of the specs), after
+    the cache rules at ``--batch``, :func:`~repro_torch.launch.mesh.cache_shapes`:
+    :func:`~repro_torch.launch.mesh.shard_bytes` of the specs, and an
+    encoder-decoder's block of the frames padded to whole pages), after
     :func:`~repro_torch.launch.mesh.model_placements` has said that a layer
     runs every placement."""
     import torch
@@ -544,13 +545,13 @@ def expected(args: argparse.Namespace):
         cache = _init_cache(args, model, dtype, "meta", None)
     mesh.model_placements(params, axes.model_size(), "serve", axes.sizes["data"],
                           axes.sizes.get("pod", 1))
+    spec_of = mesh.named_specs(mesh.param_specs(params, axes, "serve"))
     out = []
-    for tree, specs in ((params, mesh.param_specs(params, axes, "serve")),
-                        (cache, mesh.cache_specs(cache, axes, batch=args.batch,
-                                                 seq_shard=seq_shard(args)))):
-        spec_of = mesh.named_specs(specs)
-        shapes = {name: mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
-                  for name, leaf in mesh.leaves_with_names(tree)}
+    for tree, shapes in (
+            (params, {name: mesh.shard_shape(tuple(leaf.shape), spec_of[name], axes)
+                      for name, leaf in mesh.leaves_with_names(params)}),
+            (cache, mesh.cache_shapes(cache, axes, batch=args.batch,
+                                      seq_shard=seq_shard(args)))):
         sizes = [int(np.prod(shapes[name])) * leaf.element_size()
                  for name, leaf in mesh.leaves_with_names(tree)]
         out.append((shapes, sizes))
@@ -570,7 +571,7 @@ def kernel_launches(args: argparse.Namespace, coords: Optional[Dict[str, int]] =
     block that the decode's query sees (``transformer.block_runs``, of the
     cache before the token under ``kv_defer_append``), none for a block the
     query sees nothing of; over a block of the frames, once a cross
-    attention where the block holds a real frame."""
+    attention over the block's frames."""
     import torch
 
     from repro_torch.launch import mesh
@@ -591,9 +592,7 @@ def kernel_launches(args: argparse.Namespace, coords: Optional[Dict[str, int]] =
         own = n_attn if block is None else n_attn * len(block_runs(
             [args.prompt + t], block, cfg.sliding_window, cfg.kv_append == "defer"))
         if cfg.is_enc_dec:
-            xb = blocks.get("cross_block")
-            frames = whole["cross_frames"]
-            own += n_attn * int(xb is None or frames > xb.lo)
+            own += n_attn
         k2.append(own)
     return {"flash_attention": k1, "ssd_scan": n_ssd}, [{"paged_attention": n} for n in k2]
 

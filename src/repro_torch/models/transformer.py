@@ -73,9 +73,11 @@ decode writes the token where its block holds slot p % S, runs K2 over
 each run of its block that the query sees (:func:`block_runs`: a ring's
 block may hold two) with their lse, and the ranks' attention is merged
 over "data" (:func:`_block_decode`, ``layers.merge_blocks``).  An
-encoder-decoder's cross cache is cut on its frames the same way: every
-rank encodes every frame and keeps its block, and a decode runs K2 over
-the block's frames and merges (:func:`_block_cross`).  Under the deferred
+encoder-decoder's cross cache is cut on its frames the same way, at the
+reference's frame count (whisper's 1500 give 375 a rank over 4, stored in
+384 slots, the pad after them): every rank encodes every frame and keeps
+its block, and a decode runs K2 over the block's frames and merges
+(:func:`_block_cross`).  Under the deferred
 append a decode reads its block of the cache before the token
 (``block_runs(..., deferred=True)``), the token's own key is counted on the
 rank whose block holds its slot, and that rank alone writes it after the
@@ -162,6 +164,12 @@ ATTN_KINDS = ("attn", "local_attn")
 RECURRENT_KINDS = ("ssd", "rglru")
 
 MOE_IMPLS = ("ragged", "a2a")
+
+
+def whole_pages(n: int) -> int:
+    """The slots that hold ``n`` positions or frames in whole pages of K2,
+    the pad after them (whisper's 1500 frames in 1504, 375 in 384)."""
+    return -(-n // PAGE_SIZE) * PAGE_SIZE
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -270,13 +278,17 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, cache_size: int, dtype,
 @dataclass(frozen=True)
 class SeqBlock:
     """A serving rank's block of every attention layer's KV sequence (or
-    of an encoder-decoder's cross cache's frames): the physical slots
-    [lo, hi) of each row's ``whole`` (a ring's or a linear row's), block
-    ``index`` of ``count`` over ``axis``, as the cache rules place k, v
-    and kv_pos: over "data" where the batch axes do not divide the batch
-    (context-parallel decode), over "model" under ``kv_seq_shard`` where
-    they do.  ``init_cache`` keeps it in the cache under "seq_block" (the
-    cross cache's under "cross_block"), a leaf that is not a tensor."""
+    of an encoder-decoder's cross cache's frames): positions [lo, hi) of
+    each row's ``whole`` (a ring's or a linear row's S slots, or the F real
+    frames), block ``index`` of ``count`` over ``axis``, as the cache rules
+    place k, v and kv_pos: over "data" where the batch axes do not divide
+    the batch (context-parallel decode), over "model" under
+    ``kv_seq_shard`` where they do.  The rank stores its ``span``
+    positions in ``size`` slots, whole pages of K2, the pad after them and
+    never read: none for the KV sequence, whose blocks must be whole pages;
+    a block of whisper's 1500 frames over 4 ranks holds 375 in 384 slots.
+    ``init_cache`` keeps it in the cache under "seq_block" (the cross
+    cache's under "cross_block"), a leaf that is not a tensor."""
 
     index: int
     count: int
@@ -284,16 +296,20 @@ class SeqBlock:
     axis: str = "data"
 
     @property
-    def size(self) -> int:
+    def span(self) -> int:
         return self.whole // self.count
 
     @property
+    def size(self) -> int:
+        return whole_pages(self.span)
+
+    @property
     def lo(self) -> int:
-        return self.index * self.size
+        return self.index * self.span
 
     @property
     def hi(self) -> int:
-        return self.lo + self.size
+        return self.lo + self.span
 
 
 def block_runs(positions, block: SeqBlock, window: Optional[int], deferred: bool = False):
@@ -375,13 +391,16 @@ def _merged(block: SeqBlock, out, lse):
 
 
 def _gather_blocks(block: SeqBlock, leaves: Dict) -> Dict:
-    """Whole rows of a rank's blocks of cache leaves (.., B, S / count, ..):
-    each gathered over ``block.axis`` on the slot dimension
-    (``GATHERED["kv_prefix"]``)."""
+    """Whole rows of a rank's blocks of cache leaves (.., B, block.size, ..):
+    each block's ``span`` positions, its pad dropped, gathered over
+    ``block.axis`` on the slot dimension in order
+    (``GATHERED["kv_prefix"]``, the bytes gathered)."""
     group = _block_group(block)
     whole = {}
     for name, t in leaves.items():
         dim = t.dim() - (1 if name == "kv_pos" else 3)
+        if block.span != t.shape[dim]:
+            t = t.narrow(dim, 0, block.span)
         L.GATHERED["kv_prefix"] += t.numel() * t.element_size() * (block.count - 1)
         whole[name] = L._all_gather(t, dim, group)
     return whole
@@ -851,25 +870,19 @@ def _cross_attention(cfg: ModelConfig, cp: Dict, kv: Dict, x, step: CacheStep,
 
 def _block_cross(heads: L.AttnHeads, q, kv: Dict, step: CacheStep, force):
     """A decode's cross-attention on a rank that holds a block of the
-    frames (``kv["block"]``): K2 over the real frames of the block (none
-    where the padding fills it: lse -inf), no window, merged over the
-    block's axis; over "model" for every query head of a cache of every KV
-    head, the rank keeping its own, as :func:`_block_decode` does.
-    Returns (n, 1, Hq, D) fp32."""
+    frames (``kv["block"]``): K2 over the block's ``span`` real frames (its
+    pad, after them, unread), no window, merged over the block's axis;
+    over "model" for every query head of a cache of every KV head, the rank
+    keeping its own, as :func:`_block_decode` does.  Returns (n, 1, Hq, D)
+    fp32."""
     block, rows = kv["block"], step.rows
     n = rows.shape[0]
     q, kc, vc, at = _block_keys(heads, q, kv["k"], kv["v"], rows, block)
-    valid = min(max(kv["frames"] - block.lo, 0), block.size)
-    if valid:
-        per = block.size // PAGE_SIZE
-        tables = (at[:, None] * per + torch.arange(per, device=rows.device)).int()
-        lens = torch.full((n,), valid, dtype=torch.int32, device=rows.device)
-        out, lse = _paged(q, kc, vc, tables, lens, None, force, return_lse=True)
-        out = out.float()
-    else:
-        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        lse = torch.full(q.shape[:-1], -math.inf, dtype=torch.float32, device=q.device)
-    ctx = _merged(block, out, lse)
+    per = block.size // PAGE_SIZE
+    tables = (at[:, None] * per + torch.arange(per, device=rows.device)).int()
+    lens = torch.full((n,), block.span, dtype=torch.int32, device=rows.device)
+    out, lse = _paged(q, kc, vc, tables, lens, None, force, return_lse=True)
+    ctx = _merged(block, out.float(), lse)
     return heads.own_q(ctx) if block.axis == "model" else ctx
 
 
@@ -1354,7 +1367,7 @@ class EncDecLM:
         attention's), the config's without them.  Under a mesh with batch
         axes, or with ``seq_shard``, this rank's blocks of it
         (:func:`_placed_cache`): its rows, or its block of the KV sequence and
-        of the frames."""
+        of the frames (F / n of them, padded after them to whole pages)."""
         if cache_size % PAGE_SIZE:
             raise ValueError(f"cache_size {cache_size} must be a multiple of "
                              f"the page size {PAGE_SIZE}")
@@ -1365,7 +1378,7 @@ class EncDecLM:
     def _cache(self, batch, cache_size, dtype, device, enc_frames, params):
         cfg = self.cfg
         F = enc_frames or cfg.encoder.max_source_positions
-        F_pad = -(-F // PAGE_SIZE) * PAGE_SIZE
+        F_pad = whole_pages(F)
         heads = ((cfg.num_kv_heads, cfg.head_dim) if params is None
                  else tuple(params["cross"]["attn"]["wk"].shape[-2:]))
         xk = torch.zeros((cfg.num_layers, batch, F_pad) + heads, dtype=dtype, device=device)
@@ -1418,14 +1431,13 @@ class EncDecLM:
                 cache["cross_v"][:, :, :F] = cv.to(cache["cross_v"].dtype)
             else:
                 # every rank encoded every frame: it keeps its block of them
-                # (every KV head over "model") and attends over them all now
+                # (every KV head over "model"), the block's pad after them,
+                # and attends over them all now
                 heads = L.attn_heads(self.cfg, _layer(params["cross"], 0)["attn"])
-                hi = min(xb.hi, F)
                 for name, t in (("cross_k", ck), ("cross_v", cv)):
                     if xb.axis == "model":
                         t = heads.whole_kv(t)
-                    if hi > xb.lo:
-                        cache[name][:, :, :hi - xb.lo] = t[:, :, xb.lo:hi].to(cache[name].dtype)
+                    cache[name][:, :, :xb.span] = t[:, :, xb.lo:xb.hi].to(cache[name].dtype)
                 fresh = (ck, cv)
         if T == 1:
             rows = torch.arange(B, device=tokens.device)
@@ -1481,8 +1493,9 @@ def _placed_cache(cfg: ModelConfig, batch: int, device, params, build,
     ``seq_shard``, where the batch axes divide ``batch``, its block of the
     KV slots (and frames) over "model" of every KV head whole.  A block is
     a :class:`SeqBlock` in the cache's "seq_block" (the frames' in
-    "cross_block").  Raises unless a block is a whole number of K2's pages,
-    naming the leaf."""
+    "cross_block": the reference's F / n frames a rank, in whole pages of
+    K2, the pad after them).  Raises unless a block of the KV sequence is a
+    whole number of K2's pages, naming the leaf."""
     mesh = L.ambient_mesh()
     if L.batch_coordinate(mesh)[1] == 1 and not (seq_shard and L.model_coordinate(mesh)[1] > 1):
         return build(device, params)

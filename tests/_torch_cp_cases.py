@@ -180,8 +180,10 @@ def check_logits(entry):
 
 def check_blocks(entry):
     """Each rank's cache shapes are ``shard_shape`` of the rules in force
-    (``kv_seq_shard`` included); it holds the block of the KV sequence and
-    of the frames the rules place (over "model" where the batch axes divide
+    (``kv_seq_shard`` included), an encoder-decoder's block of the frames
+    at the reference's frame count, F / n, stored in whole pages of K2
+    (``mesh.cache_shapes``); it holds the block of the KV sequence and of
+    the frames the rules place (over "model" where the batch axes divide
     the batch under ``kv_seq_shard``, with every KV head whole; over "data"
     where they do not), and the exchange over that axis ran under its name:
     "seq_shard" over "model", "merge" over "data"."""
@@ -195,16 +197,24 @@ def check_blocks(entry):
               for n, leaf in mesh.leaves_with_names(whole)}
     model_axis = seq_shard and B % sizes[0] == 0
     axis = "model" if model_axis else "data"
+    n_axis = sizes[names.index(axis)]
+    if case["frames"] is not None:
+        F = case["frames"].shape[1]
+        span = F // n_axis
+        for leaf in ("cross_k", "cross_v"):
+            expect[leaf] = expect[leaf][:2] + (transformer.whole_pages(span),) + expect[leaf][3:]
+        assert mesh.cache_shapes(whole, axes, batch=B, seq_shard=seq_shard) == expect
     for r in ranks:
         assert r["cache"] == expect
         for key, leaf in (("block", "k"), ("cross_block", "cross_k")):
             if key == "cross_block" and case["frames"] is None:
                 assert r[key] is None
                 continue
-            S = next(t.shape[-3] for nm, t in mesh.leaves_with_names(whole)
-                     if nm.rsplit("/", 1)[-1] == leaf)
-            assert r[key] == SeqBlock(r["coords"][axis], sizes[names.index(axis)], S, axis), (
-                key, r["coords"])
+            S = F if key == "cross_block" else next(
+                t.shape[-3] for nm, t in mesh.leaves_with_names(whole)
+                if nm.rsplit("/", 1)[-1] == leaf)
+            assert r[key] == SeqBlock(r["coords"][axis], n_axis, S, axis), (key, r["coords"])
+            assert (r[key].lo, r[key].span) == (r["coords"][axis] * S // n_axis, S // n_axis)
         if model_axis:
             kv = next(s for nm, s in r["cache"].items() if nm.rsplit("/", 1)[-1] == "k")
             assert kv[-2] == case["cfg"].num_kv_heads and r["gathered"]["seq_shard"] > 0
@@ -218,17 +228,29 @@ def check_cache(entry):
     block of the one-process cache by the rules in force
     (``mesh.shard_cache``): its rows and its slots of each row's K, V and
     ``kv_pos`` (the tags exactly), every KV head where "model" cuts the
-    slots, and its block of the frames; under the deferred append too,
-    where each rank writes only the positions whose slots it holds."""
+    slots, and its block of the frames (frames i·F / n .. (i + 1)·F / n of
+    the one-process row, the block's pad excluded, and zero); under the
+    deferred append too, where each rank writes only the positions whose
+    slots it holds."""
     case, ranks, (_, kept), _ = entry
     names, sizes = case["mesh"]
     B = case["prompt"].shape[0]
     for r in ranks:
         fake = _Coords(names, sizes, r["coords"])
+        xb = r["cross_block"]
         for when, (got, whole) in enumerate(zip(r["cache_values"], kept)):
+            whole = dict(whole)
+            if case["frames"] is not None:
+                whole["cross_frames"] = case["frames"].shape[1]
             exp = dict(mesh.leaves_with_names(mesh.shard_cache(
-                dict(whole), fake, batch=B, seq_shard=case["seq_shard"])))
+                whole, fake, batch=B, seq_shard=case["seq_shard"])))
             assert got.keys() == exp.keys()
+            got = dict(got)
+            for n in ("cross_k", "cross_v") if xb is not None else ():
+                assert not got[n][:, :, xb.span:].any(), (n, when, r["coords"])
+                got[n], exp[n] = got[n][:, :, :xb.span], exp[n][:, :, :xb.span]
+                torch.testing.assert_close(exp[n], kept[when][n][:, :, xb.lo:xb.hi], rtol=0,
+                                           atol=0)
             for n in exp:
                 if got[n].dtype.is_floating_point:
                     torch.testing.assert_close(got[n], exp[n], rtol=1e-4, atol=1e-4,

@@ -15,7 +15,10 @@ in one launch of ``tests/_torch_serve_mesh_worker.py``):
 * reduced ``whisper_base`` with 32 frames a row: at batch 1 on (2, 1), its
   self-attention cache and its cross cache over "data"; at batch 2 on
   (1, 2) under ``kv_seq_shard``, both over "model"; a second prefill chunk
-  without frames gathers the frames' blocks.
+  without frames gathers the frames' blocks.  The same at (4, 1) and
+  (1, 4) with 36 frames, whose quarter (9) is not whole pages: each rank
+  holds its 9 frames in 16 slots, the pad after them, as whisper's 1500
+  frames give 375 a rank in 384 slots.
 
 Each is held as in ``tests/test_torch_seq_shard.py``: logits at every step
 within 2e-4 of one process and 2e-3 of JAX, cache shapes and blocks by the
@@ -46,6 +49,10 @@ CASES = {
     "whisper_base_cross_2x1": ("whisper_base", DM, (2, 1), 1, (12, 4), 32, {"frames": 32}),
     "whisper_base_cross_seq_shard_1x2": ("whisper_base", DM, (1, 2), 2, (12, 4), 32,
                                          dict(SS, frames=32)),
+    # 36 frames: 9 a rank, stored in a page of 16 slots, the pad after them
+    "whisper_base_cross_4x1": ("whisper_base", DM, (4, 1), 1, (12, 4), 64, {"frames": 36}),
+    "whisper_base_cross_seq_shard_1x4": ("whisper_base", DM, (1, 4), 2, (12, 4), 64,
+                                         dict(SS, frames=36)),
 }
 
 
@@ -92,3 +99,11 @@ def test_launcher_serves_frames_over_data_on_cpu_ranks():
     phase 37 runs it on the card, at reduced size (``cp.check_launcher``)."""
     cp.check_launcher(["--arch", "whisper_base", "--mesh", "2,1", "--batch", "1", "--prompt",
                        "12", "--frames", "32"])
+
+
+def test_launcher_serves_frames_over_four_data_ranks_on_cpu_ranks():
+    """The same at (4, 1), as phase 37b runs it on the card: 36 frames, 9
+    a rank in 16 slots (``cp.check_launcher``; ``parallel.check`` holds
+    each rank's cache shapes to ``mesh.cache_shapes``)."""
+    cp.check_launcher(["--arch", "whisper_base", "--mesh", "4,1", "--batch", "1", "--prompt",
+                       "12", "--frames", "36"])

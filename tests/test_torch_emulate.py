@@ -163,7 +163,7 @@ def test_serve_cli_emulates_full_llama3_8b_without_weights(monkeypatch, capsys):
     summary = serve.main(["--mode", "emulate", "--arch", "llama3_8b",
                           "--num-requests", "24", "--qps", "4", "--json"])
     assert summary["num_requests"] == 24
-    assert summary["arch"] == "llama3_8b" and summary["chip"] == "h100-sxm"
+    assert summary["arch"] == "llama3_8b" and summary["chip"] == "h200-sxm"
     assert summary["makespan_virtual_s"] > summary["wall_s"]
     assert '"mode": "emulate"' in capsys.readouterr().out
 

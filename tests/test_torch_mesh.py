@@ -289,3 +289,62 @@ def test_seq_shard_cache_blocks_at_a_mesh(arch, which):
             axis = "model" if shard_batch else "data"
             assert seq == SeqBlock(sizes[names.index(axis)] - 1, sizes[names.index(axis)],
                                    seq.whole, axis), cell
+
+
+@pytest.mark.parametrize("n", [2, 4, 16])
+@pytest.mark.parametrize("axis", ["data", "model"])
+def test_whisper_frames_cut_on_the_reference_count(axis, n):
+    """whisper_base at full size with its 1500 frames on the meta device, at
+    n ranks of the axis the rules cut the frames on: "data" at batch 1
+    (context parallelism), "model" under ``kv_seq_shard``.  The rules place
+    the frames as the reference's do (16 ranks leave them whole, 1500 not
+    dividing by 16); ``seq_blocks`` gives a block of 750 frames in 752
+    slots at 2 ranks and 375 in 384 at 4; the rank's cache holds
+    ``shard_bytes`` of the specs at 1500 frames plus the pad, stated here
+    in bytes: the pad slots (2 at 2 ranks, 9 at 4, the one-process row's 4
+    at 16) of every layer's k and v, each slot a row of the rank's heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import SeqBlock, whole_pages
+    from test_torch_serve_mesh import _Coords
+    names, sizes = ("data", "model"), ((n, 1) if axis == "data" else (1, n))
+    ax, ref_ax = mesh.MeshAxes(names, sizes), jmesh.MeshAxes(_StandInMesh(names, sizes))
+    seq_shard = axis == "model"
+    cfg = get_config("whisper_base")
+    model = build_model(cfg)
+    B, S, dtype = 1, 256, torch.bfloat16
+    whole = model.init_cache(B, S, dtype, "meta")
+    assert whole["cross_frames"] == 1500 and whole["cross_k"].shape[2] == 1504
+    coords = {a: s - 1 for a, s in zip(names, sizes)}
+    with mesh.use_mesh(_Coords(names, sizes, coords)):
+        held = model.init_cache(B, S, dtype, "meta", seq_shard=seq_shard)
+    specs = mesh.cache_specs(whole, ax, batch=B, seq_shard=seq_shard)
+    ref_spec = tuple(jmesh._cache_spec("cross_k", tuple(whole["cross_k"].shape[:2]) + (1500,)
+                                       + tuple(whole["cross_k"].shape[3:]), ref_ax,
+                                       shard_batch=axis == "model", seq_shard=seq_shard))
+    assert specs["cross_k"] == specs["cross_v"] == ref_spec
+    blocks = mesh.seq_blocks(whole, ax, coords, batch=B, seq_shard=seq_shard)
+    assert blocks["seq_block"] == SeqBlock(n - 1, n, S, axis) == held["seq_block"]
+    slots = {2: 752, 4: 384, 16: 1504}[n]
+    if n == 16:
+        assert ref_spec[-3] is None and "cross_block" not in blocks and "cross_block" not in held
+    else:
+        assert ref_spec[-3] == axis
+        span = {2: 750, 4: 375}[n]
+        xb = blocks["cross_block"]
+        assert xb == SeqBlock(n - 1, n, 1500, axis) == held["cross_block"]
+        assert (xb.span, xb.size, xb.lo, xb.hi) == (span, slots, 1500 - span, 1500)
+    assert held["cross_k"].shape[2] == slots == whole_pages(1500 // (1 if n == 16 else n))
+    # the reference's tree: the cross cache at its 1500 frames, unpadded
+    reference = dict(whole, cross_k=torch.empty(whole["cross_k"].shape[:2] + (1500,)
+                                                + whole["cross_k"].shape[3:], dtype=dtype,
+                                                device="meta"))
+    reference["cross_v"] = reference["cross_k"]
+    heads, head_dim = cfg.num_kv_heads, cfg.head_dim
+    if n == 16 and axis == "model":
+        head_dim //= n                  # the rules put the frames' "model" cut on head_dim
+    pad = {2: 2, 4: 9, 16: 4}[n]
+    pad_bytes = 2 * cfg.num_layers * B * pad * heads * head_dim * 2
+    held_bytes = sum(t.numel() * t.element_size() for _, t in mesh.leaves_with_names(held))
+    assert held_bytes == mesh.shard_bytes(reference, specs, ax) + pad_bytes
+    assert dict((k, tuple(t.shape)) for k, t in mesh.leaves_with_names(held)) == \
+        mesh.cache_shapes(whole, ax, batch=B, seq_shard=seq_shard)

@@ -342,11 +342,11 @@ def _in_process(cfg, names, sizes, coords, B, cache_size, **kw):
 
 
 def test_what_context_parallelism_does_not_run_raises():
-    """A block of the KV sequence or of the frames that is not a whole
-    number of K2's pages raises, naming the leaf: 64 linear slots over 8
-    "data" ranks, whisper's 1500 frames over 4 "model" ranks under
-    ``kv_seq_shard`` (the reference's rule divides 1500; the port's 1504
-    padded slots give 376 a rank).  ``kv_append="defer"`` and an
+    """A block of the KV sequence that is not a whole number of K2's
+    pages raises, naming the leaf: 64 linear slots over 8 "data" ranks.  A
+    block of the frames need not be: whisper's 1500 frames over 4 "model"
+    ranks under ``kv_seq_shard`` give 375 a rank, as the reference's rule
+    cuts them, stored in 384 slots.  ``kv_append="defer"`` and an
     encoder-decoder's cross cache, which raised until context parallelism
     ran them (tests/test_torch_defer_mesh.py), build with their blocks;
     an encoder-decoder's rows over "data" build as before."""
@@ -355,8 +355,10 @@ def test_what_context_parallelism_does_not_run_raises():
         _in_process(get_reduced_config("llama3_8b"), DM, (8, 1), coords, 1, 64)
     small = get_reduced_config("whisper_base")
     whisper = small.replace(encoder=dataclasses.replace(small.encoder, max_source_positions=1500))
-    with pytest.raises(ValueError, match="cross_k.*376 of 1504 slots"):
-        _in_process(whisper, DM, (1, 4), {"data": 0, "model": 1}, 4, 64, seq_shard=True)
+    quarter = _in_process(whisper, DM, (1, 4), {"data": 0, "model": 1}, 4, 64, seq_shard=True)
+    assert quarter["cross_block"] == transformer.SeqBlock(1, 4, 1500, "model")
+    assert (quarter["cross_block"].lo, quarter["cross_block"].span) == (375, 375)
+    assert quarter["cross_k"].shape[2] == 384 and quarter["cross_frames"] == 1500
     defer = _in_process(get_reduced_config("llama3_8b").replace(kv_append="defer"), DM, (2, 1),
                         coords, 1, 64)
     assert defer["seq_block"] == transformer.SeqBlock(1, 2, 64)
