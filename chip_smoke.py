@@ -353,7 +353,13 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    decode's self and cross attention each K2 over the rank's block, the
    cross attention's over its 375 frames, merged over "data"; each rank's
    cache bytes are ``mesh.shard_bytes`` at 1500 frames plus the pad).
-   36-37 have 33's gates;
+   36-37 have 33's gates.  In 31, 33 and 36 every collective each rank
+   issued at each step (a training step; the prefill and each decode),
+   its result bytes and ops by kind as ``layers.record_collective``
+   counts them, must equal the census of the same rank's program on the
+   meta device (``launch.rank_cost``, run here in a stand-in process group
+   of the mesh's size; 33's gathers of the experts' d sized as the rank
+   recorded them), exactly;
 38. qwen2_5_3b trained as phase 31 on the ("pod", "data", "model") mesh
    of (2, 1, 2): FSDP over ("pod", "data") pod-major, the bytes a rank
    gathers and reduces those of phase 31's (2, 2);
@@ -364,6 +370,8 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    K1-bwd 36 launches a step on every rank.  38-39 have 31's gates.
 
 Each model is freed before the next is built.  It prints one JSON
+``census`` line (each rank of 31, 33 and 36: its coordinates, its steps,
+the bytes and ops it issued by kind, summed over them), one JSON
 ``kernels`` line (K1, K1-bwd, K2, K3 and K3-bwd; launches summed over the
 serving runs of 5, 5b, 6c, 6d, 6e, 8, 9b, 11, 14, 16 and 19, the 8 training
 steps of phases 21 and 22, the ranks' prefills and decodes of phases 23,
@@ -2171,6 +2179,7 @@ def main() -> int:
             f"serving and training paths, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, plain "
             f"{k['plain_ms']:.4f} ms, library {library}, max abs err {k['max_abs_err']:.3e}")
     log(f"total {time.monotonic() - t_start:.1f} s")
+    print(json.dumps({"census": CENSUS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3397,6 +3406,8 @@ def tensor_parallel(phase, table=TENSOR_PARALLEL):
     # so the bf16 gate would not tell a wrong split from a reordered sum
     tol = 5e-2 if args.dtype == "bfloat16" else 2e-3
     launches = parallel.check(args, ranks, ref, tol)
+    if phase in CENSUS_PHASES:
+        hold_census(phase, args, ranks)
     DECODE_GATHERED[phase] = (args.batch, ranks[0]["decode"]["gathered"])
     log(f"phase {phase} passed at {tol}: launches {dict(launches)}")
     return launches
@@ -3536,9 +3547,74 @@ def train_mesh(phase):
     if train.model_config(args, quiet=True).ssm is not None:
         exact_witness(args, ranks, ref)
     launches = train.check(args, ranks, ref, errs, loss_tol=1e-4, norm_tol=1e-3, leaf_tol=1e-3)
+    if phase in CENSUS_PHASES:
+        hold_census(phase, args, ranks)
     log(f"phase {phase} passed: launches {dict(launches)}, on each rank "
         f"{ {k: n for k, n in train.kernel_launches(args).items() if n} } a step")
     return launches
+
+
+# the phases whose ranks' collectives are held against their census on the
+# meta device (hold_census), and what each rank issued, summed over its steps
+CENSUS_PHASES = (31, 33, 36)
+CENSUS = {}
+
+
+def hold_census(phase, args, ranks):
+    """Phases 31, 33 and 36: what each rank issued on the card, the result
+    bytes and the ops by kind of every collective of each step (a training
+    step; a prefill and each decode), recorded by
+    ``layers.record_collective``, against the census of the same rank's
+    program on the meta device (``launch.rank_cost``: ``train_program``,
+    ``serve_program`` with the experts' gathers sized as the rank recorded
+    them), exactly.  The census runs here, in a stand-in process group of
+    the mesh's size."""
+    from repro_torch.launch import parallel, rank_cost, train
+    t0 = time.monotonic()
+    train_phase = phase in TRAIN_MESH
+    axes = (train if train_phase else parallel).mesh_axes(args)
+    out = []
+    for r in ranks:
+        if train_phase:
+            d, m = r["coords"]
+            coords = {"model": m}
+            for a in reversed(axes.names[:-1]):     # the batch coordinate is pod-major
+                coords[a], d = d % axes.sizes[a], d // axes.sizes[a]
+            coords = {a: coords[a] for a in axes.names}
+            cfg = train.model_config(args, quiet=True)
+            batch = {k: torch.empty((args.batch, args.seq), dtype=torch.int64, device="meta")
+                     for k in ("tokens", "labels")}
+            if args.frames:
+                batch["frontend_embeds"] = torch.empty((args.batch, args.frames, cfg.d_model),
+                                                       device="meta")
+            real = [h["census"] for h in r["history"]]
+            meta = [rank_cost.census(axes, coords, lambda: rank_cost.train_program(
+                cfg, batch, args.microbatches, dtype=torch.float32))] * len(real)
+        else:
+            coords = r["coords"]
+            cfg = parallel.model_config(args, parallel.moe_impl(args),
+                                        parallel.capacity_factors(args)[0])
+            kept = r["prefill"][0]["kept"] + [k for step in r["decode"]["kept"] for k in step]
+            real = [r["prefill"][0]["census"]] + r["decode"]["census"]
+            meta = rank_cost.census(axes, coords, lambda: rank_cost.serve_program(
+                cfg, args.batch, parallel.cache_len(args), [args.prompt] + [1] * args.decodes,
+                dtype=getattr(torch, args.dtype), seq_shard=parallel.seq_shard(args),
+                frames=args.frames, kept=kept))
+        for step, (got, exp) in enumerate(zip(real, meta)):
+            for key in ("bytes_by_op", "ops_by_op"):
+                if got[key] != exp[key]:
+                    raise AssertionError(f"phase {phase} rank at {coords} step {step}: {key} "
+                                         f"issued on the card {got[key]}, census {exp[key]}")
+        summed = {key: {k: sum(step[key][k] for step in real) for k in real[0][key]
+                        if any(step[key][k] for step in real)}
+                  for key in ("bytes_by_op", "ops_by_op")}
+        out.append(dict(coords=coords, steps=len(real), **summed))
+        log(f"phase {phase} rank at {coords}: {len(real)} steps issued {summed['bytes_by_op']} "
+            f"bytes in {summed['ops_by_op']} ops on the card, the census on the meta device "
+            f"the same, step for step")
+    CENSUS[phase] = out
+    log(f"phase {phase}: the census of {len(ranks)} ranks on the meta device held exactly, "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 # a leaf of the ranks' step-1 gradient may lie this many times as far from

@@ -2,8 +2,10 @@
 
 For each (architecture × shape × mesh) cell it builds the full config's
 trees on the ``meta`` device (:mod:`repro_torch.launch.specs`), runs the
-cell's entry once on them under ``torch.utils.flop_counter.FlopCounterMode``
-and appends one JSONL record with the reference's keys:
+cell's entry once on them under a product FLOP counter
+(:func:`flop_counter`: ``torch.utils.flop_counter.FlopCounterMode``'s count),
+then each sampled rank's program (:mod:`repro_torch.launch.rank_cost`), and
+appends one JSONL record with the reference's keys:
 
 * ``memory.argument_bytes`` — per device, exactly: each argument leaf's
   shard, its shape divided by the mesh sizes of the axes its placement
@@ -13,30 +15,34 @@ and appends one JSONL record with the reference's keys:
   and their placements (the trees it updates in place keep their
   arguments' placements; logits as ``specs.logits_spec``; metrics
   replicated);
-* ``cost.flops`` — the FLOPs of one run of the entry over the whole
-  program (``cost.flops_program``) divided by ``chips``, which assumes the
-  work splits evenly over the devices.  ``FlopCounterMode`` counts the
-  products (``mm``, ``bmm``, ``addmm``, convolutions, attention) and every
-  iteration of every Python loop (layers, microbatches, loss chunks, scan
-  chunks), and nothing else; the grouped product of the MoE has no formula
-  of its own and gets :func:`grouped_mm_flops` (2·rows·k·n);
+* ``cost.flops_program`` — the FLOPs of one run of the entry over the
+  whole program, on one device: ``FlopCounterMode`` counts the products
+  (``mm``, ``bmm``, ``addmm``, convolutions, attention) and every iteration
+  of every Python loop (layers, microbatches, loss chunks, scan chunks),
+  and nothing else; the grouped product of the MoE has no formula of its
+  own and gets :func:`grouped_mm_flops` (2·rows·k·n);
+* ``cost.flops`` and ``collectives`` — per device, from one rank's program
+  (:mod:`repro_torch.launch.rank_cost`, the port's ``hlo_cost``): the
+  rank's blocks on the meta device, run in a stand-in process group of the
+  mesh's size, its product FLOPs and every collective it issues, by
+  ``hlo_cost``'s five kinds (``bytes_by_op``: each op's result bytes;
+  ``total_bytes``, ``total_ops``: one op a call), of the sampled rank with
+  the most FLOPs (the rank at 0 on every axis, and at each axis's last
+  coordinate); ``ranks`` gives each sampled rank's coordinates, FLOPs and
+  census;
 * ``model_params`` and ``model_active_params`` — from the config;
 * ``lower_s`` — the seconds to build the cell's meta trees, ``compile_s``
-  the seconds of the meta run.
+  the seconds of the one-device meta run, ``census_s`` those of the ranks'.
 
 Fields without a counterpart are written as null, under the reference's
 keys, and ``null_fields`` gives each one's reason: ``temp_bytes``,
 ``alias_bytes`` and ``peak_per_device`` (no compiler memory analysis: torch
-allocates as it goes), ``bytes_accessed``, ``xla_cost`` and
-``collectives_flat`` (no HLO), and the collective census with the
-while-loop trip counts (no SPMD partitioner: the program is one device's
-whole model, whose collectives torch does not plan).
-
-``repro.launch.hlo_cost`` has no module here, because torch has no HLO.
-What it computes splits three ways: its trip-count-weighted FLOPs are
-``FlopCounterMode``'s, which counts every loop iteration as it runs; its
-bytes are the placements' (``memory``); its collective census has no
-counterpart.
+allocates as it goes), ``bytes_accessed`` (no HLO; on the meta device the
+plain versions of the kernels run, whose intermediates are not what the
+kernels move), ``xla_cost`` and ``collectives_flat`` (no HLO), and the
+census's ``while_loops`` and ``unknown_trip_loops`` (an eager program has
+no loops to weight: the FLOP counter and the recorder see every
+iteration as it runs).
 
 Usage::
 
@@ -66,10 +72,13 @@ NULL_FIELDS = {
     "memory.temp_bytes": "no compiler memory analysis: torch allocates as the program runs",
     "memory.alias_bytes": "no compiler memory analysis (no donation or buffer aliasing)",
     "memory.peak_per_device": "argument bytes plus temp bytes, and temp bytes have no counterpart",
-    "cost.bytes_accessed": "no HLO: the traffic of each fused op is not known without a compiler",
-    "collectives": "no SPMD partitioner: the meta run is the whole model on one device, "
-                   "with no collectives planned, and no while loops (FlopCounterMode counts "
-                   "every iteration as it runs)",
+    "cost.bytes_accessed": "no HLO: the traffic of each fused op is not known without a "
+                           "compiler, and on the meta device the plain versions of the kernels "
+                           "run, whose intermediates are not what the kernels move",
+    "collectives.while_loops": "an eager program has no loops to weight: FlopCounterMode and the "
+                               "collective recorder see every iteration as it runs",
+    "collectives.unknown_trip_loops": "an eager program has no loops to weight: FlopCounterMode "
+                                      "and the collective recorder see every iteration as it runs",
     "xla_cost": "no XLA: FlopCounterMode already counts every loop iteration",
     "collectives_flat": "no HLO to parse",
 }
@@ -98,12 +107,12 @@ def grouped_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
 
 
 def flop_counter():
-    """A ``FlopCounterMode`` with :func:`grouped_mm_flops` for the grouped
-    product, which it otherwise counts as 0."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    return FlopCounterMode(display=False,
-                           custom_mapping={torch.ops.aten._grouped_mm: grouped_mm_flops})
+    """A counter of product FLOPs for a ``with`` block (``get_total_flops()``
+    after it): ``FlopCounterMode``'s count, with :func:`grouped_mm_flops`
+    for the grouped product, which it otherwise counts as 0
+    (``rank_cost.ProductCounter``)."""
+    from .rank_cost import ProductCounter
+    return ProductCounter()
 
 
 def _mesh_tag(axes) -> str:
@@ -115,6 +124,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
     """Build the cell, run its entry once on the meta device, and append
     its record to ``out_path`` (if given)."""
     from .mesh import shard_bytes
+    from .rank_cost import cell_census
     from .specs import build_cell
 
     axes = production_axes(multi_pod)
@@ -126,6 +136,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
         outputs = cell.run()
     t_run = time.time() - t0
     flops = counter.get_total_flops()
+    t0 = time.time()
+    census = cell_census(cell)
+    t_census = time.time() - t0
 
     chips = 1
     for a in axes.names:
@@ -145,6 +158,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
         "model_active_params": cell.model_cfg.active_param_count(),
         "lower_s": round(t_build, 2),
         "compile_s": round(t_run, 2),
+        "census_s": round(t_census, 2),
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
@@ -153,12 +167,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
             "peak_per_device": None,
         },
         "cost": {
-            "flops": flops / chips,          # assumes an even split over the chips
+            "flops": census["flops"],        # the sampled rank's with the most
             "flops_program": flops,
             "bytes_accessed": None,
         },
-        "collectives": {"bytes_by_op": None, "total_bytes": None, "total_ops": None,
-                        "while_loops": None, "unknown_trip_loops": None},
+        "collectives": dict(census["collectives"], while_loops=None, unknown_trip_loops=None),
+        "ranks": census["ranks"],
         "xla_cost": {"flops": None, "bytes_accessed": None},
         "collectives_flat": {"bytes_by_op": None, "counts_by_op": None, "total_bytes": None,
                              "total_ops": None},
@@ -170,8 +184,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
         with open(out_path, "a") as f:
             f.write(json.dumps(record) + "\n")
     if verbose:
-        print(json.dumps({k: record[k] for k in ("arch", "shape", "mesh", "compile_s")}
-                         | {"argument_bytes": arg_bytes, "flops": flops}))
+        print(json.dumps({k: record[k] for k in ("arch", "shape", "mesh", "compile_s",
+                                                 "census_s")}
+                         | {"argument_bytes": arg_bytes, "flops": flops,
+                            "flops_per_device": census["flops"],
+                            "collective_bytes": census["collectives"]["bytes_by_op"]}))
     return record
 
 

@@ -74,7 +74,10 @@ Each rank saves its logits at every step, the milliseconds of its prefills
 and decodes (the host's clock, the device synchronised) and of each
 decode's K2 calls, gathers, all-reduces and exchanges (:func:`timing`), the bytes it
 received through the gathers and exchanges of the layers in each
-(``layers.GATHERED``), each MoE layer's milliseconds and dropped pairs, its
+(``layers.GATHERED``), every collective it issued in each
+(``layers.collective_census``, what ``launch.rank_cost`` holds the ranks
+to) and how many experts each gather of the experts' d took
+(``layers.EXPERTS_KEPT``), each MoE layer's milliseconds and dropped pairs, its
 kernel launch counts, its leaves' and cache's shapes and, on the card, the
 bytes its parameters and its cache hold (``torch.cuda.memory_allocated()``
 grown by building each).  The
@@ -326,16 +329,33 @@ def _shapes(tree) -> Dict[str, tuple]:
     return {name: tuple(leaf.shape) for name, leaf in leaves_with_names(tree)}
 
 
+def _reset_records() -> None:
+    from repro_torch.models import layers
+    layers.GATHERED.clear()
+    layers.COLLECTIVES.clear()
+    layers.EXPERTS_KEPT.clear()
+
+
+def _records() -> Dict:
+    """What the model's layers recorded since :func:`_reset_records`:
+    {"gathered": ``layers.GATHERED``, "census": the collectives issued
+    (``layers.collective_census``), "kept": how many experts each gather
+    of the experts' d took (``layers.EXPERTS_KEPT``)}."""
+    from repro_torch.models import layers
+    return {"gathered": dict(layers.GATHERED), "census": layers.collective_census(),
+            "kept": list(layers.EXPERTS_KEPT)}
+
+
 def _serve(args, cfg_of, params, device, dtype, rows: slice, warm: bool = True) -> Dict:
     """Prefill and decode once untimed (where ``warm``), then prefill the
     prompts' ``rows`` once for each capacity factor into a fresh cache (the
     model of ``cfg_of(cf)``), and decode ``--decodes`` tokens of those rows
     through ``decode_slots`` after the first.  Returns {"prefill": [{"cf", "logits", "moe",
-    "launches", "ms", "gathered"}], "decode": {"logits": [...], "ms": [...],
-    "gathered": [...], "parts": [...], "moe", "launches"}, "cache": the
-    first cache's leaf shapes, "cache_bytes"}; "gathered" is {what: bytes}
-    received through ``layers.GATHERED``'s gathers in the prefill or each
-    decode, "parts" each decode's :func:`_parts_ms`."""
+    "launches", "ms", "gathered", "census", "kept"}], "decode": {"logits": [...],
+    "ms": [...], "gathered": [...], "census": [...], "kept": [...], "parts": [...], "moe",
+    "launches"}, "cache": the first cache's leaf shapes, "cache_bytes"}; "gathered",
+    "census" and "kept" are the prefill's or each decode's :func:`_records`,
+    "parts" each decode's :func:`_parts_ms`."""
     import torch
 
     from repro_torch.kernels import ops
@@ -364,7 +384,7 @@ def _serve(args, cfg_of, params, device, dtype, rows: slice, warm: bool = True) 
         if i == 0:
             out.update(cache=_shapes(cache), cache_bytes=_allocated(device) - before)
         ops.reset_launch_counts()
-        layers.GATHERED.clear()
+        _reset_records()
         with torch.no_grad(), timing(device) as calls:
             t0 = time.perf_counter()
             logits, cache = model.prefill(params, inputs, cache)
@@ -372,24 +392,25 @@ def _serve(args, cfg_of, params, device, dtype, rows: slice, warm: bool = True) 
             ms = (time.perf_counter() - t0) * 1e3
         out["prefill"].append({"cf": cf, "logits": logits.float().cpu(),
                                "moe": _moe_calls(calls), "launches": ops.launch_counts(),
-                               "ms": ms, "gathered": dict(layers.GATHERED)})
+                               "ms": ms, **_records()})
         if i == 0:
-            steps, step_ms, gathered, parts = [], [], [], []
+            steps, step_ms, parts, records = [], [], [], []
             ops.reset_launch_counts()
             with torch.no_grad(), timing(device) as calls:
                 for t in range(args.decodes):
-                    layers.GATHERED.clear()
+                    _reset_records()
                     first = len(calls)
                     t0 = time.perf_counter()
                     step = model.decode_slots(params, cache, fed[t], rows)
                     _sync(device)
                     step_ms.append((time.perf_counter() - t0) * 1e3)
                     steps.append(step.float().cpu())
-                    gathered.append(dict(layers.GATHERED))
+                    records.append(_records())
                     parts.append(_parts_ms(calls[first:]))
             out["decode"] = {"logits": steps, "ms": step_ms, "moe": _moe_calls(calls),
-                             "launches": ops.launch_counts(), "gathered": gathered,
-                             "parts": parts}
+                             "launches": ops.launch_counts(), "parts": parts,
+                             **{k: [r[k] for r in records] for k in ("gathered", "census",
+                                                                     "kept")}}
         del cache
     return out
 
@@ -426,7 +447,7 @@ def run_rank(args: argparse.Namespace) -> None:
             # raises for a placement no layer runs (model_placements)
             params, param_bytes, built = rank_procs.build_in_turns(
                 device, args.rank, args.ranks,
-                lambda: mesh.build_params(model, torch.Generator(device).manual_seed(SEED), dtype))
+                lambda: rank_procs.rank_params(model, device, dtype, SEED))
             rows = mesh.batch_rows(args.batch)
             built_peak = _peak(device)
             if device.type == "cuda":

@@ -111,6 +111,20 @@ def rank_device(name: str, rank: int = 0):
     return device
 
 
+def rank_params(model, device, dtype, seed: int = 0, mode: str = "serve"):
+    """This rank's blocks of ``model``'s weights from ``seed`` by ``mode``'s
+    rules at the ambient mesh (``launch.mesh.build_params``), on
+    ``device``: what a serving rank (``launch.parallel``) and a training
+    rank (``launch.train``) hold; on the meta device (``launch.rank_cost``)
+    shapes alone, drawn from a CPU generator."""
+    import torch
+
+    from repro_torch.launch import mesh
+    device = torch.device(device)
+    generator = torch.Generator("cpu" if device.type == "meta" else device).manual_seed(seed)
+    return mesh.build_params(model, generator, dtype, device=device, mode=mode)
+
+
 def sync(device) -> None:
     import torch
     if device.type == "cuda":

@@ -179,12 +179,13 @@ def run(args: argparse.Namespace, cfg, model, params, *, sharding=None, keep: bo
     ``params`` are its blocks and ``sharding`` says how it holds them
     (``models.optim.Sharding``).  Returns {"params", "opt", "history": one
     {"step", "loss", "grad_norm", "lr", "seconds", "launches", "gathered",
-    "reduced"} per step, "seconds", "lines": the log lines ``say`` was
-    given}, and with ``keep`` also "grads", step 1's gradients, fp32 copies
-    on the CPU; a step's seconds run to the read of its loss, its launches are the
-    kernels' (``ops.launch_counts``) and its "gathered" and "reduced" bytes
-    its collectives' over "data" (``layers.GATHERED["fsdp"]``,
-    ``layers.REDUCED``)."""
+    "reduced", "census"} per step, "seconds", "lines": the log lines ``say``
+    was given}, and with ``keep`` also "grads", step 1's gradients, fp32
+    copies on the CPU; a step's seconds run to the read of its loss, its
+    launches are the kernels' (``ops.launch_counts``), its "gathered" and
+    "reduced" bytes its collectives' over "data" (``layers.GATHERED["fsdp"]``,
+    ``layers.REDUCED``) and its "census" every collective it issued
+    (``layers.collective_census``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     from repro_torch.models.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -224,6 +225,7 @@ def run(args: argparse.Namespace, cfg, model, params, *, sharding=None, keep: bo
         launches = collections.Counter(ops.launch_counts())
         layers.GATHERED.pop("fsdp", None)
         layers.REDUCED.clear()
+        layers.COLLECTIVES.clear()
         params, opt, metrics = step_fn(params, opt, batch,
                                        on_grads=keep_grads if keep and step == start else None)
         tokens_done += args.batch * args.seq
@@ -233,7 +235,8 @@ def run(args: argparse.Namespace, cfg, model, params, *, sharding=None, keep: bo
                         "lr": float(metrics["lr"]), "seconds": time.time() - t_step,
                         "launches": dict(collections.Counter(ops.launch_counts()) - launches),
                         "gathered": layers.GATHERED.get("fsdp", 0),
-                        "reduced": dict(layers.REDUCED)})
+                        "reduced": dict(layers.REDUCED),
+                        "census": layers.collective_census()})
         if (step + 1) % args.log_every == 0:
             tps = tokens_done / (time.time() - t0)
             log(f"step {step + 1:5d}  loss {loss:8.4f}  "
@@ -264,11 +267,21 @@ def _refuse(args: argparse.Namespace) -> None:
                                   "reference behaviour (ROADMAP A3.8)")
 
 
+def rank_model(cfg, dm):
+    """(the model of ``cfg``, the ``models.optim.Sharding`` of this rank of
+    the device mesh ``dm``: ``launch.mesh.train_sharding`` of the whole
+    tree on the meta device)."""
+    from repro_torch.launch import mesh
+    from repro_torch.models.transformer import build_model
+    model = build_model(cfg)
+    whole = model.init(torch.Generator().manual_seed(SEED), torch.float32, device="meta")
+    return model, mesh.train_sharding(whole, dm)
+
+
 def run_rank(args: argparse.Namespace) -> None:
     """One rank: join the group, build its blocks of the parameters by the
     "train" rules and of the moments, train, save."""
     from repro_torch.launch import mesh
-    from repro_torch.models.transformer import build_model
     axes = mesh_axes(args)
     world = int(np.prod(mesh_shape(args)))
     with rank_procs.joined(args, world):
@@ -277,14 +290,11 @@ def run_rank(args: argparse.Namespace) -> None:
         with mesh.use_mesh(dm):
             cfg = model_config(args, quiet=True)
             _refuse(args)
-            model = build_model(cfg)
-            whole = model.init(torch.Generator().manual_seed(SEED), torch.float32, device="meta")
-            sharding = mesh.train_sharding(whole, dm)
+            model, sharding = rank_model(cfg, dm)
             # raises for a placement no layer runs (model_placements)
             params, param_bytes, built = rank_procs.build_in_turns(
-                device, args.rank, world, lambda: mesh.build_params(
-                    model, torch.Generator(device).manual_seed(SEED), torch.float32,
-                    mode="train"))
+                device, args.rank, world,
+                lambda: rank_procs.rank_params(model, device, torch.float32, SEED, mode="train"))
             moment_bytes = _moment_bytes(params, device)
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)

@@ -42,7 +42,10 @@ batch axes do not divide the batch, each rank's block of the KV sequence,
 whose attention is merged over "data" (:func:`merge_blocks`); under
 ``kv_seq_shard`` the sequence is cut over "model" instead, and a decode
 attends for every query head (``AttnHeads.whole_q``, ``whole_kv``) and
-merges over "model".  :func:`rglru` runs
+merges over "model".  Every collective goes through one of
+:func:`_all_gather`, :func:`_all_reduce`, :func:`_reduce_scatter` and
+:func:`_exchange` (and the optimizer's two all-reduces), which count it in
+:data:`COLLECTIVES` (:func:`record_collective`).  :func:`rglru` runs
 its fp32 recurrence as a chunked scan in plain PyTorch (:func:`rglru_scan`); the reference has no kernel for
 it either (``jax.lax.associative_scan``).
 """
@@ -625,8 +628,13 @@ def grouped_mm(x, w, group_sizes, *, force: Optional[str] = None):
     whose output shape needs no sizes.  Rows past the last group are not
     computed."""
     if ops._use_kernel(x, force) or x.is_meta:
-        # a meta tensor has shapes only: the loop would read the sizes
-        return torch._grouped_mm(x, w, offs=torch.cumsum(group_sizes, 0, dtype=torch.int32))
+        offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+        if x.is_meta:
+            # a meta tensor has shapes only: the loop would read the sizes,
+            # and the grouped call's shape function takes bf16 alone
+            return torch._grouped_mm(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                                     offs=offs).to(x.dtype)
+        return torch._grouped_mm(x, w, offs=offs)
     return grouped_mm_loop(x, w, group_sizes)
 
 
@@ -865,15 +873,47 @@ def _rank_and_size(group):
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+# the collectives this process issued, by the kinds of the reference's
+# ``repro.launch.hlo_cost``: COLLECTIVES[kind] the bytes of their results
+# (an all-gather's whole gathered tensor, a reduce-scatter's block) and
+# COLLECTIVES[kind + " ops"] their count, one a call.  Every collective of
+# the model and the optimizer goes through :func:`record_collective`, on
+# the real ranks and on the meta device alike (``launch.rank_cost``); read
+# with :func:`collective_census`, reset by the caller
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def record_collective(kind: str, result) -> None:
+    """Count one collective of ``kind`` whose result is ``result``."""
+    COLLECTIVES[kind] += result.numel() * result.element_size()
+    COLLECTIVES[kind + " ops"] += 1
+
+
+def collective_census() -> dict:
+    """{"bytes_by_op": {kind: result bytes}, "ops_by_op": {kind: calls}}
+    of :data:`COLLECTIVES`, every kind of :data:`COLLECTIVE_KINDS` present."""
+    return {"bytes_by_op": {k: COLLECTIVES[k] for k in COLLECTIVE_KINDS},
+            "ops_by_op": {k: COLLECTIVES[k + " ops"] for k in COLLECTIVE_KINDS}}
+
+
 def _all_gather(x, dim: int, group):
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim)
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order, gathered into the blocks of one tensor."""
+    x = x.contiguous()
+    blocks = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+    dist.all_gather(list(blocks.unbind(0)), x, group=group)
+    dim %= x.dim()
+    out = blocks.movedim(0, dim).flatten(dim, dim + 1)
+    record_collective("all-gather", out)
+    return out
 
 
 def _all_reduce(x, group):
     x = x.clone()
     dist.all_reduce(x, group=group)
+    record_collective("all-reduce", x)
     return x
 
 
@@ -940,6 +980,7 @@ def _reduce_scatter(x, dim: int, group):
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // dist.get_world_size(group),) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=group)
+    record_collective("reduce-scatter", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -1034,7 +1075,7 @@ def gather_experts(cfg: ModelConfig, p, x):
     first = 0 if E_loc == E else model_coordinate(mesh)[0] * E_loc
     idx = moe_route(cfg, p, x.reshape(-1, x.shape[-1]))[2].reshape(-1)
     chosen = torch.zeros(E, dtype=torch.int32, device=x.device).index_fill_(0, idx, 1)
-    keep = _all_reduce(chosen[first:first + E_loc], group).nonzero()[:, 0]
+    keep = _kept_experts(_all_reduce(chosen[first:first + E_loc], group))
     out = dict(p)
     for name, dim in (("w_in", -2), ("w_out", -1)):
         w = p[name]
@@ -1047,6 +1088,26 @@ def gather_experts(cfg: ModelConfig, p, x):
         if len(keep):
             out[name][keep] = _GatherData.apply(w[keep], dim, group, "experts")
     return out
+
+
+# how many of its experts each call of gather_experts gathered, in call
+# order, appended on every run and reset by the caller; a run on the meta
+# device, where no token routes, gathers EXPERTS_REPLAY's counts in turn
+# where given (``launch.rank_cost`` replays what real ranks recorded), else
+# every expert
+EXPERTS_KEPT: list = []
+EXPERTS_REPLAY: list = []
+
+
+def _kept_experts(chosen):
+    """The indices of the rank's experts that some token chose (``chosen``
+    (E_loc,) counts them), read on the host."""
+    if chosen.is_meta:
+        n = EXPERTS_REPLAY.pop(0) if EXPERTS_REPLAY else chosen.shape[0]
+        return torch.arange(n, device=chosen.device)
+    keep = chosen.nonzero()[:, 0]
+    EXPERTS_KEPT.append(len(keep))
+    return keep
 
 
 def merge_blocks(out, lse, group, what: str = "merge"):
@@ -1080,19 +1141,34 @@ def _router_stats(probs, load, K: int):
     return _Reduce.apply(probs.sum(dim=0), rows) / n, _all_reduce(load, rows) / (n * K)
 
 
+def _all_to_all(x, group, sent=None, got=None):
+    out = torch.empty_like(x) if got is None else x.new_empty((sum(got),) + x.shape[1:])
+    dist.all_to_all_single(out, x.contiguous(), got, sent, group=group)
+    record_collective("all-to-all", out)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`_all_to_all` whose gradient is the reverse exchange (what
+    ``torch.distributed.nn.functional.all_to_all_single`` computes), so
+    that the backward pass's exchange is recorded too."""
+
+    @staticmethod
+    def forward(ctx, x, group, sent, got):
+        ctx.group, ctx.sent, ctx.got = group, sent, got
+        return _all_to_all(x, group, sent, got)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, ctx.got, ctx.sent), None, None, None
+
+
 def _exchange(x, group, sent=None, got=None):
     """``all_to_all_single`` over ``group``: dim 0 of ``x`` in as many equal
     blocks as ranks (or of ``sent[j]`` rows), block j to rank j, block i of
     the result from rank i (of ``got[i]`` rows); its gradient is the reverse
     exchange."""
-    import warnings
-
-    import torch.distributed.nn.functional as dist_fn
-    out = torch.empty_like(x) if got is None else x.new_empty((sum(got),) + x.shape[1:])
-    with warnings.catch_warnings():
-        # newer torch marks the autograd form deprecated for a private module
-        warnings.simplefilter("ignore", FutureWarning)
-        return dist_fn.all_to_all_single(out, x.contiguous(), got, sent, group=group)
+    return _Exchange.apply(x, group, sent, got)
 
 
 def _overlap(ranges, lo: int, hi: int):

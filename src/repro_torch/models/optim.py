@@ -117,6 +117,7 @@ class Sharding:
         sq = torch.sum(torch.stack([torch.sum(torch.square(g.float())) / r for g, r in
                                     zip(grads, tree_leaves(self.replicas))]))
         dist.all_reduce(sq)
+        L.record_collective("all-reduce", sq)
         return torch.sqrt(sq)
 
 
@@ -238,6 +239,7 @@ def _reduce_over_data(params: PyTree, sharding: Sharding, rows_cut: bool) -> Non
             L.REDUCED["replicated"] += (2 * (sharding.size - 1) * p.grad.numel()
                                         * p.grad.element_size() // sharding.size)
             dist.all_reduce(p.grad, group=sharding.group)
+            L.record_collective("all-reduce", p.grad)
         if not rows_cut:
             p.grad.div_(sharding.size)
 

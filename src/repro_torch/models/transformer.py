@@ -421,6 +421,7 @@ class CacheStep:
     live: Optional[int] = None                   # positions a decode gathers (_decode_view)
     block: Optional[SeqBlock] = None             # the rank's block of the KV sequence
     runs: Optional[List] = None                  # a decode's K2 launches over it (block_runs)
+    at: Optional[List[int]] = None               # a decode's positions, where given on the host
 
 
 def run_block(cfg: ModelConfig, kind: str, p: Dict, x, positions, cache: Optional[Dict],
@@ -742,6 +743,8 @@ def _write_kv(layers: Dict, k_new, v_new, positions, rows, block: Optional[SeqBl
     ``block.whole`` slots, only the positions whose slots it holds are
     written, at their place in it."""
     k, v, kv_pos = layers["k"], layers["v"], layers["kv_pos"]
+    if k.is_meta:
+        return      # a cache on the meta device (launch.rank_cost) holds no values
     S = k.shape[-3] if block is None else block.whole
     n = min(positions.shape[1], S)
     positions = positions[:, -n:].long()
@@ -801,7 +804,8 @@ def _decode_view(heads: L.AttnHeads, k_c, v_c, step: CacheStep, positions, ring:
     rows = step.rows
     S = k_c.shape[1]
     if step.live is None:
-        step.live = S if ring else min(S, (int(positions.max()) // PAGE_SIZE + 1) * PAGE_SIZE)
+        furthest = int(positions.max()) if step.at is None else max(step.at)
+        step.live = S if ring else min(S, (furthest // PAGE_SIZE + 1) * PAGE_SIZE)
     kc = heads.gathered(k_c[rows, :step.live])
     vc = heads.gathered(v_c[rows, :step.live])
     n = rows.shape[0]
@@ -950,15 +954,17 @@ def _page_tables(rows, positions, S: int, batch: int, ring: bool, device):
     return (rows[:, None] * per_row + j).int().contiguous(), first
 
 
-def _device_runs(positions, block: SeqBlock, cfg: ModelConfig):
+def _device_runs(positions, block: SeqBlock, cfg: ModelConfig, at=None):
     """:func:`block_runs` of a decode at ``positions`` (n, 1), read on the
-    host once a step, with each launch's rows, first pages and context
-    lengths on the device."""
+    host once a step unless the caller gives them as ``at`` (host ints),
+    with each launch's rows, first pages and context lengths on the
+    device."""
     dev = positions.device
+    host = positions[:, 0].tolist() if at is None else list(at)
     return [(torch.tensor(ix, device=dev), torch.tensor(first, device=dev),
              torch.tensor(lens, dtype=torch.int32, device=dev), w)
-            for ix, first, lens, w in block_runs(positions[:, 0].tolist(), block,
-                                                 cfg.sliding_window, cfg.kv_append == "defer")]
+            for ix, first, lens, w in block_runs(host, block, cfg.sliding_window,
+                                                 cfg.kv_append == "defer")]
 
 
 def _prefill_start(cache, S: int, T: int, start: Optional[int] = None,
@@ -1195,17 +1201,20 @@ class TransformerLM:
         return self.prefill(params, {"tokens": tokens}, cache, force=force)
 
     def decode_slots(self, params, cache, tokens, slots, *,
-                     force: Optional[str] = None):
+                     force: Optional[str] = None, at=None):
         """Decode one token for each cache row in ``slots`` and no other.
 
         tokens: (n, 1); slots: (n,) row indices; each token goes at its row's
         ``cache_len``, which then grows by one (in place).  Returns logits
-        (n, V)."""
+        (n, V).  ``at`` gives the rows' ``cache_len`` where the caller
+        knows them (host ints), which a rank that holds a block of the KV
+        sequence or of head_dim otherwise reads on the host (a cache on the
+        meta device holds no values)."""
         rows = torch.as_tensor(slots, device=tokens.device).long()
         positions = cache["cache_len"][rows].long()[:, None]
-        step = CacheStep(rows=rows, block=cache.get("seq_block"))
+        step = CacheStep(rows=rows, block=cache.get("seq_block"), at=at)
         if step.block is not None:
-            step.runs = _device_runs(positions, step.block, self.cfg)
+            step.runs = _device_runs(positions, step.block, self.cfg, at)
         elif self.has_attn:
             kv = self._attn_cache(cache)["k"]
             step.block_tables, first = _page_tables(rows, positions[:, 0], kv.shape[-3],
@@ -1456,16 +1465,16 @@ class EncDecLM:
         return self.prefill(params, {"tokens": tokens}, cache, force=force)
 
     def decode_slots(self, params, cache, tokens, slots, *,
-                     force: Optional[str] = None):
+                     force: Optional[str] = None, at=None):
         """As :meth:`TransformerLM.decode_slots`; the cross-attention reads
         the listed rows' cross K/V through K2, F keys each."""
         rows = torch.as_tensor(slots, device=tokens.device).long()
         positions = cache["cache_len"][rows].long()[:, None]
         kv, xk = cache["layers"]["k"], cache["cross_k"]
         n = rows.shape[0]
-        step = CacheStep(rows=rows, block=cache.get("seq_block"))
+        step = CacheStep(rows=rows, block=cache.get("seq_block"), at=at)
         if step.block is not None:
-            step.runs = _device_runs(positions, step.block, self.cfg)
+            step.runs = _device_runs(positions, step.block, self.cfg, at)
         else:
             step.block_tables = _page_tables(rows, positions[:, 0], kv.shape[-3], kv.shape[-4],
                                              False, tokens.device)[0]

@@ -29,7 +29,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.launch import mesh
 from repro_torch.models import transformer
 from repro_torch.models.transformer import SeqBlock, build_model
-from test_torch_serve_mesh import REPO, WORKER, _Coords, _env
+from test_torch_serve_mesh import REPO, WORKER, _Coords, _env, check_census
 
 DECODES = 3
 DM = ("data", "model")
@@ -297,3 +297,10 @@ def check_launcher(argv):
         steps = [step[key] for step in r["decode"]["gathered"]]
         assert steps[0] > 0 and len(set(steps)) == 1, steps
     assert key in parallel.summary(ranks, ref)[-1]
+
+
+def check_rank_census(entry):
+    """Every rank's census on the meta device against what it recorded at
+    each prefill chunk and each decode (``check_census``)."""
+    case, ranks, _, _ = entry
+    check_census(case, ranks)

@@ -19,9 +19,11 @@ the prompts (``launch.mesh.batch_rows``: every row where the batch axes do
 not divide the batch) chunk by chunk, the frames with the first, and
 decodes the fed tokens of those rows through ``decode_slots``.  It saves its leaves' and cache's
 shapes, its coordinates, its rows, the logits after each chunk and each
-decode, its cache's values after the prefill and after the decodes and the
-bytes it gathered (``layers.GATHERED``) to OUT/rank<RANK>.pt.  It imports
-torch and the port only.
+decode, its cache's values after the prefill and after the decodes, the
+bytes it gathered (``layers.GATHERED``), each chunk's and each decode's
+product FLOPs and collective census (``launch.rank_cost.measure``) and how
+many experts each gather of the experts' d took (``layers.EXPERTS_KEPT``)
+to OUT/rank<RANK>.pt.  It imports torch and the port only.
 """
 
 import sys
@@ -30,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import mesh
+from repro_torch.launch.rank_cost import measure
 from repro_torch.models import layers
 from repro_torch.models.transformer import build_model
 
@@ -49,21 +52,24 @@ def serve(case):
         rows = mesh.batch_rows(B)
         mine = torch.arange(rows.stop - rows.start)
         layers.GATHERED.clear()
-        logits, s0 = [], 0
+        layers.EXPERTS_KEPT.clear()
+        logits, census, s0 = [], [], 0
         for n in case["chunks"]:
             inputs = {"tokens": prompt[rows, s0:s0 + n]}
             if frames is not None and s0 == 0:
                 inputs["frontend_embeds"] = frames[rows]
-            logits.append(model.prefill(params, inputs, cache)[0])
+            census.append(measure(lambda: logits.append(model.prefill(params, inputs, cache)[0])))
             s0 += n
         kept = [_values(cache)]
         for t in range(fed.shape[0]):
-            logits.append(model.decode_slots(params, cache, fed[t][rows], mine))
+            census.append(measure(
+                lambda: logits.append(model.decode_slots(params, cache, fed[t][rows], mine))))
         kept.append(_values(cache))
     shapes = {what: {name: tuple(leaf.shape) for name, leaf in mesh.leaves_with_names(tree)}
               for what, tree in (("params", params), ("cache", cache))}
     return dict(shapes, logits=logits, cache_values=kept, rows=(rows.start, rows.stop),
-                gathered=dict(layers.GATHERED), block=cache.get("seq_block"),
+                gathered=dict(layers.GATHERED), census=census,
+                experts_kept=list(layers.EXPERTS_KEPT), block=cache.get("seq_block"),
                 cross_block=cache.get("cross_block"),
                 coords={a: dm[a].get_local_rank() for a in axes.names})
 

@@ -13,9 +13,10 @@ rules (``launch.mesh.shard_params(..., mode="train")``), builds the
 ``Sharding`` of its mesh (``launch.mesh.train_sharding``), and trains
 through ``make_train_step`` on the whole batch (it takes its rows).  It
 saves its blocks' shapes, each step's loss and grad_norm, its block of step
-1's gradients and of the parameters after the steps, its mesh coordinates
-and the bytes it gathered and reduced over "data" to OUT/rank<RANK>.pt.  It
-imports torch and the port only.
+1's gradients and of the parameters after the steps, its mesh coordinates,
+the bytes it gathered and reduced over "data" and each step's product FLOPs
+and collective census (``launch.rank_cost.measure``) to OUT/rank<RANK>.pt.
+It imports torch and the port only.
 """
 
 import sys
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import mesh
+from repro_torch.launch.rank_cost import measure
 from repro_torch.models import layers
 from repro_torch.models.optim import init_adamw, make_train_step, tree_map
 from repro_torch.models.transformer import build_model
@@ -50,15 +52,20 @@ def train(case):
 
         layers.GATHERED.clear()
         layers.REDUCED.clear()
+        census = []
         for batch in case["batches"]:
-            _, _, metrics = step(params, opt, batch, on_grads=keep if step1 is None else None)
+            out = []
+            census.append(measure(lambda: out.append(
+                step(params, opt, batch, on_grads=keep if step1 is None else None))))
+            metrics = out[0][2]
             losses.append(float(metrics["loss"]))
             norms.append(float(metrics["grad_norm"]))
     return {"shapes": {name: tuple(leaf.shape) for name, leaf in mesh.leaves_with_names(params)},
             "losses": losses, "norms": norms, "grads": step1,
             "final": tree_map(lambda p: p.detach().clone(), params),
             "coords": (sharding.rank, mesh.model_coordinate(dm)[0]),
-            "gathered": layers.GATHERED["fsdp"], "reduced": sum(layers.REDUCED.values())}
+            "gathered": layers.GATHERED["fsdp"], "reduced": sum(layers.REDUCED.values()),
+            "census": census}
 
 
 def main(world, rank, store, out, cases):

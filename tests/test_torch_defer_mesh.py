@@ -76,6 +76,11 @@ def test_rank_cache_is_the_one_process_cache_block(groups, name):
     cp.check_cache(groups[name])
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_census_equals_what_each_rank_issued(groups, name):
+    cp.check_rank_census(groups[name])
+
+
 @pytest.mark.parametrize("S,D,window", [(64, 2, 64), (64, 4, 64), (64, 2, 48), (64, 2, None),
                                         (128, 4, 80), (64, 2, 1)])
 def test_deferred_block_runs_read_the_cache_before_the_token_once(S, D, window):

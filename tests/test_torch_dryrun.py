@@ -14,7 +14,9 @@ against the reference's (``repro.launch.{specs,dryrun,hlo_cost}``).
 * The FLOPs of every cell of the 13 configs against the analytical count
   (:func:`analytic_flops`: the products of the active parameters per token,
   the dense attention the plain version computes, the SSD scan's products)
-  within ``FLOP_TOL``.
+  within ``FLOP_TOL``; each record's per-device FLOPs and collective census
+  are its largest sampled rank's (``launch.rank_cost``), and the fault-C6
+  cells no longer read the program's even split.
 * The FLOPs of one reduced ``train_step`` against the reference's
   ``analyze_hlo`` of the same program compiled on one CPU device, within
   ``HLO_TOL``: the reference also counts elementwise ops and reductions,
@@ -41,7 +43,7 @@ from repro.models.optim import make_train_step as jax_make_train_step
 from repro.models.transformer import build_model as jax_build_model
 from repro_torch.configs import (ARCH_IDS, PAPER_ARCH_IDS, SHAPES, all_cells,
                                  applicable_shapes, get_config, get_reduced_config)
-from repro_torch.launch import dryrun, specs
+from repro_torch.launch import dryrun, rank_cost, specs
 from repro_torch.launch.mesh import MeshAxes, leaves_with_names, shard_bytes
 from repro_torch.models.optim import OptimizerConfig, init_adamw, make_train_step
 from repro_torch.models.transformer import build_model
@@ -291,11 +293,58 @@ def test_flops_match_the_analytical_count(records, arch, shape):
     expect = analytic_flops(get_config(arch), shape)
     got = record["cost"]["flops_program"]
     assert abs(got - expect) <= FLOP_TOL * expect, (got, expect, got / expect)
-    assert record["cost"]["flops"] == got / record["chips"]
+    # per device: the largest of the sampled ranks' (launch.rank_cost), each
+    # at least its even share of the program
+    ranks = record["ranks"]
+    assert record["cost"]["flops"] == max(r["flops"] for r in ranks)
+    assert min(r["flops"] for r in ranks) >= got / record["chips"] * (1 - 1e-9)
+    assert [r["coords"] for r in ranks] == rank_cost.sampled_coords(
+        dryrun.production_axes(False))
     assert record["memory"]["argument_bytes"] > 0 and record["memory"]["output_bytes"] > 0
-    assert _keys(record) - {"cost.flops_program", "null_fields", "device"} == REFERENCE_KEYS
-    assert record["memory"]["temp_bytes"] is None and record["collectives"]["total_ops"] is None
-    assert set(record["null_fields"]) >= {"memory.temp_bytes", "collectives"}
+    assert _keys(record) - {"cost.flops_program", "null_fields", "device", "census_s",
+                            "ranks"} == REFERENCE_KEYS
+    assert record["memory"]["temp_bytes"] is None
+    collectives = record["collectives"]
+    assert set(collectives["bytes_by_op"]) == set(rank_cost.KINDS)
+    assert collectives["total_bytes"] == sum(collectives["bytes_by_op"].values())
+    # every cell's mesh splits it over "model" (and its rows or sequence
+    # over "data"): some rank gathers or reduces
+    assert collectives["total_ops"] > 0 and collectives["total_bytes"] > 0
+    assert collectives["while_loops"] is None and collectives["unknown_trip_loops"] is None
+    assert set(record["null_fields"]) >= {"memory.temp_bytes", "collectives.while_loops"}
+    assert "collectives" not in record["null_fields"]
+
+
+# fault C6: the per-device FLOPs were the program's divided by the chips
+# (llama3_8b's decode, whisper_base's decode, qwen2_5_3b's training step);
+# the reference's analyze_hlo of each cell at 16x16, products alone
+C6_REFERENCE = {("llama3_8b", "decode_32k"): 16_094_593_024,
+                ("whisper_base", "decode_32k"): 657_440_768,
+                ("qwen2_5_3b", "train_4k"): 413_212_361_097_216}
+
+
+def test_fault_c6_cells_read_their_ranks_not_the_even_split(records):
+    """The fault-C6 cells' per-device FLOPs are their largest rank's.
+    llama3_8b's decode splits evenly in both programs and equals the
+    reference's.  whisper_base's decode does not split evenly: its 8 heads
+    do not divide over 16 "model" ranks, and each rank's K2 attends every
+    head over its rows' K and V gathered to whole heads, so a rank does
+    14.7 times its even share, 5.8 times the reference's, which splits the
+    attention on head_dim (PERF.md §6).  qwen2_5_3b's step splits evenly in
+    the port (its rank reads the even share, now from the rank's own
+    program), a quarter of the reference's, whose partitioner runs every
+    head's attention on every "model" rank (PERF.md §6)."""
+    ratio = {}
+    for cell, ref in C6_REFERENCE.items():
+        record = records[cell]
+        even = record["cost"]["flops_program"] / record["chips"]
+        assert record["cost"]["flops"] == max(r["flops"] for r in record["ranks"])
+        ratio[cell] = (record["cost"]["flops"] / even, record["cost"]["flops"] / ref)
+    assert ratio[("llama3_8b", "decode_32k")] == (1.0, 1.0)
+    assert 14 < ratio[("whisper_base", "decode_32k")][0] < 15
+    assert 5.7 < ratio[("whisper_base", "decode_32k")][1] < 5.9
+    assert ratio[("qwen2_5_3b", "train_4k")][0] == 1.0
+    assert 0.26 < ratio[("qwen2_5_3b", "train_4k")][1] < 0.28
 
 
 # the keys of a record of the reference's ``run_cell`` (``src/repro/launch/dryrun.py:128-169``)
@@ -312,10 +361,12 @@ REFERENCE_KEYS = {
 
 
 def _keys(record, prefix=""):
-    """A record's keys, nested ones joined by "." (``null_fields`` whole)."""
+    """A record's keys, nested ones joined by "." (``null_fields`` and the
+    dictionaries by collective kind whole, as the reference's keys list
+    them)."""
     out = set()
     for k, v in record.items():
-        if isinstance(v, dict) and k != "null_fields":
+        if isinstance(v, dict) and k not in ("null_fields", "bytes_by_op", "counts_by_op"):
             out |= _keys(v, f"{prefix}{k}.")
         else:
             out.add(prefix + k)

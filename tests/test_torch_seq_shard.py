@@ -64,6 +64,11 @@ def test_rank_cache_is_the_one_process_cache_block(groups, name):
     cp.check_cache(groups[name])
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_census_equals_what_each_rank_issued(groups, name):
+    cp.check_rank_census(groups[name])
+
+
 def test_launcher_runs_kv_seq_shard_on_cpu_ranks():
     """``launch.parallel --opt kv_seq_shard`` as phase 36 runs it on the
     card, at reduced size: qwen2_5_3b at (1, 4) (``cp.check_launcher``)."""

@@ -225,6 +225,54 @@ def _expected_shapes(case):
     return out
 
 
+def rank_census(case, rank):
+    """The census of the rank at ``rank["coords"]`` on the meta device
+    (``launch.rank_cost.serve_program`` in a stand-in group of the case's
+    mesh): each prefill chunk's and each decode's product FLOPs and
+    collectives, its experts' gathers sized by what the rank recorded."""
+    from repro_torch.launch import rank_cost
+    names, sizes = case["mesh"]
+    frames = case.get("frames")
+    lengths = list(case["chunks"]) + [1] * case["fed"].shape[0]
+    return rank_cost.census(mesh.MeshAxes(names, sizes), rank["coords"], lambda: (
+        rank_cost.serve_program(case["cfg"], case["prompt"].shape[0], case["cache_size"],
+                                lengths, dtype=torch.float32,
+                                seq_shard=case.get("seq_shard", False),
+                                frames=0 if frames is None else frames.shape[1],
+                                kept=rank["experts_kept"])))
+
+
+def check_census(case, ranks):
+    """Every rank's census on the meta device (:func:`rank_census`) equals
+    what the rank recorded at each prefill chunk and each decode: the
+    collectives' result bytes and ops by kind exactly, and the product
+    FLOPs exactly where no grouped product runs on a rank's block of the
+    experts (whose meta run counts every row it is given, a real rank the
+    routed ones alone: at most the census's)."""
+    exact_flops = case["cfg"].moe is None
+    for r in ranks:
+        got = rank_census(case, r)
+        assert len(got) == len(r["census"])
+        for step, (meta, real) in enumerate(zip(got, r["census"])):
+            where = f"rank {r['coords']} step {step}"
+            assert meta["bytes_by_op"] == real["bytes_by_op"], where
+            assert meta["ops_by_op"] == real["ops_by_op"], where
+            if exact_flops:
+                assert meta["flops"] == real["flops"], where
+            else:
+                assert real["flops"] <= meta["flops"], where
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_census_equals_what_each_rank_issued(groups, name):
+    """``launch.rank_cost``'s census of every rank, each prefill chunk and
+    each decode, against what the gloo ranks recorded (:func:`check_census`):
+    rows over the batch axes, the KV sequence over "data", the experts' d
+    gathered over them, pod meshes."""
+    case, ranks, _, _ = groups[name]
+    check_census(case, ranks)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_rank_blocks_are_the_rules_blocks(groups, name):
     case, ranks, _, _ = groups[name]

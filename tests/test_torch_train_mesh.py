@@ -255,6 +255,35 @@ def test_blocks_are_the_train_placements(groups, name):
         assert expect["embed"][-1] == cfg.d_model // 2
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_census_equals_what_each_rank_issued(groups, name):
+    """``launch.rank_cost``'s census of each rank's step on the meta device
+    (``train_program`` in a stand-in group of the case's mesh) equals what
+    the rank recorded at each of its steps: the collectives' result bytes
+    and ops by kind exactly, and the product FLOPs exactly where no grouped
+    product runs on the rank's block of the experts (there the meta run
+    counts every row it is given, a real rank the routed ones alone)."""
+    from repro_torch.launch import rank_cost
+    cfg, _, ranks, _, _ = groups[name]
+    B = CASES[name][3]
+    batch = {k: torch.empty((B, SEQ), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    axes = mesh.MeshAxes(("data", "model"), CASES[name][2])
+    for r in ranks:
+        coords = dict(zip(("data", "model"), r["coords"]))
+        meta = rank_cost.census(axes, coords, lambda: rank_cost.train_program(
+            cfg, batch, MICROBATCHES, dtype=torch.float32))
+        assert len(r["census"]) == STEPS
+        for real in r["census"]:
+            assert meta["bytes_by_op"] == real["bytes_by_op"], coords
+            assert meta["ops_by_op"] == real["ops_by_op"], coords
+            if cfg.moe is None:
+                assert meta["flops"] == real["flops"], coords
+            else:
+                assert real["flops"] <= meta["flops"], coords
+        assert sum(meta["ops_by_op"].values()) > 0     # the norm's all-reduce at least
+
+
 # --------------------------------------------------------------------------
 # without ranks
 # --------------------------------------------------------------------------
