@@ -128,6 +128,15 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    ``max_new_tokens`` tokens, that the engine's prefix cache hit, and that
    K1 and K2 ran while it served (counts set to 0 once the stack is built),
    and prints the hits, TTFT p50 and the phase's seconds;
+6f. runs fig6's accuracy measurement on qwen2_5_3b at full width in bf16
+   (``repro_torch.launch.fig6_accuracy.measure``: a calibration stream of
+   15 requests in real mode, a ``LinearPredictor`` fitted on it, then an
+   evaluation stream of 30 served twice in real mode and once emulated, on
+   fig6's engine: 64-token steps, blocks of 4, prefix caching on); it
+   fails where a request did not finish with its tokens, a real run
+   launched no K1 or no K2, or the emulated run launched a kernel or
+   changed the allocated device memory, and prints the row, its facts (the
+   real-vs-real floor beside each error) and the phase's seconds;
 7. builds mamba2_370m at full width and depth in bf16 from a seeded
    generator and compares its logits with K3 against the plain scan after a
    256-token prefill, a ragged 379-token chunk from the carried state, and a
@@ -2028,6 +2037,10 @@ def main() -> int:
     log("== 6e. the serve CLI in real mode: qwen2_5_3b, 8 requests sharing a 512-token prefix")
     launches.update(serve_cli_prefix())
     torch.cuda.empty_cache()
+    log("== 6f. fig6's accuracy run: qwen2_5_3b served real twice and emulated once, "
+        "30 requests")
+    launches.update(fig6_accuracy())
+    torch.cuda.empty_cache()
 
     log("== 7. mamba2_370m, full width and depth, bf16, random weights (seed 0)")
     cfg, model, params = build_full("mamba2_370m")
@@ -2758,6 +2771,27 @@ def serve_cli_prefix():
         f"prompt tokens, cached_prefix_len {[r.cached_prefix_len for r in reqs]}), TTFT p50 "
         f"{summary['ttft_p50_ms']:.3f} ms, {len(reqs)} requests, {secs:.1f} s; launches "
         f"{dict(counts)}")
+    return {name: counts[name] for name in ("flash_attention", "paged_attention")}
+
+
+def fig6_accuracy():
+    """Phase 6f: ``fig6_accuracy.measure`` on qwen2_5_3b at full width in
+    bf16, as the module's entry point runs each architecture.  It raises
+    where a request did not finish with its tokens, a real run launched no
+    K1 or no K2, or the emulated run launched a kernel or changed the
+    allocated bytes; the errors and the floor are logged, not gated.
+    Returns the three real runs' launches of K1 and K2."""
+    from repro_torch.launch import fig6_accuracy as fig6
+    t0 = time.monotonic()
+    facts = {}
+    row = fig6.measure("qwen2_5_3b", n=30, device="cuda", dtype=torch.bfloat16, facts=facts)
+    log("fig6: " + json.dumps({"row": row, "facts": facts}))
+    counts = collections.Counter()
+    for key in ("calibration", "real", "real2"):
+        counts.update(facts["phases"][key]["launches"])
+    log(f"phase 6f: TTFT p50 error {row['ttft_p50_err']:.4f} against a real-vs-real floor of "
+        f"{row['real_noise_floor']:.4f}, {facts['requests_parted']} of 30 requests parted "
+        f"between the real runs, {time.monotonic() - t0:.1f} s")
     return {name: counts[name] for name in ("flash_attention", "paged_attention")}
 
 

@@ -96,9 +96,11 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repr
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "examples")
+import serve_real_vs_emulated_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m.split(".")[0] in ("repro", "benchmarks"))
 assert not bad, bad
 print(len(names))
 """
@@ -114,7 +116,8 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in
-                    [*(SRC / "repro_torch").rglob("*.py"), REPO / "chip_smoke.py"])
+                    [*(SRC / "repro_torch").rglob("*.py"), REPO / "chip_smoke.py",
+                     REPO / "examples" / "serve_real_vs_emulated_torch.py"])
 
 
 @pytest.mark.parametrize("sub", ["cluster", "des", "scenario", "fleet"])
@@ -137,7 +140,7 @@ def test_no_import_statement_names_jax_or_reference(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), f"{path}: imports {name}"
 
 
 NO_TORCH = """

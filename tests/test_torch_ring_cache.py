@@ -185,20 +185,22 @@ def test_a_local_layer_without_a_window_keeps_the_whole_row():
     assert spans == [96] and not tm.windowed
 
 
-def _stack(model, params, caching):
+def _stack(model, params, caching, block_size):
     engine_cfg = EngineConfig(policy="vllm", max_num_seqs=4, max_batched_tokens=100,
-                              block_size=16, num_blocks=256, enable_prefix_caching=caching,
-                              chip="h100-sxm")
+                              block_size=block_size, num_blocks=256 * 16 // block_size,
+                              enable_prefix_caching=caching, chip="h100-sxm")
     return build_stack(model.cfg, engine_cfg, "real", model=model, params=params,
                        max_len=CACHE, device="cpu", dtype=torch.float32)
 
 
-def test_windowed_prefix_hits_give_the_unhit_tokens():
+@pytest.mark.parametrize("block_size", [16, 4])
+def test_windowed_prefix_hits_give_the_unhit_tokens(block_size):
     """Reduced mixtral, four requests sharing a 150-token prefix (9 full
-    blocks, more than twice the ring): the first alone, the rest after it,
-    their prompts in chunks of up to 100 tokens, each cut in pieces of 48
-    where the store is on.  The hits load the blocks of the window before
-    each request's start into its ring."""
+    blocks of 16, 37 of 4; more than twice the ring): the first alone, the
+    rest after it, their prompts in chunks of up to 100 tokens, each cut in
+    pieces of 64 - block_size (48 or 60) where the store is on.  The hits
+    load the blocks of the window before each request's start into its
+    ring.  Blocks of 4 are the engine's of the fig6 accuracy run."""
     cfg = get_reduced_config("mixtral_8x7b")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(32), torch.float32, "cpu")
@@ -207,7 +209,7 @@ def test_windowed_prefix_hits_give_the_unhit_tokens():
     prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist() for n in (7, 30, 61, 12)]
     runs = {}
     for caching in (False, True):
-        stack = _stack(model, params, caching)
+        stack = _stack(model, params, caching, block_size)
         reqs = [Request(prompt_tokens=list(p), max_new_tokens=6) for p in prompts]
         engine = stack.engine
         for wave in (reqs[:1], reqs[1:]):
@@ -219,6 +221,6 @@ def test_windowed_prefix_hits_give_the_unhit_tokens():
     stack, hit = runs[True]
     assert stack.runner._ring == (64, 64)
     assert stack.engine.prefix_cache.stats.device_hits > 0
-    assert [r.cached_prefix_len for r in hit[1:]] == [144] * 3
+    assert [r.cached_prefix_len for r in hit[1:]] == [150 // block_size * block_size] * 3
     for a, b in zip(hit, runs[False][1]):
         assert a.output_tokens == b.output_tokens
