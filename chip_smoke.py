@@ -24,8 +24,10 @@ From the root of a checkout: puts ``src`` on ``sys.path`` and imports only
    kernel's host cost a call, the device time of each launch (K1's one, K2's
    and K3's two; torch.profiler), K1's plan and ptxas's registers and spills
    for the kernel it picks, and K3 at the ragged serving chunk (T=379), at
-   T=2048 and 8192, and at a tensor-parallel rank's heads (2 rows of 1000
-   tokens, 32, 8 and 2 heads).  K1's grid adds the bf16 kernel's GQA packing (G=8
+   T=2048 and 8192, at mamba2_370m's training shape (4 x 2048) and at a
+   tensor-parallel rank's heads (2 rows of 1000 tokens, 32, 8 and 2 heads),
+   each of K3's launches beside its own bounds, with ptxas's registers and
+   spills of every K3 instantiation (none may spill).  K1's grid adds the bf16 kernel's GQA packing (G=8
    at D=128, G=6), windows with G > 1, T and S - T off the tile grids, D=32
    and 64, and B=2 views of a larger slot cache.  K2's grid adds its
    sliding window (windows of 1, page - 1, page, two partitions and one past
@@ -1378,14 +1380,65 @@ def ssd_flops(B, T, H, P, N, Q):
     return total
 
 
+SSD_FWD_LAUNCHES = ("ssd_fwd_chunk", "ssd_fwd_scan")
+
+
+def ssd_launch_flops(B, T, H, P, N, Q):
+    """``ssd_flops`` cut by launch: ssd_fwd_chunk computes C·Bᵀ over the
+    triangle and each head's ΔS with its weighting; ssd_fwd_scan the L
+    weighting, (C·Bᵀ ∘ L)·xdt, exp(cum)·C·S_prev and the decay of the
+    state."""
+    chunk = scan = 0
+    for c0 in range(0, T, Q):
+        q = min(Q, T - c0)
+        tri = q * (q + 1) // 2
+        chunk += B * 2 * N * tri + B * H * (2 * q * N * P + q * P)
+        scan += B * H * (tri + 2 * P * tri + 2 * q * N * P + q * P + N * P)
+    return {"ssd_fwd_chunk": chunk, "ssd_fwd_scan": scan}
+
+
+def ssd_launch_bounds(B, T, H, P, N, Q):
+    """Each launch's least time by its operations alone, ms: at 3xTF32's
+    rate on the tensor cores (the arithmetic it uses) and on the CUDA
+    cores."""
+    return {k: {"3xtf32_ms": f / PEAK_3XTF32_FLOPS * 1e3, "cuda_cores_ms": f / PEAK_FP32_FLOPS * 1e3}
+            for k, f in ssd_launch_flops(B, T, H, P, N, Q).items()}
+
+
+def ssd_fwd_resources():
+    """ptxas's registers and spills of every K3 instantiation (both
+    launches, fp32 and bf16, column tiles 16, 32 and 64) from this run's
+    build log; none may spill."""
+    from repro_torch.kernels import _build
+    blog = _build.build_log.get("ssd_scan", "")
+    res = {f"{k}<{tn},{pt}>": kernel_resources(blog, f"{k}I{mangled}Li{pt}E")
+           for k in SSD_FWD_LAUNCHES for tn, mangled in (("float", "f"), ("bf16", "13__nv_bfloat16"))
+           for pt in (16, 32, 64)}
+    spills = {k: v for k, v in res.items() if v is None or v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        raise AssertionError(f"K3: ptxas reports spills (or no entry) for {spills}")
+    return res
+
+
+def log_launches(what, launch, bounds):
+    log(f"{what} device time per launch: " + "; ".join(
+        f"{k} {launch[k]:.4f} ms (bounds by operations: 3xTF32 {bounds[k]['3xtf32_ms']:.5f}, "
+        f"CUDA cores {bounds[k]['cuda_cores_ms']:.5f})" for k in SSD_FWD_LAUNCHES))
+
+
 def measure_ssd(ops):
     """K3 at the mamba2_370m prefill shape: one 512-token chunk of one
     sequence from a carried state, fp32, as the SSD layer calls it; then the
-    ragged 379-token chunk of the serving traffic, and prefill budgets of
-    2048 and 8192 tokens (16 and 64 chunks), where the state passing along
-    the chunks would show if it grew faster than the chunks."""
+    ragged 379-token chunk of the serving traffic, prefill budgets of 2048
+    and 8192 tokens (16 and 64 chunks), where the state passing along the
+    chunks would show if it grew faster than the chunks, and mamba2_370m's
+    training shape (4 sequences of 2048).  Each launch's device time is
+    printed beside its own bounds (``ssd_launch_bounds``), and ptxas's
+    registers and spills of every instantiation (``ssd_fwd_resources``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
+    ptxas = ssd_fwd_resources()
+    log(f"K3 ptxas: {ptxas}")
     B, T, H, P, N, Q = 1, 512, 32, 64, 128, 128
     gen = torch.Generator(device="cuda").manual_seed(6)
     (xdt, dA, Bm, Cm), s0 = ssd_inputs(gen, B, T, H, P, N, torch.float32, carry=True)
@@ -1403,10 +1456,9 @@ def measure_ssd(ops):
     g_ms = graph_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
     h_us = host_us(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0))
     passes = pass_ms(lambda: ops.ssd_scan(xdt, dA, Bm, Cm, chunk=Q, initial_state=s0),
-                     ("ssd_fwd_chunk", "ssd_fwd_scan"))
-    log(f"K3 mamba2_370m T={T} device time per pass (column tile "
-        f"{ssd_mod.col_tile(P)}): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
+                     SSD_FWD_LAUNCHES)
+    log_launches(f"K3 mamba2_370m T={T} (column tile {ssd_mod.col_tile(P)})", passes,
+                 ssd_launch_bounds(B, T, H, P, N, Q))
     flops = ssd_flops(B, T, H, P, N, Q)
     nbytes = 4 * (xdt.numel() + dA.numel() + Bm.numel() + Cm.numel() + s0.numel()
                   + y.numel() + st.numel())
@@ -1415,26 +1467,29 @@ def measure_ssd(ops):
         f"no library call, "
         f"bound {b_ms:.5f} ms by {b_by} ({flops / 1e9:.4f} GFLOP, "
         f"{nbytes / 1e6:.3f} MB; {bounds}); host {h_us:.1f} us a call")
-    # the ragged serving chunk (379 tokens) and long prefill budgets, each
-    # from a carried state
-    for T2 in (379, 2048, 8192):
-        (x2, a2, B2, C2), s2 = ssd_inputs(gen, B, T2, H, P, N, torch.float32, carry=True)
-        y2, st2 = ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2)
-        y2_exp, st2_exp = ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2, force="plain")
+    # the ragged serving chunk (379 tokens), long prefill budgets and the
+    # training shape, each from a carried state
+    lengths = {}
+    for B2, T2 in ((1, 379), (1, 2048), (1, 8192), (4, 2048)):
+        (x2, a2, B2m, C2), s2 = ssd_inputs(gen, B2, T2, H, P, N, torch.float32, carry=True)
+        y2, st2 = ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2)
+        y2_exp, st2_exp = ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2, force="plain")
         torch.cuda.synchronize()
-        assert_close(f"K3 mamba2_370m T={T2} y", y2, y2_exp, "float32")
-        assert_close(f"K3 mamba2_370m T={T2} state", st2, st2_exp, "float32")
-        ms2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2))
-        g2 = graph_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2))
-        plain2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2,
+        assert_close(f"K3 mamba2_370m {B2}x{T2} y", y2, y2_exp, "float32")
+        assert_close(f"K3 mamba2_370m {B2}x{T2} state", st2, st2_exp, "float32")
+        ms2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2))
+        g2 = graph_ms(lambda: ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2))
+        plain2 = time_ms(lambda: ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2,
                                               force="plain"))
-        passes2 = pass_ms(lambda: ops.ssd_scan(x2, a2, B2, C2, chunk=Q, initial_state=s2),
-                          ("ssd_fwd_chunk", "ssd_fwd_scan"))
-        nbytes2 = 4 * (2 * x2.numel() + a2.numel() + B2.numel() + C2.numel() + 2 * s2.numel())
-        b2_ms, b2_by, _ = kernel_bounds(ssd_flops(B, T2, H, P, N, Q), nbytes2, "float32")
-        log(f"K3 mamba2_370m T={T2}: kernel {ms2:.4f} ms ({g2:.4f} in a graph), "
-            f"plain {plain2:.4f} ms, bound {b2_ms:.5f} ms by {b2_by}; device time per pass: "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in passes2.items()))
+        passes2 = pass_ms(lambda: ops.ssd_scan(x2, a2, B2m, C2, chunk=Q, initial_state=s2),
+                          SSD_FWD_LAUNCHES)
+        nbytes2 = 4 * (2 * x2.numel() + a2.numel() + B2m.numel() + C2.numel() + 2 * s2.numel())
+        b2_ms, b2_by, _ = kernel_bounds(ssd_flops(B2, T2, H, P, N, Q), nbytes2, "float32")
+        lengths[f"{B2}x{T2}"] = {"ms": ms2, "graph_ms": g2, "plain_ms": plain2,
+                                 "bound_ms": b2_ms, "launch_ms": passes2}
+        log(f"K3 mamba2_370m {B2}x{T2}: kernel {ms2:.4f} ms ({g2:.4f} in a graph), "
+            f"plain {plain2:.4f} ms, bound {b2_ms:.5f} ms by {b2_by}")
+        log_launches(f"K3 mamba2_370m {B2}x{T2}", passes2, ssd_launch_bounds(B2, T2, H, P, N, Q))
     # a tensor-parallel rank's heads (phase 29: 8 of 32 at 4 ranks; 2 at 16)
     # on phase 29's prompt, two rows of 1000 tokens from a carried state
     heads = {}
@@ -1460,7 +1515,8 @@ def measure_ssd(ops):
             "replaces": "src/repro/kernels/ssd_scan.py:84",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bounds": bounds, "library_ms": None, "graph_ms": g_ms,
-            "library_graph_ms": None, "host_us": h_us, "rank_heads": heads}
+            "library_graph_ms": None, "host_us": h_us, "launch_ms": passes,
+            "lengths": lengths, "rank_heads": heads, "ptxas": ptxas}
 
 
 # -------------------------------------------------------------------------

@@ -580,6 +580,68 @@ def ssd_scan_two_pass(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None):
     return ssd_scan_pass(xdt, Cm, CBt, cum, dS, decay, initial_state=initial_state)
 
 
+def ssd_scan_two_pass_tiled(xdt, dA, Bm, Cm, *, chunk: int = 128, initial_state=None,
+                            matmul=matmul_3xtf32):
+    """K3's two launches as the kernels compute them (``csrc/ssd_scan.cu``),
+    in plain PyTorch with every product through ``matmul`` (the kernels'
+    3xTF32 by default); :func:`ssd_scan_chunked`'s signature and result.
+    Chunks are ``chunk`` long whatever T, a ragged tail padded with zeros;
+    16-row strips of a chunk are the kernels' row tiles.  With cum the
+    inclusive fp64 cumsum of dA inside a chunk, ecum = exp(cum), w =
+    exp(cum_last − cum) and L[i,j] = exp(cum_i − cum_j) for i ≥ j (each
+    difference rounded to fp32 before exp):
+
+    1. ``ssd_fwd_chunk``: C·Bᵀ over the lower-triangular strips once per
+       chunk (strip r: its rows against B's rows below 16(r + 1)); per head
+       ΔS = Bᵀ·(w ∘ xdt) and the decay exp(cum_last);
+    2. ``ssd_fwd_scan``: S_prev ← decay·S_prev + ΔS from chunk to chunk, and
+       per strip r, y = (C·Bᵀ ∘ L)·xdt over the depth below 16(r + 1) plus
+       (ecum ∘ C)·S_prev, L and ecum applied to the left operand before its
+       products.
+
+    From bf16 inputs C·Bᵀ's operands are exact in TF32, so 3xTF32 gives the
+    bits of the kernel's one pass there.  xdt (B,T,H,P), dA (B,T,H), Bm/Cm
+    (B,T,N), initial_state (B,H,N,P) or None.  Returns (y (B,T,H,P), final
+    state (B,H,N,P)), fp32."""
+    B, T, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-T) % Q
+    nC = (T + pad) // Q
+    strips = [(r, r + 16) for r in range(0, Q, 16)]
+    dev = xdt.device
+    x = F.pad(xdt.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nC, Q, H, P).permute(0, 1, 3, 2, 4)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nC, 1, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nC, 1, Q, N)
+    cum = torch.cumsum(F.pad(dA.float(), (0, 0, 0, pad)).reshape(B, nC, Q, H).double(), dim=2)
+    cum = cum.permute(0, 1, 3, 2)                                  # (B, C, H, Q)
+    ecum = torch.exp(cum.float())
+    w = torch.exp((cum[..., -1:] - cum).float())
+    decay = torch.exp(cum[..., -1].float())                        # (B, C, H)
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    L = torch.exp(torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                              torch.tensor(-torch.inf, dtype=torch.float64, device=dev)).float())
+
+    # 1. C·Bᵀ over the triangle's strips; each head's ΔS
+    CB = torch.zeros((B, nC, 1, Q, Q), dtype=torch.float32, device=dev)
+    for r0, r1 in strips:
+        CB[..., r0:r1, :r1] = matmul(Cc[..., r0:r1, :], Bc[..., :r1, :].transpose(-1, -2))
+    dS = matmul(Bc.transpose(-1, -2), w[..., None] * x)           # (B, C, H, N, P)
+
+    # 2. the states from chunk to chunk, and y strip by strip
+    CBL = torch.where(tril, CB * L, 0.0)                           # (B, C, H, Q, Q)
+    eC = ecum[..., None] * Cc                                      # (B, C, H, Q, N)
+    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+         if initial_state is None else initial_state.float())
+    y = torch.zeros_like(x)
+    for c in range(nC):
+        for r0, r1 in strips:
+            y[:, c, :, r0:r1] = (matmul(CBL[:, c, :, r0:r1, :r1], x[:, c, :, :r1])
+                                 + matmul(eC[:, c, :, r0:r1], s))
+        s = s * decay[:, c, :, None, None] + dS[:, c]
+    return y.permute(0, 1, 3, 2, 4).reshape(B, nC * Q, H, P)[:, :T], s
+
+
 def ssd_scan_bwd_two_pass(xdt, dA, Bm, Cm, dy, *, chunk: int = 128, initial_state=None,
                           d_final=None):
     """The gradient of :func:`ssd_scan_chunked` as K3-bwd's passes in plain

@@ -10,20 +10,28 @@ is masked, which is exact (a masked position multiplies the state by exp(0)
 and adds nothing).
 
 On the card the work is bound by operations (at the mamba2_370m prefill
-shape, about 60 FLOPs per byte moved).  The kernel is the chunked-SSD
-decomposition in two launches, both parallel over chunks: the first
-computes C·Bᵀ once per chunk and each (chunk, head)'s own state
-contribution ΔS into fp32 scratch; in the second each chunk takes its
-starting state by a look-back that never waits (the end state the nearest
-earlier chunk has published, plus the ΔS of the chunks in between), publishes
-its own end state, and produces y as one product of depth Q + N.  Products are fp32 on the CUDA cores, register-tiled, to hold the
-plain version to 2e-4.  The source is ``csrc/ssd_scan.cu``.
+shape, about 60 FLOPs per byte moved), and its products need fp32's
+accuracy, so every product runs on the tensor cores as 3xTF32 ``mma.sync``
+(495 / 3 TFLOP/s on an H100), as K3's gradient does.  The kernel is the
+chunked-SSD decomposition in two launches, both parallel over chunks:
+``ssd_fwd_chunk`` computes C·Bᵀ over the causal triangle once per chunk and
+each (chunk, head)'s own state contribution ΔS into fp32 scratch; in
+``ssd_fwd_scan`` each chunk takes its starting state by a look-back that
+never waits (the end state the nearest earlier chunk has published, plus the
+ΔS of the chunks in between), publishes its own end state, and produces y as
+one product of depth Q + N in slices of 32, each loaded into registers a
+slice ahead and written into one of two shared buffers with L or exp(cum)
+applied to the left operand before the 3xTF32 split.  The source is
+``csrc/ssd_scan.cu``.
 
-:func:`ssd_scan` launches the kernels on CUDA tensors and raises on what they
-do not take; it never falls back to the plain version.  The plain version is
-:func:`repro_torch.kernels.ref.ssd_scan_chunked`, and
+:func:`col_tile` and :func:`scratch_shapes` lay a call out from its shapes
+alone; each launch's shared memory follows in the source from the chunk, N
+and the tile.  :func:`ssd_scan` launches the kernels on CUDA tensors and
+raises on what they do not take; it never falls back to the plain version.  The plain version is
+:func:`repro_torch.kernels.ref.ssd_scan_chunked`;
 :func:`repro_torch.kernels.ref.ssd_scan_two_pass` is the kernel's two passes
-in plain PyTorch.
+in plain PyTorch and :func:`repro_torch.kernels.ref.ssd_scan_two_pass_tiled`
+their strips and 3xTF32 products.
 """
 
 from __future__ import annotations
@@ -39,9 +47,8 @@ from . import _build
 
 MAX_CHUNK = 128             # longest chunk; a multiple of ROW_BLOCK
 MAX_STATE = 128             # largest N
-ROW_BLOCK = 16              # chunk lengths are multiples of this
+ROW_BLOCK = 16              # chunk lengths are multiples of this: a strip of mma rows
 COL_TILE = 16               # P is a multiple of this
-COL_TILES = (64, 32, 16)    # state columns a block may own
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0        # wrapper calls that launched the kernels since the last reset
@@ -52,29 +59,32 @@ def n_chunks(T: int, chunk: int) -> int:
 
 
 def col_tile(P: int) -> int:
-    """State columns a block owns: the widest tile that divides P.  On the
-    H100 at the mamba2_370m prefill shapes the widest tile was the fastest
-    even where it leaves SMs idle (T = 379: 96 blocks), since the narrower
-    ones repeat the weighting of C·Bᵀ for every tile (PERF.md)."""
-    return next(pt for pt in COL_TILES if P % pt == 0)
+    """State columns a block owns: the widest of 64, 32, 16 that divides P.
+    A block of ssd_fwd_scan weights its C·Bᵀ ∘ L and exp(cum) ∘ C values
+    once for all its columns, so a wider tile weights each for more
+    products (at mamba2_370m's prefill lengths on the H100, 64 columns beat
+    32 even where they leave SMs idle: PERF.md)."""
+    return 64 if P % 64 == 0 else 32 if P % 32 == 0 else 16
 
 
 def scratch_shapes(B: int, T: int, H: int, P: int, N: int, chunk: int):
-    """Shapes of the scratch between and within the two launches: AT (C·Bᵀ
-    transposed over Cᵀ, per chunk), dS (each chunk's state contribution per
-    head), carry (each chunk's published end state), decay (exp of each
-    chunk's summed dA per head), all fp32, and the int32 flags that say a
-    chunk's end state is published, one per (chunk, head, column tile)."""
+    """Shapes of the scratch between and within the two launches: CB (C·Bᵀ
+    of each chunk, row i and the columns left of the end of i's 16-row
+    strip), dS (each chunk's state contribution per head), carry (each
+    chunk's published end state), decay (exp of each chunk's summed dA per
+    head), all fp32, the int32 flags that say a chunk's end state is
+    published, one per (chunk, head, column tile), and cumx (each chunk's
+    cumsum of dA per head as Q fp64 values, then exp(cum) in fp32)."""
     nc = n_chunks(T, chunk)
-    return ((B, nc, chunk + N, chunk), (B, nc, H, N, P), (B, nc, H, N, P), (B, nc, H),
-            (B, nc, H, P // col_tile(P)))
+    return ((B, nc, chunk, chunk), (B, nc, H, N, P), (B, nc, H, N, P), (B, nc, H),
+            (B, nc, H, P // col_tile(P)), (B, nc, H, 3 * chunk))
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("ssd_scan").ssd_scan_fwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 12 + [i] * 7 + [ll] * 10 + [i, p]
+    fn.argtypes = [p] * 13 + [i] * 7 + [ll] * 10 + [i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -138,21 +148,23 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
                              f"{tuple(initial_state.shape)}")
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=xdt.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=xdt.device)
-    # the scratch in one allocation of 4-byte words: AT, dS, decay (fp32),
-    # then the flags (int32); the sizes of AT and dS are multiples of 16
-    # values, so dS stays 64-byte aligned.  carry has an allocation of its
-    # own, so that keeping it for the gradient keeps nothing else.
-    shapes = scratch_shapes(B, T, H, P, N, chunk)
-    carry = torch.empty(shapes[2], dtype=torch.float32, device=xdt.device)
-    sizes = [math.prod(shape) for k, shape in enumerate(shapes) if k != 2]
+    # the scratch in one allocation of 4-byte words: CB, dS, cumx, decay
+    # (fp32), then the flags (int32); the sizes of CB, dS and cumx are
+    # multiples of 16 values, so each part after them stays 64-byte aligned.
+    # carry has an allocation of its own, so that keeping it for the
+    # gradient keeps nothing else.
+    cb_s, ds_s, carry_s, decay_s, flags_s, cumx_s = scratch_shapes(B, T, H, P, N, chunk)
+    carry = torch.empty(carry_s, dtype=torch.float32, device=xdt.device)
+    sizes = [math.prod(shape) for shape in (cb_s, ds_s, cumx_s, decay_s, flags_s)]
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=xdt.device)
-    at_ptr, ds_ptr, decay_ptr, flags_ptr = (
-        scratch.data_ptr() + 4 * sum(sizes[:k]) for k in range(4))
+    cb_ptr, ds_ptr, cumx_ptr, decay_ptr, flags_ptr = (
+        scratch.data_ptr() + 4 * sum(sizes[:k]) for k in range(5))
     fn = _kernel()
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              initial_state.data_ptr() if initial_state is not None else None,
-             at_ptr, ds_ptr, carry.data_ptr(), decay_ptr, flags_ptr, y.data_ptr(), state.data_ptr(),
+             cb_ptr, ds_ptr, cumx_ptr, carry.data_ptr(), decay_ptr, flags_ptr, y.data_ptr(),
+             state.data_ptr(),
              B, T, H, P, N, chunk, col_tile(P),
              xdt.stride(0), xdt.stride(1), xdt.stride(2),
              dA.stride(0), dA.stride(1), dA.stride(2),

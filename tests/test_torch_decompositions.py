@@ -187,8 +187,8 @@ def test_ssd_plan(B, T, H, P, chunk, tile):
     assert ssd_mod.col_tile(P) == tile
     nc = -(-T // chunk)
     assert ssd_mod.scratch_shapes(B, T, H, P, N, chunk) == (
-        (B, nc, chunk + N, chunk), (B, nc, H, N, P), (B, nc, H, N, P), (B, nc, H),
-        (B, nc, H, P // tile))
+        (B, nc, chunk, chunk), (B, nc, H, N, P), (B, nc, H, N, P), (B, nc, H),
+        (B, nc, H, P // tile), (B, nc, H, 3 * chunk))
 
 
 @pytest.mark.parametrize("module", ["paged_attention.py", "ssd_scan.py"])
